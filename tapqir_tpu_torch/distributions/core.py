@@ -1,0 +1,202 @@
+"""Core distribution primitives as plain functions on tensors (counterpart of
+tapqir_tpu/distributions/core.py).
+
+Gamma-family draws are reparameterized by implicit differentiation: the
+draw comes from ``torch._standard_gamma`` and its gradient with respect to
+the concentration is ``torch._standard_gamma_grad`` (Knowles' three-regime
+approximation - the algorithm the JAX package's ``standard_gamma_grad``
+reimplements). The JAX package's fixed six-proposal sampler unroll was a
+TPU workaround and has no counterpart here; its clamps do (concentration
+and draw both at least the dtype's tiny).
+
+Every draw goes through :class:`_StdGammaDraw`, which also accepts draws
+made elsewhere (``draws=``): that seam lets tests feed the JAX package's
+draws into the port's ELBO and compare values and gradients exactly.
+"""
+
+import math
+
+import torch
+
+
+def _log(v):
+    """log of a Python number (in float64) or of a tensor."""
+    if isinstance(v, (int, float)):
+        return math.log(v)
+    return torch.log(v)
+
+
+def _lgamma(v):
+    """lgamma of a Python number (in float64) or of a tensor."""
+    if isinstance(v, (int, float)):
+        return math.lgamma(v)
+    return torch.lgamma(v)
+
+
+# ---------------------------------------------------------------------------
+# Standard Gamma draws (implicit reparameterization)
+# ---------------------------------------------------------------------------
+
+
+class _StdGammaDraw(torch.autograd.Function):
+    """Returns the given draws ``z ~ Gamma(conc, 1)``; the backward is the
+    pathwise gradient dz/dconc = ``torch._standard_gamma_grad(conc, z)``,
+    with non-finite values zeroed as the JAX package does."""
+
+    @staticmethod
+    def forward(ctx, conc, z):
+        ctx.save_for_backward(conc, z)
+        return z.view_as(z)
+
+    @staticmethod
+    def backward(ctx, grad):
+        conc, z = ctx.saved_tensors
+        dz = torch._standard_gamma_grad(conc, z)
+        dz = torch.where(torch.isfinite(dz), dz, torch.zeros_like(dz))
+        return grad * dz, None
+
+
+def std_gamma_sample(conc, generator=None, draws=None):
+    """z ~ Gamma(conc, 1) with a pathwise gradient. ``draws`` (same shape as
+    ``conc``) replaces the random draw."""
+    if draws is None:
+        tiny = torch.finfo(conc.dtype).tiny
+        with torch.no_grad():
+            z = torch._standard_gamma(
+                conc.detach().clamp_min(tiny), generator=generator
+            ).clamp_min(tiny)
+    else:
+        z = draws.to(dtype=conc.dtype, device=conc.device).reshape(conc.shape)
+    return _StdGammaDraw.apply(conc, z)
+
+
+def std_gamma_sample_packed(concs, generator=None, draws=None):
+    """One :func:`std_gamma_sample` over several concentration tensors,
+    flattened (row-major) and concatenated in the given order; returns the
+    samples in matching shapes. ``draws`` is the flat packed vector."""
+    shapes = [c.shape for c in concs]
+    flat = torch.cat([c.reshape(-1) for c in concs])
+    g = std_gamma_sample(flat, generator, draws)
+    out, o = [], 0
+    for s in shapes:
+        n = math.prod(s)
+        out.append(g[o:o + n].reshape(s))
+        o += n
+    return out
+
+
+def beta_from_gamma_pair(g1, g0):
+    """Beta sample from its two Gamma draws, clipped strictly inside (0, 1)."""
+    u = g1 / (g1 + g0)
+    eps = torch.finfo(u.dtype).eps
+    return torch.clamp(u, eps, 1.0 - eps)
+
+
+def dirichlet_from_gammas(g):
+    """Dirichlet sample from per-component Gamma draws (event axis last),
+    clipped and renormalized."""
+    out = g / g.sum(-1, keepdim=True)
+    eps = torch.finfo(out.dtype).eps
+    out = torch.clamp(out, eps, 1.0)
+    return out / out.sum(-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# Gamma (concentration/rate)
+# ---------------------------------------------------------------------------
+
+
+def gamma_log_prob(x, concentration, rate):
+    return (
+        torch.xlogy(concentration, rate)
+        + torch.xlogy(concentration - 1.0, x)
+        - rate * x
+        - torch.lgamma(concentration)
+    )
+
+
+# ---------------------------------------------------------------------------
+# HalfNormal(scale), Exponential(rate)
+# ---------------------------------------------------------------------------
+
+_HALF_LOG_2_OVER_PI = 0.5 * math.log(2.0 / math.pi)
+
+
+def halfnormal_log_prob(x, scale):
+    return _HALF_LOG_2_OVER_PI - _log(scale) - 0.5 * (x / scale) ** 2
+
+
+def exponential_log_prob(x, rate):
+    return _log(rate) - rate * x
+
+
+# ---------------------------------------------------------------------------
+# Beta(concentration1, concentration0)
+# ---------------------------------------------------------------------------
+
+
+def beta_log_prob(x, c1, c0):
+    return (
+        torch.xlogy(c1 - 1.0, x)
+        + torch.xlogy(c0 - 1.0, 1.0 - x)
+        + _lgamma(c1 + c0)
+        - _lgamma(c1)
+        - _lgamma(c0)
+    )
+
+
+# ---------------------------------------------------------------------------
+# AffineBeta(mean, sample_size, low, high):
+#   c1 = size (mean - low) / (high - low), c0 = size (high - mean) / (high - low)
+#   Y = low + (high - low) Beta(c1, c0)
+# ---------------------------------------------------------------------------
+
+
+def affine_beta_concentrations(mean, sample_size, low, high):
+    width = high - low
+    c1 = sample_size * (mean - low) / width
+    c0 = sample_size * (high - mean) / width
+    return c1, c0
+
+
+def affine_beta_log_prob(x, mean, sample_size, low, high):
+    c1, c0 = affine_beta_concentrations(mean, sample_size, low, high)
+    width = high - low
+    u = (x - low) / width
+    return beta_log_prob(u, c1, c0) - _log(width)
+
+
+def affine_beta_sample(mean, sample_size, low, high, generator=None):
+    """Sample with tensor ``sample_size``; both Beta Gammas in one draw."""
+    c1, c0 = affine_beta_concentrations(mean, sample_size, low, high)
+    c1, c0 = torch.broadcast_tensors(c1, c0)
+    g1, g0 = std_gamma_sample_packed([c1, c0], generator)
+    return low + (high - low) * beta_from_gamma_pair(g1, g0)
+
+
+# ---------------------------------------------------------------------------
+# Dirichlet(concentration) [event along the last axis]
+# ---------------------------------------------------------------------------
+
+
+def dirichlet_log_prob(x, concentration):
+    return (
+        torch.xlogy(concentration - 1.0, x).sum(-1)
+        + torch.lgamma(concentration.sum(-1))
+        - torch.lgamma(concentration).sum(-1)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Bernoulli (enumeration only - never sampled in SVI)
+# ---------------------------------------------------------------------------
+
+
+def bernoulli_log_prob(value, probs):
+    """log p(value) with value in {0, 1}; safe at probs in {0, 1}."""
+    eps = torch.finfo(probs.dtype).tiny
+    return torch.where(
+        value > 0.5,
+        torch.log(torch.clamp(probs, min=eps)),
+        torch.log1p(-torch.clamp(probs, max=1 - eps)),
+    )

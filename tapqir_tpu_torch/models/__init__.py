@@ -1,0 +1,10 @@
+"""Model registry (counterpart of tapqir_tpu/models/__init__.py)."""
+
+from tapqir_tpu_torch.models.cosmos import cosmos
+from tapqir_tpu_torch.models.model import Model
+
+__all__ = ["models", "Model", "cosmos"]
+
+models = {
+    cosmos.name: cosmos,
+}

@@ -1,0 +1,401 @@
+"""cosmos: multi-color time-independent colocalization model (counterpart of
+tapqir_tpu/models/cosmos.py; the training path of this slice).
+
+The generative model, the mean-field guide and the marginalized ELBO are the
+JAX package's: the discrete latents z, theta and m are summed out with dense
+tables and logsumexp, every guide site is drawn in ONE packed standard-Gamma
+draw, and the image likelihood is the event-summed offset-Gamma kernel.
+Subsampled-plate scaling is (Nt/n)(F/f) for local terms and Nt/n for the
+per-AOI terms.
+
+Draw seam: :meth:`cosmos.elbo_from_windows` takes ``draws``, the packed flat
+vector of standard-Gamma draws, in the JAX package's packing order (gain,
+lamda, pi, proximity c1, proximity c0, background, height, width c1, x c1,
+y c1, width c0, x c0, y c0). Tests feed the JAX package's draws through it.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from tapqir_tpu_torch import constraints
+from tapqir_tpu_torch.distributions.core import (
+    affine_beta_concentrations,
+    affine_beta_log_prob,
+    beta_from_gamma_pair,
+    dirichlet_from_gammas,
+    dirichlet_log_prob,
+    exponential_log_prob,
+    gamma_log_prob,
+    halfnormal_log_prob,
+    std_gamma_sample_packed,
+)
+from tapqir_tpu_torch.distributions.ksmogn import offset_gamma_log_prob_summed
+from tapqir_tpu_torch.distributions.util import gaussian_spots_flat
+from tapqir_tpu_torch.infer.discrete import (
+    log_probs_m,
+    log_probs_theta,
+    log_probs_z,
+    m_configs,
+)
+from tapqir_tpu_torch.models.model import Model
+
+DEFAULT_PRIORS = {
+    "background_mean_std": 1000.0,
+    "background_std_std": 100.0,
+    "lamda_rate": 1.0,
+    "height_std": 10000.0,
+    "width_min": 0.75,
+    "width_max": 2.25,
+    "proximity_rate": 1.0,
+    "gain_std": 50.0,
+}
+
+
+class cosmos(Model):
+    r"""Multi-Color Time-Independent Colocalization Model.
+
+    Reference: Ordabayev YA, Friedman LJ, Gelles J, Theobald DL. Bayesian
+    machine learning analysis of single-molecule fluorescence colocalization
+    images. eLife. 2022. doi: 10.7554/eLife.73860.
+    """
+
+    name = "cosmos"
+
+    def __init__(self, S=1, K=2, Q=None, device=None, dtype="float32",
+                 priors=None):
+        merged = dict(DEFAULT_PRIORS)
+        merged.update(priors or {})
+        super().__init__(S=S, K=K, Q=Q, device=device, dtype=dtype,
+                         priors=merged)
+        self._global_params = ["gain", "proximity", "lamda", "pi"]
+        self.conv_params = ["-ELBO", "proximity_loc", "gain_loc", "lamda_loc"]
+
+    # -- variational parameters -------------------------------------------------
+    def param_spec(self):
+        data = self.data
+        K, Q, S = self.K, self.Q, self.S
+        Nt, F, C, P = data.Nt, data.F, data.C, data.P
+        eps = float(np.finfo(np.float32).eps)
+        lim = (P + 1) / 2
+        wmin, wmax = self.priors["width_min"], self.priors["width_max"]
+        bg0 = np.maximum(data.median - data.offset.mean, 1.0)
+        bg_init = np.broadcast_to(bg0[None, None, :], (Nt, 1, C))
+        b_init = np.broadcast_to(bg0[None, None, :], (Nt, F, C))
+        return {
+            "pi_mean": (np.ones((Q, S + 1)) / (S + 1), constraints.simplex()),
+            "pi_size": (np.full((Q, 1), 2.0), constraints.positive()),
+            "m_probs": (np.full((K, Nt, F, Q), 0.5), constraints.unit_interval()),
+            "proximity_loc": (
+                np.array(0.5),
+                constraints.interval(0.0, (P + 1) / math.sqrt(12) - eps),
+            ),
+            "proximity_size": (np.array(100.0), constraints.greater_than(2.0)),
+            "lamda_loc": (np.full((Q,), 0.5), constraints.positive()),
+            "lamda_beta": (np.full((Q,), 100.0), constraints.positive()),
+            "gain_loc": (np.array(5.0), constraints.positive()),
+            "gain_beta": (np.array(100.0), constraints.positive()),
+            "background_mean_loc": (bg_init, constraints.positive()),
+            "background_std_loc": (np.ones((Nt, 1, C)), constraints.positive()),
+            "b_loc": (b_init, constraints.positive()),
+            "b_beta": (np.ones((Nt, F, C)), constraints.positive()),
+            "h_loc": (np.full((K, Nt, F, Q), 2000.0), constraints.positive()),
+            "h_beta": (np.full((K, Nt, F, Q), 0.001), constraints.positive()),
+            "w_mean": (
+                np.full((K, Nt, F, Q), 1.5),
+                constraints.interval(wmin + eps, wmax - eps),
+            ),
+            "w_size": (np.full((K, Nt, F, Q), 100.0), constraints.greater_than(2.0)),
+            "x_mean": (
+                np.zeros((K, Nt, F, Q)),
+                constraints.interval(-lim + eps, lim - eps),
+            ),
+            "y_mean": (
+                np.zeros((K, Nt, F, Q)),
+                constraints.interval(-lim + eps, lim - eps),
+            ),
+            "size": (np.full((K, Nt, F, Q), 200.0), constraints.greater_than(2.0)),
+        }
+
+    def param_partition(self):
+        """Axis names per variational parameter: per-AOI/per-frame
+        parameters carry "aoi"/"frame", globals none."""
+        spec = {}
+        for name in self._transforms:
+            if name in ("b_loc", "b_beta"):  # (Nt, F, C)
+                spec[name] = ("aoi", "frame", None)
+            elif name in ("background_mean_loc", "background_std_loc"):  # (Nt, 1, C)
+                spec[name] = ("aoi", None, None)
+            elif name in (
+                "m_probs", "h_loc", "h_beta", "w_mean", "w_size",
+                "x_mean", "y_mean", "size",
+            ):  # (K, Nt, F, Q)
+                spec[name] = (None, "aoi", "frame", None)
+            else:
+                spec[name] = ()
+        return spec
+
+    def _build_constants(self):
+        K, S, dt, dev = self.K, self.S, self.dtype, self.device
+        M = 1 << K
+        self._const = {
+            "mtab": torch.as_tensor(m_configs(K), dtype=dt, device=dev),
+            "lpt": log_probs_theta(K, S, dt, dev),
+            "spec_tk": torch.as_tensor(
+                np.arange(1 + K)[:, None] == 1 + np.arange(K), device=dev
+            ),
+            "pi_prior": torch.full((self.Q, S + 1), 1.0 / (S + 1), dtype=dt, device=dev),
+            "M": M,
+        }
+
+    # -- ELBO -----------------------------------------------------------------
+    def _draw_batch(self, generator):
+        """(ndx, fidx, f): ``n`` AOI rows without replacement and, when
+        frames are subsampled, ``f`` frame indices - a sorted uniform subset
+        (``frame_sampling="random"``) or a cyclic contiguous window at a
+        random offset ("window"). ``fidx`` is None when f == F."""
+        Nt, F = self.data.Nt, self.data.F
+        n = min(self.nbatch_size, Nt)
+        f = min(self.fbatch_size, F)
+        dev = self.device
+        ndx = torch.randperm(Nt, generator=generator, device=dev)[:n]
+        if f == F:
+            return ndx, None, f
+        if self.frame_sampling == "random":
+            fidx = torch.sort(torch.randperm(F, generator=generator, device=dev)[:f])[0]
+        else:
+            f0 = torch.randint(0, F, (1,), generator=generator, device=dev)
+            fidx = (f0 + torch.arange(f, device=dev)) % F
+        return ndx, fidx, f
+
+    def elbo(self, params_u, generator, data, draws=None):
+        """Minibatch ELBO from unconstrained parameters."""
+        ndx, fidx, f = self._draw_batch(generator)
+        win = self.gather_windows(params_u, ndx, fidx)
+        return self.elbo_from_windows(win, generator, ndx, fidx, f, data, draws)
+
+    def elbo_from_windows(self, win, generator, ndx, fidx, f_b, data,
+                          draws=None):
+        """ELBO from pre-gathered unconstrained parameter windows; the
+        optimizer step differentiates this function, so its gradients are
+        window-shaped."""
+        Nt, F = self.data.Nt, self.data.F
+        n = ndx.shape[0]
+        scale = (Nt / n) * (F / f_b)
+        scale_n = Nt / n
+        local, aoi_term, global_term = self._elbo_terms(
+            win, generator, ndx, fidx, f_b, data, draws
+        )
+        return global_term + aoi_term * scale_n + local * scale
+
+    def _elbo_terms(self, win, generator, ndx, fidx, f_b, data, draws=None):
+        """(sum of local per-(n,f,c) terms, sum of per-AOI terms, global
+        term) for the batch."""
+        S, Q = self.S, self.Q
+        dtype = self.dtype
+        priors = self.priors
+        P = self.data.P
+        prox_high = (P + 1) / math.sqrt(12)
+        tf = self._transforms
+        F_l = data["xy"].shape[1]
+        n_b = ndx.shape[0]
+        if fidx is None:
+            fidx = torch.arange(F_l, device=ndx.device)
+        flat_ndx = (ndx[:, None] * F_l + fidx[None, :]).reshape(-1)
+
+        def g2a(arr):  # raw DATA (Nt, F, ...) -> (n, f, ...)
+            flat = arr.reshape((arr.shape[0] * arr.shape[1],) + tuple(arr.shape[2:]))
+            return flat.index_select(0, flat_ndx).reshape((n_b, f_b) + tuple(arr.shape[2:]))
+
+        def pc(name):  # global parameter -> constrained
+            return tf[name](win[name])
+
+        def gk(name):  # window (K, n, f, Q) -> (n, f, Q, K), constrained
+            return tf[name](torch.movedim(win[name], 0, -1))
+
+        obs = g2a(data["images"])  # (n, f, C, EVP)
+        target_locs = g2a(data["xy"])  # (n, f, C, 2)
+        ont = data["is_ontarget"].index_select(0, ndx)
+        mask = data["mask"].index_select(0, ndx)
+
+        b_loc, b_beta = pc("b_loc"), pc("b_beta")
+        h_loc, h_beta = gk("h_loc"), gk("h_beta")
+        w_mean, w_size = gk("w_mean"), gk("w_size")
+        x_mean, y_mean = gk("x_mean"), gk("y_mean")
+        size = gk("size")
+        qm = gk("m_probs")
+
+        gain, pi, lamda, prox, b, h, w, xs, ys = self._sample_sites(
+            generator, pc, b_loc, b_beta, h_loc, h_beta,
+            w_mean, w_size, x_mean, y_mean, size, draws,
+        )
+        gain_conc = pc("gain_loc") * pc("gain_beta")
+        pi_conc = pc("pi_mean") * pc("pi_size")
+        lamda_conc = pc("lamda_loc") * pc("lamda_beta")
+
+        global_term = (
+            halfnormal_log_prob(gain, priors["gain_std"])
+            - gamma_log_prob(gain, gain_conc, pc("gain_beta"))
+            + (
+                dirichlet_log_prob(pi, self._const["pi_prior"])
+                - dirichlet_log_prob(pi, pi_conc)
+            ).sum()
+            + (
+                exponential_log_prob(lamda, priors["lamda_rate"])
+                - gamma_log_prob(lamda, lamda_conc, pc("lamda_beta"))
+            ).sum()
+            + exponential_log_prob(prox, priors["proximity_rate"])
+            - affine_beta_log_prob(
+                prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
+            )
+        )
+
+        # per-AOI Delta sites (MAP background hyper-parameters)
+        bm = pc("background_mean_loc")[:, 0, :]  # (n, C)
+        bs = pc("background_std_loc")[:, 0, :]
+        aoi_term = (
+            (
+                halfnormal_log_prob(bm, priors["background_mean_std"])
+                + halfnormal_log_prob(bs, priors["background_std_std"])
+            )
+            * mask[:, None]
+        ).sum()
+
+        lp_b = gamma_log_prob(b, (bm / bs)[:, None, :] ** 2, (bm / bs**2)[:, None, :])
+        lq_b = gamma_log_prob(b, b_loc * b_beta, b_beta)
+
+        local = self._local_marginalized(
+            obs, target_locs, ont, gain, pi, lamda, prox, b, h, w, xs, ys, qm,
+            h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size, data,
+        )
+        local_sum = ((local + lp_b - lq_b) * mask[:, None, None]).sum()
+        return local_sum, aoi_term, global_term
+
+    def _sample_sites(self, generator, pc, b_loc, b_beta, h_loc, h_beta,
+                      w_mean, w_size, x_mean, y_mean, size, draws=None):
+        """All guide-site draws in ONE packed standard-Gamma draw, in the
+        JAX package's packing order; ``draws`` replaces the random vector."""
+        P = self.data.P
+        lim = (P + 1) / 2
+        wmin, wmax = self.priors["width_min"], self.priors["width_max"]
+        prox_high = (P + 1) / math.sqrt(12)
+
+        gain_conc = pc("gain_loc") * pc("gain_beta")
+        pi_conc = pc("pi_mean") * pc("pi_size")
+        lamda_conc = pc("lamda_loc") * pc("lamda_beta")
+        pg1, pg0 = affine_beta_concentrations(
+            pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
+        )
+        wc1, wc0 = affine_beta_concentrations(w_mean, w_size, wmin, wmax)
+        xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
+        yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
+        g = std_gamma_sample_packed(
+            [
+                gain_conc.reshape(1),
+                lamda_conc,
+                pi_conc.reshape(-1),
+                pg1.reshape(1),
+                pg0.reshape(1),
+                b_loc * b_beta, h_loc * h_beta, wc1, xc1, yc1, wc0, xc0, yc0,
+            ],
+            generator, draws,
+        )
+        gain = g[0][0] / pc("gain_beta")
+        lamda = g[1] / pc("lamda_beta")
+        pi = dirichlet_from_gammas(g[2].reshape(pi_conc.shape))
+        prox = prox_high * beta_from_gamma_pair(g[3][0], g[4][0])
+        gb, gh, gw1, gx1, gy1, gw0, gx0, gy0 = g[5:]
+        b = gb / b_beta
+        h = gh / h_beta
+        w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
+        xs = -lim + 2 * lim * beta_from_gamma_pair(gx1, gx0)
+        ys = -lim + 2 * lim * beta_from_gamma_pair(gy1, gy0)
+        return gain, pi, lamda, prox, b, h, w, xs, ys
+
+    def _dye_tables(self, ont, pi, lamda, prox, h, w, xs, ys, qm,
+                    h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size):
+        """Per-dye discrete tables, each (M=2^K, n, f, Q): ``inner`` (the
+        logsumexp over (z, theta) of the model's discrete joint),
+        ``term_hw``, ``log_qm`` and ``term_q``."""
+        K = self.K
+        P = self.data.P
+        priors = self.priors
+        lim = (P + 1) / 2
+        wmin, wmax = priors["width_min"], priors["width_max"]
+        mtab = self._const["mtab"]  # (M, K)
+
+        lpz = log_probs_z(pi, ont)  # (n, Q, 1+S)
+        lpt = self._const["lpt"]  # (1+S, 1+K)
+        lpm1, lpm0 = log_probs_m(lamda, K)  # (Q, 1+K, K)
+        log_pm_sum = torch.einsum("mk,qtk->mtq", mtab, lpm1) + torch.einsum(
+            "mk,qtk->mtq", 1.0 - mtab, lpm0
+        )  # (M, 1+K, Q)
+
+        size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
+        lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
+            ys, 0.0, 2.0, -lim, lim
+        )  # (n, f, Q, K)
+        lpxy_sp = affine_beta_log_prob(
+            xs, 0.0, size_sp, -lim, lim
+        ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
+        spec_tk = self._const["spec_tk"]  # (1+K, K)
+        lpxy_t = torch.where(
+            spec_tk[:, None, None, None, :], lpxy_sp[None], lpxy_ns[None]
+        )  # (1+K, n, f, Q, K)
+        term_xy = torch.einsum("mk,tnfqk->mtnfq", mtab, lpxy_t)  # (M, 1+K, n, f, Q)
+
+        T_full = (
+            lpz.permute(2, 0, 1)[None, :, None, :, None, :]  # (1, Z, 1, n, 1, Q)
+            + lpt[None, :, :, None, None, None]  # (1, Z, T, 1, 1, 1)
+            + log_pm_sum[:, None, :, None, None, :]  # (M, 1, T, 1, 1, Q)
+            + term_xy[:, None]  # (M, 1, T, n, f, Q)
+        )
+        inner = torch.logsumexp(T_full, dim=(1, 2))  # (M, n, f, Q)
+
+        lph = halfnormal_log_prob(h, priors["height_std"])
+        lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
+        term_hw = torch.einsum("mk,nfqk->mnfq", mtab, lph + lpw)
+
+        log_qm = torch.einsum("mk,nfqk->mnfq", mtab, torch.log(qm)) + torch.einsum(
+            "mk,nfqk->mnfq", 1.0 - mtab, torch.log1p(-qm)
+        )
+        lqh = gamma_log_prob(h, h_loc * h_beta, h_beta)
+        lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
+        lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
+        lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
+        term_q = torch.einsum("mk,nfqk->mnfq", mtab, lqh + lqw + lqx + lqy)
+        return inner, term_hw, log_qm, term_q
+
+    def _local_marginalized(self, obs, target_locs, ont, gain, pi, lamda, prox,
+                            b, h, w, xs, ys, qm, h_loc, h_beta, w_mean, w_size,
+                            x_mean, y_mean, size, data):
+        """E_q(m)[ log-marginal over (z, theta) + spot priors + likelihood
+        - guide terms ], per (n, f, c). Spot tensors are (n, f, Q, K)."""
+        inner, term_hw, log_qm, term_q = self._dye_tables(
+            ont, pi, lamda, prox, h, w, xs, ys, qm,
+            h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
+        )
+        wq = torch.exp(log_qm)
+        loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)
+        return (wq * (inner + term_hw + loglik - log_qm - term_q)).sum(0)  # (n, f, Q)
+
+    def _likelihood(self, obs, b, h, w, xs, ys, target_locs, gain, data):
+        """(M, n, f, C) event-summed KSMOGN log-likelihood: spots rendered
+        on the flat padded pixel axis, the (M, batch, EVP) concentration by
+        an einsum over configs, and the event sum in the summed kernel."""
+        n_, f_, C_, ev_pad = obs.shape
+        K = self.K
+        P = self.data.P
+        mtab = self._const["mtab"]
+        nfc = n_ * f_ * C_
+        gauss = gaussian_spots_flat(h, w, xs, ys, target_locs, P, ev_pad)  # (n, f, C, K, EVP)
+        gauss_flat = gauss.reshape(nfc, K, ev_pad)
+        img_flat = b.reshape(-1)[None, :, None] + torch.einsum(
+            "mk,xkp->mxp", mtab, gauss_flat
+        )  # (M, nfc, EVP)
+        out = offset_gamma_log_prob_summed(
+            obs.reshape(nfc, ev_pad), img_flat / gain, 1.0 / gain,
+            data["offset_samples"], data["offset_logits"], ev=P * P,
+        )
+        return out.reshape(mtab.shape[0], n_, f_, C_)

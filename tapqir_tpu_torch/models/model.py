@@ -1,0 +1,551 @@
+"""Model base class: the SVI lifecycle in PyTorch (counterpart of
+tapqir_tpu/models/model.py, without the mesh, restarts and profiler).
+
+Parameters are a dict of unconstrained tensors; the optimizer is the JAX
+package's minibatch-sparse Adam in window space: only the subsampled AOI
+rows (and frames) of each parameter are read, stepped and written back,
+with per-row bias-correction step counts. The train loop is a plain Python
+loop over 200-step checkpoint chunks; losses stay on the device during a
+chunk and are checked once per chunk, so the host never waits on the card
+inside a chunk.
+
+Retained reference behaviors:
+
+* checkpoint every 200 iterations with the rolling-window convergence test
+  std(last 100 ckpts) / std(last 50 ckpts) < 1.05 on -ELBO and conv_params;
+* non-finite loss or parameters -> reload the last checkpoint, reseed,
+  continue, at most MAX_CONSECUTIVE_RESTARTS times in a row;
+* device out-of-memory -> CudaOutOfMemoryError with batch-size advice.
+
+Checkpoints (``.tapqir/<model>_model.tpqr``) use the JAX package's npz keys
+(``p::``, ``mu::``, ``nu::``, ``count::``, ``rng::key``, ``meta``), so each
+package resumes the other's checkpoints.
+"""
+
+import json
+import logging
+import random
+from pathlib import Path
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from tapqir_tpu_torch import __version__ as tapqir_version
+from tapqir_tpu_torch.device import resolve_device, resolve_dtype
+from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
+from tapqir_tpu_torch.utils.dataset import load as load_dataset
+
+logger = logging.getLogger(__name__)
+
+CHECKPOINT_INTERVAL = 200
+MAX_CONSECUTIVE_RESTARTS = 10
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+_SEED_MULT, _SEED_INC = 6364136223846793005, 1442695040888963407
+
+
+def seed_to_key(seed: int) -> np.ndarray:
+    """A 64-bit seed as the uint32[2] ``rng::key`` checkpoint entry."""
+    return np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32)
+
+
+def key_to_seed(key) -> int:
+    """A ``rng::key`` entry (the port's seed, or a JAX PRNG key) as a seed."""
+    k = np.asarray(key, np.uint64).reshape(-1)
+    return int((int(k[0]) << 32) | int(k[-1]))
+
+
+class Model:
+    """Base class for the port's models.
+
+    Derived models implement :meth:`param_spec`, :meth:`param_partition`,
+    :meth:`_draw_batch` and :meth:`elbo_from_windows`.
+    """
+
+    name = "base"
+
+    def __init__(
+        self,
+        S: int = 1,
+        K: int = 2,
+        Q: Optional[int] = None,
+        device=None,
+        dtype: str = "float32",
+        priors: Optional[dict] = None,
+    ):
+        self.S = S
+        self.K = K
+        self._Q = Q
+        self.priors = dict(priors or {})
+        self.nbatch_size = None
+        self.fbatch_size = None
+        # "random": an independent sorted uniform frame subset per step (the
+        # default); "window": a cyclic contiguous window at a random offset
+        self.frame_sampling = "random"
+        self.path = None
+        self.run_path = None
+        self.dtype = resolve_dtype(dtype)
+        self.device = resolve_device(device)
+
+    # -- data ----------------------------------------------------------------
+    @property
+    def Q(self):
+        return self._Q or self.data.C
+
+    def load(self, path: Union[str, Path]) -> None:
+        """Load data from an analysis folder."""
+        self.path = Path(path)
+        self.run_path = self.path / ".tapqir"
+        self.data = load_dataset(self.path)
+        logger.debug(f"Loaded data from {self.path / 'data.tpqr'}")
+
+    def _device_image_stack(self):
+        """Flat device stack (Nt, F, C, EVP = ceil(P*P/128)*128). Padded
+        pixels hold offset.max + 1 so their masked log-probs stay finite."""
+        d = self.data
+        Nt, F, C, P = d.Nt, d.F, d.C, d.P
+        ev = P * P
+        ev_pad = -(-ev // 128) * 128
+        imgs = torch.as_tensor(np.asarray(d.images)).to(self.device)
+        imgs = imgs.reshape(Nt, F, C, ev).to(self.dtype)
+        if ev_pad > ev:
+            pad_val = float(np.max(np.asarray(d.offset.samples))) + 1.0
+            pad = torch.full((Nt, F, C, ev_pad - ev), pad_val, dtype=self.dtype,
+                             device=self.device)
+            imgs = torch.cat([imgs, pad], -1)
+        return imgs
+
+    def _data_device_arrays(self):
+        d = self.data
+
+        def put(a, dtype):
+            return torch.as_tensor(np.asarray(a)).to(device=self.device, dtype=dtype)
+
+        return dict(
+            images=self._device_image_stack(),
+            xy=put(d.xy, self.dtype),
+            is_ontarget=put(d.is_ontarget, torch.long),
+            mask=put(d.mask, self.dtype),
+            offset_samples=put(d.offset.samples, self.dtype),
+            offset_logits=put(d.offset.logits, self.dtype),
+        )
+
+    # -- to be provided by subclasses -----------------------------------------
+    def param_spec(self) -> dict:
+        """name -> (init_constrained_value: np.ndarray, Transform)."""
+        raise NotImplementedError
+
+    def param_partition(self) -> dict:
+        """name -> tuple of axis names ("aoi", "frame" or None)."""
+        raise NotImplementedError
+
+    # -- parameters -------------------------------------------------------------
+    def init_parameters(self):
+        spec = self.param_spec()
+        self._transforms = {k: t for k, (v, t) in spec.items()}
+        self.params = {
+            k: t.inverse(torch.as_tensor(np.asarray(v, np.float64)))
+            .to(device=self.device, dtype=self.dtype)
+            .contiguous()
+            for k, (v, t) in spec.items()
+        }
+
+    def constrained(self, params=None) -> dict:
+        params = self.params if params is None else params
+        return {k: self._transforms[k](v) for k, v in params.items()}
+
+    def param(self, name):
+        """Constrained value of a variational parameter, as numpy."""
+        with torch.no_grad():
+            return self._transforms[name](self.params[name]).cpu().numpy()
+
+    # -- SVI ----------------------------------------------------------------------
+    def init(self, lr: float = 0.005, nbatch_size: int = 5,
+             fbatch_size: int = 512) -> None:
+        """Initialize the SVI state, resuming from a checkpoint if present."""
+        self.lr = lr
+        self.nbatch_size = min(nbatch_size, self.data.Nt)
+        self.fbatch_size = min(fbatch_size, self.data.F)
+        self._data_dev = self._data_device_arrays()
+        spec = self.param_spec()
+        self._transforms = {k: t for k, (v, t) in spec.items()}
+        self._build_constants()
+
+        seed = None
+        try:
+            seed = self.load_checkpoint()
+        except TapqirFileNotFoundError:
+            self.init_parameters()
+            self.iter = 0
+            self.converged = False
+            self._rolling = {}
+            self.opt_state = self._init_opt_state()
+        # resume continues the seed stream from the checkpoint
+        self._seed = seed if seed is not None else 0
+
+    def _build_constants(self):
+        """Constant tables the ELBO reads every step, made once on the
+        device (a host-to-device copy inside a step would wait on the card)."""
+        self._const = {}
+
+    def _row_groups(self):
+        """``("af", ax)`` for per-AOI-frame parameters (axes ``ax``/``ax+1``
+        are Nt/F), ``("a", ax)`` for per-AOI ones, ``("g", None)`` for
+        globals, from :meth:`param_partition`."""
+        groups = {}
+        for name, axes in self.param_partition().items():
+            if "aoi" not in axes:
+                groups[name] = ("g", None)
+                continue
+            ax = axes.index("aoi")
+            if "frame" in axes:
+                if axes.index("frame") != ax + 1:
+                    raise ValueError(f"{name}: frame axis must follow the aoi axis")
+                groups[name] = ("af", ax)
+            else:
+                groups[name] = ("a", ax)
+        return groups
+
+    def _window_spec(self):
+        """name -> (aoi_axis, frame_axis or None) for batched parameters."""
+        spec = {}
+        for name, axes in self.param_partition().items():
+            if "aoi" not in axes:
+                continue
+            spec[name] = (axes.index("aoi"), axes.index("frame") if "frame" in axes else None)
+        return spec
+
+    def gather_windows(self, tree, ndx, fidx):
+        """Minibatch windows of a parameter-shaped dict: AOI rows ``ndx`` x
+        frames ``fidx`` (``None``: every frame). Globals pass through."""
+        wspec = self._window_spec()
+        out = {}
+        for name, v in tree.items():
+            if name not in wspec:
+                out[name] = v
+                continue
+            a_ax, f_ax = wspec[name]
+            rows = v.index_select(a_ax, ndx)
+            if fidx is not None and f_ax is not None:
+                rows = rows.index_select(f_ax, fidx)
+            out[name] = rows
+        return out
+
+    def scatter_windows(self, tree, win, ndx, fidx):
+        """Inverse of :meth:`gather_windows`. Unlike the JAX package, which
+        builds new arrays, this writes the windows back IN PLACE with
+        ``index_copy_``: the full parameter and Adam arrays are never copied.
+        Indices are unique, so the writes do not collide."""
+        wspec = self._window_spec()
+        for name, v in tree.items():
+            if name not in wspec:
+                v.copy_(win[name])
+                continue
+            a_ax, f_ax = wspec[name]
+            w = win[name]
+            if fidx is not None and f_ax is not None:
+                rows = v.index_select(a_ax, ndx)
+                rows.index_copy_(f_ax, fidx, w)
+                w = rows
+            v.index_copy_(a_ax, ndx, w)
+
+    def _init_opt_state(self):
+        """Adam moments plus per-row-group step counts: one scalar for
+        globals, (Nt,) for per-AOI and (Nt*F,) for per-AOI-frame rows."""
+        groups = self._row_groups()
+        Nt, F = self.data.Nt, self.data.F
+        dev = self.device
+        counts = {"g": torch.zeros((), dtype=torch.int32, device=dev)}
+        if any(k == "a" for k, _ in groups.values()):
+            counts["a"] = torch.zeros((Nt,), dtype=torch.int32, device=dev)
+        if any(k == "af" for k, _ in groups.values()):
+            counts["af"] = torch.zeros((Nt * F,), dtype=torch.int32, device=dev)
+        return {
+            "mu": {k: torch.zeros_like(v) for k, v in self.params.items()},
+            "nu": {k: torch.zeros_like(v) for k, v in self.params.items()},
+            "count": counts,
+        }
+
+    def _sparse_step(self, generator, batch=None, draws=None):
+        """One minibatch-sparse Adam step (JAX: ``one_step_sparse``).
+
+        ``batch`` = (ndx, fidx, f_b) and ``draws`` (the packed standard-Gamma
+        vector) replace the random batch and draws; tests use them to take
+        the JAX step's batch and draws. Returns the loss as a 0-dim tensor
+        on the device."""
+        b1, b2, eps, lr = _ADAM_B1, _ADAM_B2, _ADAM_EPS, self.lr
+        data = self._data_dev
+        Nt, F = self.data.Nt, self.data.F
+        if batch is None:
+            batch = self._draw_batch(generator)
+        ndx, fidx, f_b = batch
+        win = {
+            k: v.detach().clone().requires_grad_(True)
+            for k, v in self.gather_windows(self.params, ndx, fidx).items()
+        }
+        loss = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, data,
+                                       draws=draws)
+        grads = torch.autograd.grad(loss, list(win.values()))
+        # non-finite gradient elements become zero (see the JAX package)
+        g_win = {
+            k: torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            for k, g in zip(win, grads)
+        }
+        opt = self.opt_state
+        mu_win = self.gather_windows(opt["mu"], ndx, fidx)
+        nu_win = self.gather_windows(opt["nu"], ndx, fidx)
+        counts = opt["count"]
+
+        # per-row-group step counts: bump the gathered window rows only
+        counts["g"] += 1
+        t_win = {}
+        if "a" in counts:
+            t_a = counts["a"].index_select(0, ndx) + 1
+            counts["a"].index_copy_(0, ndx, t_a)
+            t_win["a"] = t_a  # (n,)
+        if "af" in counts:
+            view = counts["af"].view(Nt, F)
+            rows = view.index_select(0, ndx)  # (n, F)
+            if fidx is not None:
+                t_af = rows.index_select(1, fidx) + 1
+                rows.index_copy_(1, fidx, t_af)
+            else:
+                t_af = rows + 1
+                rows = t_af
+            view.index_copy_(0, ndx, rows)
+            t_win["af"] = t_af  # (n, f_b)
+        # the bias correction of row groups is float32, as in the JAX package
+        corr = {
+            grp: (1.0 - b1 ** t.to(torch.float32), 1.0 - b2 ** t.to(torch.float32))
+            for grp, t in t_win.items()
+        }
+        groups = self._row_groups()
+        wspec = self._window_spec()
+        t_g = counts["g"]
+
+        p_w, mu_w, nu_w = {}, {}, {}
+        with torch.no_grad():
+            for name, p in win.items():
+                g, mu, nu = g_win[name], mu_win[name], nu_win[name]
+                mu2 = b1 * mu + (1.0 - b1) * g
+                nu2 = b2 * nu + (1.0 - b2) * g * g
+                kind, _ = groups[name]
+                if kind == "g":
+                    t = t_g.to(p.dtype)
+                    c1, c2 = 1.0 - b1**t, 1.0 - b2**t
+                else:
+                    a_ax, f_ax = wspec[name]
+                    c1, c2 = corr[kind]
+                    bshape = [1] * p.ndim
+                    bshape[a_ax] = c1.shape[0]
+                    if kind == "af":
+                        bshape[f_ax] = c1.shape[1]
+                    c1, c2 = c1.reshape(bshape), c2.reshape(bshape)
+                p_w[name] = p.detach() - lr * (mu2 / c1) / (torch.sqrt(nu2 / c2) + eps)
+                mu_w[name] = mu2
+                nu_w[name] = nu2
+            self.scatter_windows(self.params, p_w, ndx, fidx)
+            self.scatter_windows(opt["mu"], mu_w, ndx, fidx)
+            self.scatter_windows(opt["nu"], nu_w, ndx, fidx)
+        return loss.detach()
+
+    def _next_seed(self) -> int:
+        self._seed = (self._seed * _SEED_MULT + _SEED_INC) % (1 << 64)
+        return self._seed
+
+    def _run_chunk(self, nsteps: int) -> torch.Tensor:
+        """``nsteps`` SVI steps with one generator seeded from the seed
+        stream; returns the (nsteps,) device tensor of losses."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._next_seed())
+        losses = torch.empty((nsteps,), dtype=self.dtype, device=self.device)
+        for i in range(nsteps):
+            losses[i] = self._sparse_step(gen)
+        return losses
+
+    def run(self, num_iter: int = 0) -> None:
+        """Run SVI until ``num_iter`` or convergence."""
+        use_crit = num_iter == 0
+        if use_crit:
+            num_iter = 100000
+        logger.debug(f"tapqir-tpu-torch version - {tapqir_version}")
+        logger.debug(f"Model - {self.name}")
+        logger.debug(f"Device - {self.device}")
+        logger.debug(f"Floating precision - {self.dtype}")
+        logger.debug(f"Optimizer - Adam, lr {self.lr}")
+        logger.debug(f"AOI batch size - {self.nbatch_size}")
+        logger.debug(f"Frame batch size - {self.fbatch_size}")
+
+        remaining = num_iter
+        consecutive_failures = 0
+        while remaining > 0:
+            chunk = min(CHECKPOINT_INTERVAL, remaining)
+            try:
+                try:
+                    losses = self._run_chunk(chunk).cpu().numpy()  # one sync
+                except torch.cuda.OutOfMemoryError as err:
+                    raise CudaOutOfMemoryError() from err
+                if not np.isfinite(losses).all():
+                    raise ValueError(
+                        f"Iteration #{self.iter}. Detected NaN/Inf loss values"
+                    )
+                self.iter += chunk
+                remaining -= chunk
+                self.iter_loss = float(losses[-1])
+                self.save_checkpoint()
+                consecutive_failures = 0
+                if use_crit and self.converged:
+                    logger.info(f"Iteration #{self.iter} model converged.")
+                    break
+            except ValueError as err:
+                logger.warning(str(err))
+                consecutive_failures += 1
+                if consecutive_failures >= MAX_CONSECUTIVE_RESTARTS:
+                    raise RuntimeError(
+                        f"Iteration #{self.iter}: loss is non-finite after "
+                        f"{consecutive_failures} checkpoint-reload restarts; "
+                        "the checkpointed state appears numerically "
+                        "degenerate. Try a lower learning rate or "
+                        "--dtype double."
+                    ) from err
+                # the step updates in place: reload the last checkpoint
+                # (or fresh parameters) and reseed
+                self.init(lr=self.lr, nbatch_size=self.nbatch_size,
+                          fbatch_size=self.fbatch_size)
+                new_seed = random.randint(0, 100)
+                self._seed = new_seed
+                logger.warning(
+                    f"Iteration #{self.iter} restarting with a new seed: {new_seed}."
+                )
+        else:
+            if use_crit:
+                logger.warning(f"Iteration #{self.iter} model has not converged.")
+
+    # -- checkpointing --------------------------------------------------------
+    @property
+    def _checkpoint_path(self):
+        return self.run_path / f"{self.name}_model.tpqr"
+
+    def _small_params(self):
+        """Names of scalar/small constrained params logged per checkpoint."""
+        names = []
+        for name in self._transforms:
+            shp = tuple(self.params[name].shape)
+            if len(shp) == 0 or (len(shp) == 1 and shp[0] <= self.Q * 2):
+                names.append(name)
+        return names
+
+    def save_checkpoint(self):
+        """Checkpoint params + optimizer + convergence state; one device to
+        host transfer per array."""
+        with torch.no_grad():
+            finite = torch.stack(
+                [torch.isfinite(v).all() for v in self.params.values()]
+            ).cpu().numpy()
+            for ok, k in zip(finite, self.params):
+                if not bool(ok):
+                    raise ValueError(f"Iteration #{self.iter}. Detected NaN values in {k}")
+            small_h = {
+                n: self._transforms[n](self.params[n]).cpu().numpy()
+                for n in self._small_params()
+            }
+
+        # update rolling convergence series (constrained values)
+        rolling_max = 100
+        for name in self.conv_params:
+            if name == "-ELBO":
+                self._rolling.setdefault("-ELBO", []).append(float(self.iter_loss))
+            else:
+                val = np.asarray(small_h[name])
+                if val.ndim == 1:
+                    for i in range(len(val)):
+                        self._rolling.setdefault(f"{name}_{i}", []).append(float(val[i]))
+                else:
+                    self._rolling.setdefault(name, []).append(float(val))
+        for k in self._rolling:
+            self._rolling[k] = self._rolling[k][-rolling_max:]
+
+        self.converged = False
+        if len(self._rolling["-ELBO"]) == rolling_max:
+            crit = all(
+                np.std(v, ddof=1) / np.std(v[-50:], ddof=1) < 1.05
+                for v in self._rolling.values()
+            )
+            if crit:
+                self.converged = True
+
+        self.run_path.mkdir(parents=True, exist_ok=True)
+        opt = self.opt_state
+        flat = {}
+        for prefix, tree in (("p", self.params), ("mu", opt["mu"]), ("nu", opt["nu"]),
+                             ("count", opt["count"])):
+            for k, v in tree.items():
+                flat[f"{prefix}::{k}"] = v.detach().cpu().numpy()
+        flat["rng::key"] = seed_to_key(self._seed)
+        meta = {
+            "iter": self.iter,
+            "rolling": self._rolling,
+            "convergence_status": bool(self.converged),
+            "version": tapqir_version,
+        }
+        flat["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+        tmp = self._checkpoint_path.with_name(self._checkpoint_path.name + ".tmp")
+        with open(tmp, "wb") as f:
+            np.savez(f, **flat)
+        tmp.replace(self._checkpoint_path)
+        self._log_metrics(small_h)
+        logger.debug(f"Iteration #{self.iter}: Successful.")
+
+    def _log_metrics(self, small_h):
+        """Append scalar metrics to ``.tapqir/logs/<model>/metrics.csv``."""
+        log_dir = self.run_path / "logs" / self.name
+        log_dir.mkdir(parents=True, exist_ok=True)
+        csv_path = log_dir / "metrics.csv"
+        scalars = {"iter": self.iter, "-ELBO": self.iter_loss}
+        for name, val in small_h.items():
+            val = np.asarray(val)
+            if val.ndim == 0:
+                scalars[name] = float(val)
+            elif val.ndim == 1 and val.size <= self.Q * 2:
+                for i, x in enumerate(val.ravel()):
+                    scalars[f"{name}_{i}"] = float(x)
+        write_header = not csv_path.exists()
+        with open(csv_path, "a") as f:
+            if write_header:
+                f.write(",".join(scalars.keys()) + "\n")
+            f.write(",".join(str(v) for v in scalars.values()) + "\n")
+
+    def load_checkpoint(self):
+        """Load a checkpoint written by either package; returns its seed."""
+        model_path = self._checkpoint_path
+        if not model_path.exists():
+            raise TapqirFileNotFoundError("model", model_path)
+        with np.load(model_path, allow_pickle=False) as z:
+            flat = {k: z[k] for k in z.files}
+        meta = json.loads(bytes(flat.pop("meta")).decode())
+        key = flat.pop("rng::key", None)
+
+        def tree(prefix, dtype):
+            n = len(prefix)
+            return {
+                k[n:]: torch.as_tensor(v).to(device=self.device, dtype=dtype).contiguous()
+                for k, v in flat.items()
+                if k.startswith(prefix)
+            }
+
+        self.params = tree("p::", self.dtype)
+        counts = tree("count::", torch.int32)
+        if not counts:  # a dense-Adam checkpoint: one scalar count
+            fresh = self._init_opt_state()["count"]
+            c = int(flat["count"])
+            counts = {k: torch.full_like(v, c) for k, v in fresh.items()}
+        self.opt_state = {
+            "mu": tree("mu::", self.dtype),
+            "nu": tree("nu::", self.dtype),
+            "count": counts,
+        }
+        self.converged = meta["convergence_status"]
+        self._rolling = meta["rolling"]
+        self.iter = meta["iter"]
+        logger.info(f"Iteration #{self.iter}. Loaded a model checkpoint from {model_path}")
+        return None if key is None else key_to_seed(key)

@@ -54,6 +54,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running fit (excluded unless --runslow)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips without one"
+    )
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,89 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
+its entry points default to the CUDA card and never fall back to the CPU
+unasked, and its kernel wrapper takes the plain path only for CPU tensors."""
+
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import tapqir_tpu_torch
+from tapqir_tpu_torch.device import resolve_device
+from tapqir_tpu_torch.ops import offset_gamma as og
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _port_modules():
+    return sorted(
+        m.name
+        for m in pkgutil.walk_packages(tapqir_tpu_torch.__path__, "tapqir_tpu_torch.")
+    )
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    mods = _port_modules()
+    assert "tapqir_tpu_torch.models.cosmos" in mods
+    assert "tapqir_tpu_torch.ops.offset_gamma" in mods
+    code = textwrap.dedent(
+        f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["tapqir_tpu"] = None
+        for name in {mods!r}:
+            importlib.import_module(name)
+        loaded = [
+            k for k, v in sys.modules.items()
+            if v is not None and (k == "tapqir_tpu" or k.startswith("tapqir_tpu."))
+        ]
+        assert not loaded, loaded
+        assert not any(k == "jax" or k.startswith("jax.") for k, v in sys.modules.items()
+                       if v is not None)
+        print("ok", len({mods!r}))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_entry_points_default_to_cuda_and_never_fall_back():
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.utils.simulate import simulate
+
+    assert resolve_device("cpu").type == "cpu"
+    assert models["cosmos"](device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert models["cosmos"]().device == torch.device("cuda:0")
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        models["cosmos"]()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        simulate("cosmos", N=2, F=2, params={"pi": 0.1})
+
+
+def test_wrapper_takes_plain_path_only_on_cpu():
+    rng = np.random.default_rng(0)
+    M, nb, EVP, ev, J = 2, 3, 128, 100, 4
+    x = torch.tensor(rng.integers(95, 300, (nb, EVP)), dtype=torch.float32)
+    a = torch.tensor(rng.uniform(10, 50, (M, nb, EVP)), dtype=torch.float32)
+    g = torch.tensor([86.0, 88.0, 90.0, 92.0])
+    w = torch.log(torch.full((J,), 0.25))
+    rate = torch.tensor(1 / 7.0)
+    before = (og.summed_fwd.launches, og.summed_stats.launches)
+    got = og.offset_gamma_summed(x, a, rate, g, w, ev)
+    want = og.offset_gamma_summed_plain(x, a, rate, g, w, ev)
+    assert torch.equal(got, want)
+    assert (og.summed_fwd.launches, og.summed_stats.launches) == before
+    # the launcher itself refuses CPU tensors instead of falling back
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        og.summed_stats(x, a, rate.reshape(1), g, w, ev)

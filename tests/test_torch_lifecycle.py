@@ -1,0 +1,181 @@
+"""The port's SVI lifecycle: checkpoints interchangeable with the JAX
+package in both directions, the same convergence verdicts on the same
+series, NaN recovery, out-of-memory mapping, and chip_smoke.py's main path
+at a tiny size on the CPU."""
+
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_port_data import numpy_dataset, perturbed_params
+from tapqir_tpu.models import models as jax_models
+from tapqir_tpu.utils.dataset import save as jax_save
+from tapqir_tpu_torch.convert import opt_state_from_jax, params_from_jax
+from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError
+from tapqir_tpu_torch.models import models
+from tapqir_tpu_torch.models.model import key_to_seed, seed_to_key
+from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture
+def workspace(tmp_path):
+    jax_save(numpy_dataset(CosmosDataset, OffsetData, Nt=6, F=8, seed=2), tmp_path)
+    return tmp_path
+
+
+def _jax_model(ws):
+    jm = jax_models["cosmos"]()
+    jm.load(ws)
+    jm.init(lr=0.005, nbatch_size=2, fbatch_size=4)
+    return jm
+
+
+def _port_model(ws):
+    tm = models["cosmos"](device="cpu")
+    tm.load(ws)
+    tm.init(lr=0.005, nbatch_size=2, fbatch_size=4)
+    return tm
+
+
+def test_port_resumes_jax_checkpoint(workspace):
+    jm = _jax_model(workspace)
+    p_np = perturbed_params({k: np.asarray(v) for k, v in jm.params.items()})
+    jm.params = {k: jnp.asarray(v, jnp.float32) for k, v in p_np.items()}
+    jm.iter, jm.iter_loss = 400, 1234.5
+    jm._key = jax.random.PRNGKey(17)
+    jm.save_checkpoint()
+
+    tm = _port_model(workspace)
+    assert tm.iter == 400
+    assert tm._seed == key_to_seed(np.asarray(jax.random.PRNGKey(17)))
+    for k, v in jm.params.items():
+        assert torch.equal(tm.params[k], torch.tensor(np.asarray(v))), k
+    adam = jm.opt_state[0]
+    for k in ("g", "a", "af"):
+        np.testing.assert_array_equal(tm.opt_state["count"][k].numpy(), np.asarray(adam.count[k]))
+    tm.run(3)
+    assert tm.iter == 403
+    assert all(torch.isfinite(v).all() for v in tm.params.values())
+
+
+def test_jax_resumes_port_checkpoint(workspace):
+    tm = _port_model(workspace)
+    tm.run(3)
+    jm = _jax_model(workspace)
+    assert jm.iter == 3 and tm.iter == 3
+    for k, v in tm.params.items():
+        np.testing.assert_array_equal(np.asarray(jm.params[k]), v.numpy(), err_msg=k)
+    adam = jm.opt_state[0]
+    for k, v in tm.opt_state["count"].items():
+        np.testing.assert_array_equal(np.asarray(adam.count[k]), v.numpy(), err_msg=k)
+    for k, v in tm.opt_state["mu"].items():
+        np.testing.assert_array_equal(np.asarray(adam.mu[k]), v.numpy(), err_msg=k)
+    # the port's seed rides in rng::key as a uint32[2] the JAX package uses as a key
+    np.testing.assert_array_equal(np.asarray(jm._key), seed_to_key(tm._seed))
+    assert key_to_seed(seed_to_key(tm._seed)) == tm._seed
+
+
+def test_params_and_opt_state_from_jax(workspace):
+    jm = _jax_model(workspace)
+    params = params_from_jax({k: np.asarray(v) for k, v in jm.params.items()}, "cpu")
+    assert all(v.dtype == torch.float32 for v in params.values())
+    for k, v in jm.params.items():
+        assert torch.equal(params[k], torch.tensor(np.asarray(v)))
+    adam = jm.opt_state[0]
+    opt = opt_state_from_jax(
+        {k: np.asarray(v) for k, v in adam.mu.items()},
+        {k: np.asarray(v) for k, v in adam.nu.items()},
+        {k: np.asarray(v) for k, v in adam.count.items()}, "cpu",
+    )
+    assert set(opt) == {"mu", "nu", "count"}
+    assert opt["count"]["af"].dtype == torch.int32
+    with pytest.raises(ValueError):
+        opt_state_from_jax({}, {}, np.asarray(3), "cpu")
+
+
+@pytest.mark.parametrize("converging", [True, False])
+def test_convergence_verdicts_match_jax(workspace, converging):
+    rng = np.random.default_rng(3)
+    jm = _jax_model(workspace)
+    tm = _port_model(workspace)
+    tm.params = params_from_jax({k: np.asarray(v) for k, v in jm.params.items()}, "cpu")
+    # each series centred on the value the checkpoint appends to it: a
+    # stationary one (the same 50 fluctuations twice) or a decaying one
+    centre = {"-ELBO": 10.0, "proximity_loc": float(tm.param("proximity_loc")),
+              "gain_loc": float(tm.param("gain_loc")),
+              "lamda_loc_0": float(tm.param("lamda_loc")[0])}
+    series = {}
+    for k, c in centre.items():
+        base = rng.normal(size=50) * 1e-3
+        noise = (np.concatenate([base[1:], base]) if converging
+                 else rng.normal(size=99) * np.linspace(5e-3, 1e-4, 99))
+        series[k] = list(noise + c)
+    for m in (jm, tm):
+        m._rolling = {k: list(v) for k, v in series.items()}
+        m.iter, m.iter_loss = 20000, 10.0
+        m.save_checkpoint()
+    assert jm.converged == tm.converged == converging
+
+
+def test_nan_loss_reloads_checkpoint_and_reseeds(workspace, caplog):
+    tm = _port_model(workspace)
+    tm.run(2)
+    real_step = tm._sparse_step
+    calls = {"n": 0}
+
+    def nan_once(gen, batch=None, draws=None):
+        calls["n"] += 1
+        loss = real_step(gen, batch, draws)
+        return loss * float("nan") if calls["n"] == 1 else loss
+
+    tm._sparse_step = nan_once
+    tm.run(2)
+    assert "Detected NaN/Inf loss values" in caplog.text
+    assert "restarting with a new seed" in caplog.text
+    assert tm.iter == 4
+
+    tm._sparse_step = lambda gen, batch=None, draws=None: torch.tensor(float("nan"))
+    with pytest.raises(RuntimeError, match="non-finite after"):
+        tm.run(2)
+
+
+def test_out_of_memory_maps_to_typed_exception(workspace, monkeypatch):
+    tm = _port_model(workspace)
+
+    def oom(nsteps):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(tm, "_run_chunk", oom)
+    with pytest.raises(CudaOutOfMemoryError):
+        tm.run(2)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_main_path_tiny_on_cpu(tmp_path):
+    cs = _chip_smoke()
+    res = cs.run_main_path(tmp_path, Nt=8, F=12, P=14, J=7, nbatch=4, fbatch=8,
+                           num_iter=6, device="cpu", n_chunk=2)
+    cs.check_main_path(res, 6)
+    assert res["checkpoint_exists"] and res["iter_reloaded"] == 6
+    assert res["launches"] == {"fwd": 0, "stats": 0}  # the CPU takes the plain path
+    # resume from the checkpoint: iter advances from where it stopped
+    tm = models["cosmos"](device="cpu")
+    tm.load(tmp_path)
+    tm.init(lr=0.005, nbatch_size=4, fbatch_size=8)
+    assert tm.iter == 6
+    tm.run(4)
+    assert tm.iter == 10
