@@ -6,25 +6,41 @@ It needs one CUDA card and fails (non-zero exit, no result line) without
 one. Phases, each printing its findings; any failure is an exception:
 
 1. device: the card's name and power limit;
-2. build: compile the offset-Gamma kernel with nvcc for sm_90a (build
+2. build: compile the offset-Gamma kernels with nvcc for sm_90a (build
    seconds, registers and spills);
-3. kernel against its plain PyTorch version at the slice's shapes (M=4
-   configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61 bins,
-   float32: forward, concentration and rate gradients), then edge cases:
-   pixels below every offset bin, ev-masked lanes, a ragged nb, M=16 and a
-   small float64 case;
-4. kernel timing with CUDA events, statistics on and off, beside the plain
-   version and the least time the card could take (bound);
-5. the main path: simulate an eLife-scale cosmos dataset (Nt=856 AOIs,
-   F=790 frames, P=14, 61 offset bins) with the port's simulator, save it,
-   then models["cosmos"]() -> load -> init(lr=0.005, nbatch_size=10,
-   fbatch_size=512) -> run(400), and a held-out loss without gradient
-   before and after; the kernels' launch counts are read around it.
+3. the summed kernel against its plain PyTorch version at the slice's
+   shapes (M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
+   bins, float32: forward, concentration and rate gradients), then edge
+   cases: pixels below every offset bin, ev-masked lanes, a ragged nb, M=16
+   and a small float64 case;
+4. the per-pixel kernel against its plain version at 10x512x1x14x14 =
+   1,003,520 pixels, J=61, M=1 and M=4 (forward, concentration and rate
+   gradients), then pixels below every bin, a ragged pixel count, the M=1
+   squeeze and a small float64 case;
+5. the factored kernel against its plain version at Kf=2 spots (M=4),
+   nb=5120, EVP=256, ev=196, J=61 (forward; base, delta and rate
+   gradients), then base < 1, pixels below every bin, a ragged nb, Kf=4
+   (M=16) and float64;
+6. timing of every kernel with CUDA events beside its plain version and the
+   least time the card could take (bound);
+7. the dense main path: simulate an eLife-scale cosmos dataset (Nt=856
+   AOIs, F=790 frames, P=14, 61 offset bins) with the port's simulator,
+   save it, then models["cosmos"]() -> load -> init(lr=0.005,
+   nbatch_size=10, fbatch_size=512) -> run(400), and a held-out loss
+   without gradient before and after;
+8. the factored main path: the same saved dataset, the same entry points
+   with ``use_factored = True``, run(400);
+9. the per-pixel path: KSMOGN(...).log_prob on 10 AOIs x 512 frames of that
+   dataset (M=1) and the non-ev summed likelihood over the 4 spot configs
+   (event_ndims=2), with gradients on height and background.
+The kernels' launch counts are set to 0 just before each of the paths 7-9
+and read just after it.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import logging
 import math
@@ -49,9 +65,16 @@ SIM_PARAMS = {
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 KERNEL_SOURCE = "tapqir_tpu_torch/csrc/offset_gamma.cu"
-FWD_TOL = dict(rtol=3e-5, atol=1e-2)  # tests/test_pallas.py's summed forward
-GRAD_TOL = dict(rtol=2e-4, atol=1e-4)  # tests/test_pallas.py's summed gradient
-RATE_RTOL = 1e-3  # tests/test_pallas.py's rate gradient
+PALLAS_SOURCE = "tapqir_tpu/ops/offset_gamma.py"
+# tolerances of tests/test_pallas.py, float32 kernel against the plain
+# version in float64 on the same inputs
+FWD_TOL = dict(rtol=3e-5, atol=1e-2)  # summed forward
+GRAD_TOL = dict(rtol=2e-4, atol=1e-4)  # summed gradient
+RATE_RTOL = 1e-3  # rate gradient
+PIXEL_FWD_TOL = dict(rtol=2e-5, atol=2e-5)  # per-pixel forward
+PIXEL_GRAD_TOL = dict(rtol=2e-3, atol=1e-3)  # per-pixel gradient
+FACT_FWD_TOL = dict(rtol=3e-5, atol=1e-2)  # factored forward
+FACT_GRAD_TOL = dict(rtol=2e-3, atol=2e-3)  # factored base, delta, rate gradients
 F64_TOL = dict(rtol=1e-9, atol=1e-9)
 F64_GRAD_TOL = dict(rtol=1e-6, atol=1e-6)  # Stirling digamma: < 7e-8 absolute
 
@@ -90,26 +113,45 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def run_main_path(workdir, Nt=856, F=790, P=14, J=61, nbatch=10, fbatch=512,
-                  num_iter=400, device="cuda", n_chunk=8):
-    """Simulate, save, and fit cosmos through the user entry points.
-
-    Returns the fit's numbers: steps/s, launches of each kernel variant
-    during the run and the held-out evaluation, the held-out -ELBO before
-    and after, the checkpoint's iteration on reload, and the logged losses.
-    """
-    from tapqir_tpu_torch.models import models
+def _reset_launches():
     from tapqir_tpu_torch.ops import offset_gamma as og
+
+    for launcher in og.LAUNCHERS.values():
+        launcher.launches = 0
+
+
+def _read_launches():
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    return {name: launcher.launches for name, launcher in og.LAUNCHERS.items()}
+
+
+def prepare_dataset(workdir, Nt=856, F=790, P=14, J=61, device="cuda", n_chunk=8):
+    """Simulate the cosmos dataset and save it as ``workdir/data.tpqr``;
+    returns the seconds each took."""
     from tapqir_tpu_torch.utils.dataset import save
 
-    workdir = Path(workdir)
     t0 = time.perf_counter()
     data = make_dataset(Nt, F, P=P, J=J, device=device, n_chunk=n_chunk)
     t1 = time.perf_counter()
     save(data, workdir)
-    t2 = time.perf_counter()
+    return {"simulate_seconds": t1 - t0, "save_seconds": time.perf_counter() - t1}
 
+
+def fit_path(workdir, nbatch=10, fbatch=512, num_iter=400, device="cuda",
+             use_factored=False):
+    """Fit cosmos on ``workdir``'s dataset through the user entry points.
+
+    Returns the fit's numbers (steps/s, launches of every kernel during the
+    run and the held-out evaluation, the held-out -ELBO before and after,
+    the checkpoint's iteration on reload, the logged losses) and the model.
+    """
+    from tapqir_tpu_torch.models import models
+
+    workdir = Path(workdir)
+    t2 = time.perf_counter()
     model = models["cosmos"](device=device)
+    model.use_factored = use_factored
     model.load(workdir)
     model.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
     _sync(device)
@@ -135,15 +177,14 @@ def run_main_path(workdir, Nt=856, F=790, P=14, J=61, nbatch=10, fbatch=512,
     try:
         if torch.device(device).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        og.summed_fwd.launches = 0
-        og.summed_stats.launches = 0
+        _reset_launches()
         _sync(device)
         t4 = time.perf_counter()
         model.run(num_iter)
         _sync(device)
         dt = time.perf_counter() - t4
         loss_after = held_out_loss()
-        launches = {"fwd": og.summed_fwd.launches, "stats": og.summed_stats.launches}
+        launches = _read_launches()
     finally:
         log.removeHandler(handler)
     peak = (torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda"
@@ -162,8 +203,6 @@ def run_main_path(workdir, Nt=856, F=790, P=14, J=61, nbatch=10, fbatch=512,
         torch.equal(reloaded.params[k], model.params[k]) for k in model.params
     )
     result = {
-        "simulate_seconds": t1 - t0,
-        "save_seconds": t2 - t1,
         "load_init_seconds": t3 - t2,
         "seconds": dt,
         "steps_per_s": num_iter / dt,
@@ -180,7 +219,28 @@ def run_main_path(workdir, Nt=856, F=790, P=14, J=61, nbatch=10, fbatch=512,
         "launches": launches,
         "peak_bytes": peak,
     }
-    return result
+    return result, model
+
+
+def run_main_path(workdir, Nt=856, F=790, P=14, J=61, nbatch=10, fbatch=512,
+                  num_iter=400, device="cuda", n_chunk=8):
+    """Simulate, save, and fit cosmos with the dense likelihood through the
+    user entry points; the result of :func:`fit_path` with the set-up
+    times."""
+    setup = prepare_dataset(workdir, Nt, F, P, J, device, n_chunk)
+    res, _ = fit_path(workdir, nbatch, fbatch, num_iter, device)
+    res.update(setup)
+    return res
+
+
+def run_factored_path(workdir, nbatch=10, fbatch=512, num_iter=400, device="cuda"):
+    """Fit cosmos with ``use_factored = True`` on the dataset that
+    :func:`prepare_dataset` saved in ``workdir`` (linked, not simulated or
+    saved again), in a workspace of its own."""
+    sub = Path(workdir) / "factored"
+    sub.mkdir()
+    (sub / "data.tpqr").symlink_to(Path(workdir) / "data.tpqr")
+    return fit_path(sub, nbatch, fbatch, num_iter, device, use_factored=True)
 
 
 def check_main_path(res, num_iter):
@@ -197,6 +257,91 @@ def check_main_path(res, num_iter):
         raise RuntimeError("the checkpoint was not written or did not reload")
     if not res["reloaded_params_equal"]:
         raise RuntimeError("reloaded parameters differ from the fit's")
+
+
+def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
+    """The per-pixel entry points on ``n_aoi`` AOIs x ``n_frames`` frames of
+    ``data``'s images, with fixed spot parameters at the simulation's values
+    (height 3000, width 1.4, gain 7, background 150; K spots, the second
+    one pixel off the target): ``KSMOGN(...).log_prob`` (M=1) with and
+    without gradient, and the non-ev summed likelihood over the 2^K spot
+    configs (``offset_gamma_log_prob_summed(event_ndims=2)``), each with
+    gradients on height and background. Checks that values and gradients
+    are finite, that the configs with every spot on agree with
+    ``log_prob``, and that both agree with the plain version in float64 on
+    the first AOI. Returns the launches of every kernel in this run and the
+    numbers checked."""
+    from tapqir_tpu_torch.distributions import (
+        KSMOGN,
+        gaussian_spots,
+        ksmogn_image,
+        offset_gamma_log_prob_summed,
+    )
+    from tapqir_tpu_torch.infer.discrete import m_configs
+    from tapqir_tpu_torch.ops.offset_gamma import offset_gamma_log_prob_plain
+
+    f32 = dict(dtype=torch.float32, device=device)
+    imgs = torch.as_tensor(np.asarray(data.images[:n_aoi, :n_frames]), **f32)
+    xy = torch.as_tensor(np.asarray(data.xy[:n_aoi, :n_frames]), **f32)
+    n, f, C, P = imgs.shape[:3] + imgs.shape[-1:]
+    height = torch.full((n, f, C, K), 3000.0, **f32).requires_grad_(True)
+    width = torch.full((n, f, C, K), 1.4, **f32)
+    x = torch.zeros((n, f, C, K), **f32)
+    x[..., 1:] = 1.0
+    y = torch.zeros_like(x)
+    background = torch.full((n, f, C), 150.0, **f32).requires_grad_(True)
+    gain = torch.tensor(SIM_PARAMS["gain"], **f32)
+    g = torch.as_tensor(data.offset.samples, **f32)
+    w = torch.as_tensor(data.offset.logits, **f32)
+    mtab = torch.as_tensor(m_configs(K), **f32)
+
+    _reset_launches()
+    d = KSMOGN(height, width, x, y, xy, background, gain, g, w, P)
+    lp = d.log_prob(imgs)  # (n, f, C): per-pixel kernel, M=1
+    g_h1, g_b1 = torch.autograd.grad(lp.sum(), (height, background))
+    with torch.no_grad():
+        lp_nograd = d.log_prob(imgs)
+    spots = gaussian_spots(height, width, x, y, xy, P)  # (n, f, C, K, P, P)
+    mu = background[..., None, None] + torch.einsum("mk,nfckij->mnfcij", mtab, spots)
+    lp_m = offset_gamma_log_prob_summed(imgs, mu / gain, 1.0 / gain, g, w,
+                                        event_ndims=2)  # (M, n, f, C)
+    g_hm, g_bm = torch.autograd.grad(lp_m.sum(), (height, background))
+    _sync(device)
+    launches = _read_launches()
+
+    for name, t in (("log_prob", lp), ("log_prob no grad", lp_nograd),
+                    ("summed over configs", lp_m), ("d height", g_h1),
+                    ("d background", g_b1), ("d height (configs)", g_hm),
+                    ("d background (configs)", g_bm)):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"per-pixel path: non-finite {name}")
+    lp, lp_m = lp.detach(), lp_m.detach()
+    # the two kernel variants round alike up to instruction scheduling
+    np.testing.assert_allclose(lp.cpu().numpy(), lp_nograd.cpu().numpy(), rtol=1e-6,
+                               err_msg="log_prob with vs without gradient")
+    full = int(mtab.sum(1).argmax())  # the config with every spot on
+    err_configs = float((lp_m[full] - lp).abs().max())
+    np.testing.assert_allclose(lp_m[full].cpu().numpy(), lp.cpu().numpy(), rtol=1e-5,
+                               err_msg="all-spots config vs log_prob")
+    # the plain version in float64 on the first AOI
+    with torch.no_grad():
+        mu64 = ksmogn_image(*(t[:1].double() for t in (height, width, x, y, xy,
+                                                         background)), P)
+        gain64 = gain.double()
+        want = offset_gamma_log_prob_plain(
+            imgs[:1].double(), mu64 / gain64, 1.0 / gain64, g.double(), w.double(),
+        ).sum((-2, -1))
+    err_plain = float((lp[:1].double() - want).abs().max())
+    np.testing.assert_allclose(lp[:1].double().cpu().numpy(),
+                               want.cpu().numpy(), **FWD_TOL,
+                               err_msg="log_prob vs float64 plain")
+    return {
+        "shape": [n, f, C, P, P],
+        "launches": launches,
+        "log_prob_mean": float(lp.mean()),
+        "max_abs_err_configs_vs_log_prob": err_configs,
+        "max_abs_err_vs_plain_f64": err_plain,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -223,11 +368,30 @@ def kernel_inputs(M, nb, EVP, ev, J, dtype, seed, device):
     )
 
 
+def _check_close(errs, name, got, want, tol):
+    got64 = got.detach().double().cpu().numpy()
+    want64 = want.detach().double().cpu().numpy()
+    np.testing.assert_allclose(got64, want64, err_msg=name, **tol)
+    errs[name] = float(np.abs(got64 - want64).max())
+
+
+def _check_rate(errs, got, want, rtol):
+    np.testing.assert_allclose(float(got), float(want), rtol=rtol, err_msg="grad_rate")
+    errs["grad_rate_rel"] = abs(float(got) - float(want)) / abs(float(want))
+
+
+def _check_below(outs, sel):
+    for o in outs:
+        v = o[sel]
+        if not (torch.isfinite(v).all() and (v < -1e29).all()):
+            raise RuntimeError(f"below-every-bin entries gave {v.flatten()[:8].tolist()}")
+
+
 def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False):
-    """Kernel (through the autograd wrapper) against the plain version:
-    forward, concentration gradient and rate gradient under a random
-    cotangent in [-1, 1]. Returns the max abs errors, after checking the
-    tolerances."""
+    """Summed kernel (through the autograd wrapper) against the plain
+    version: forward, concentration gradient and rate gradient under a
+    random cotangent in [-1, 1]. Returns the max abs errors, after checking
+    the tolerances."""
     from tapqir_tpu_torch.ops import offset_gamma as og
 
     x, a, rate, g, w = kernel_inputs(M, nb, EVP, ev, J, dtype, seed, "cuda")
@@ -246,10 +410,7 @@ def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False):
         out_k_nograd = og.offset_gamma_summed(x, a, rate, g, w, ev)
     torch.cuda.synchronize()
     if below:
-        for o in (out_k, out_k_nograd):
-            v = o[:, 0]
-            if not (torch.isfinite(v).all() and (v < -1e29).all()):
-                raise RuntimeError(f"below-every-bin image gave {v.tolist()}")
+        _check_below((out_k, out_k_nograd), (slice(None), 0))
 
     # the plain version on the real lanes (it would read the NaN padding), in
     # float64 on the same values: float32 round-off of the plain version
@@ -275,18 +436,141 @@ def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False):
         raise RuntimeError("non-finite kernel gradient")
     if (ga_k[..., ev:] != 0).any():
         raise RuntimeError("ev-masked lanes got a nonzero gradient")
-    for name, got, want, tol in (
-        ("forward", out_k[:, keep], out_p, fwd_tol),
-        ("forward_nograd", out_k_nograd[:, keep], out_p, fwd_tol),
-        ("grad_concentration", ga_k[:, keep, :ev], ga_p, grad_tol),
-    ):
-        got64 = got.detach().double().cpu().numpy()
-        want64 = want.detach().double().cpu().numpy()
-        np.testing.assert_allclose(got64, want64, err_msg=name, **tol)
-        errs[name] = float(np.abs(got64 - want64).max())
-    rtol_r = RATE_RTOL if dtype == torch.float32 else grad_tol["rtol"]
-    np.testing.assert_allclose(float(gr_k), float(gr_p), rtol=rtol_r, err_msg="grad_rate")
-    errs["grad_rate_rel"] = abs(float(gr_k) - float(gr_p)) / abs(float(gr_p))
+    _check_close(errs, "forward", out_k[:, keep], out_p, fwd_tol)
+    _check_close(errs, "forward_nograd", out_k_nograd[:, keep], out_p, fwd_tol)
+    _check_close(errs, "grad_concentration", ga_k[:, keep, :ev], ga_p, grad_tol)
+    _check_rate(errs, gr_k, gr_p, RATE_RTOL if dtype == torch.float32 else grad_tol["rtol"])
+    return errs
+
+
+def pixel_inputs(M, n_px, J, dtype, seed, device):
+    """Per-pixel inputs at the magnitudes of :func:`kernel_inputs`: value
+    (n_px,), concentration (M, n_px)."""
+    rng = np.random.default_rng(seed)
+    g, w = offset_histogram(J)
+    t = dict(device=device, dtype=dtype)
+    return (
+        torch.tensor(rng.integers(int(g.min()) + 1, 400, size=n_px).astype(np.float64), **t),
+        torch.tensor(rng.uniform(10.0, 80.0, size=(M, n_px)), **t),
+        torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t), torch.tensor(np.log(w), **t),
+    )
+
+
+def compare_pixel(M, n_px, J, dtype, seed, fwd_tol, grad_tol, below=False,
+                  squeeze=False):
+    """Per-pixel kernel (through ``offset_gamma_log_prob``) against the
+    plain version in float64: forward with and without gradient,
+    concentration and rate gradients under a random cotangent. ``squeeze``
+    passes an M=1 concentration of the value's shape. Returns the max abs
+    errors, after checking the tolerances."""
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    x, a, rate, g, w = pixel_inputs(M, n_px, J, dtype, seed, "cuda")
+    if squeeze:
+        a = a[0]
+    keep = torch.ones(n_px, dtype=torch.bool, device="cuda")
+    if below:  # five pixels below every offset bin
+        x[:5] = g.min() - 10.0
+        keep[:5] = False  # the plain version's value there is -inf
+    cot = torch.tensor(np.random.default_rng(seed + 1).uniform(-1, 1, tuple(a.shape)),
+                       device="cuda", dtype=dtype) * keep
+
+    a_k = a.clone().requires_grad_(True)
+    r_k = rate.clone().requires_grad_(True)
+    out_k = og.offset_gamma_log_prob(x, a_k, r_k, g, w)
+    ga_k, gr_k = torch.autograd.grad((out_k * cot).sum(), (a_k, r_k))
+    with torch.no_grad():
+        out_k_nograd = og.offset_gamma_log_prob(x, a, rate, g, w)
+    torch.cuda.synchronize()
+    if out_k.shape != a.shape:
+        raise RuntimeError(f"per-pixel output {tuple(out_k.shape)} for {tuple(a.shape)}")
+    if below:
+        _check_below((out_k, out_k_nograd), (..., slice(0, 5)))
+
+    a_p = a[..., keep].double().requires_grad_(True)
+    r_p = rate.double().requires_grad_(True)
+    out_p = og.offset_gamma_log_prob_plain(x[keep].double(), a_p, r_p, g.double(), w.double())
+    ga_p, gr_p = torch.autograd.grad((out_p * cot[..., keep].double()).sum(), (a_p, r_p))
+    errs = {}
+    if not torch.isfinite(ga_k).all():
+        raise RuntimeError("non-finite kernel gradient")
+    _check_close(errs, "forward", out_k[..., keep], out_p, fwd_tol)
+    _check_close(errs, "forward_nograd", out_k_nograd[..., keep], out_p, fwd_tol)
+    _check_close(errs, "grad_concentration", ga_k[..., keep], ga_p, grad_tol)
+    _check_rate(errs, gr_k, gr_p, RATE_RTOL if dtype == torch.float32 else grad_tol["rtol"])
+    return errs
+
+
+def factored_inputs(Kf, nb, EVP, ev, J, dtype, seed, device):
+    """Factored inputs at cosmos magnitudes (per-image base b/gain 10..40,
+    spot contributions 0..40 with half the pixels near zero, as away from
+    a spot's centre) and the full 2^Kf config table. Lanes >= ev of value
+    and deltas hold NaN: the kernel must never read them."""
+    from tapqir_tpu_torch.infer.discrete import m_configs
+
+    rng = np.random.default_rng(seed)
+    g, w = offset_histogram(J)
+    x = rng.integers(int(g.min()) + 1, 400, size=(nb, EVP)).astype(np.float64)
+    base = rng.uniform(10.0, 40.0, size=nb)
+    deltas = rng.uniform(0.0, 40.0, size=(Kf, nb, EVP))
+    deltas[:, :, rng.integers(0, ev, size=ev // 2)] *= 1e-3
+    x[:, ev:] = np.nan
+    deltas[:, :, ev:] = np.nan
+    t = dict(device=device, dtype=dtype)
+    return (torch.tensor(x, **t), torch.tensor(base, **t), torch.tensor(deltas, **t),
+            m_configs(Kf), torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t),
+            torch.tensor(np.log(w), **t))
+
+
+def compare_factored(Kf, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol,
+                     below=False, small_base=False):
+    """Factored kernel (through ``offset_gamma_factored_summed``) against
+    the plain version (dense concentration) in float64: forward with and
+    without gradient, base, delta and rate gradients under a random
+    cotangent. Returns the max abs errors, after checking the
+    tolerances."""
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    x, base, deltas, mtab, rate, g, w = factored_inputs(Kf, nb, EVP, ev, J, dtype,
+                                                        seed, "cuda")
+    M = mtab.shape[0]
+    if small_base:  # base < 1: the Pallas kernel flips its base-factor shift
+        base.fill_(0.05)
+    keep = torch.ones(nb, dtype=torch.bool, device="cuda")
+    if below:  # image 0: five pixels below every offset bin
+        x[0, :5] = g.min() - 10.0
+        keep[0] = False
+    cot = torch.tensor(np.random.default_rng(seed + 1).uniform(-1, 1, (M, nb)),
+                       device="cuda", dtype=dtype) * keep
+
+    leaves = [t.clone().requires_grad_(True) for t in (base, deltas, rate)]
+    out_k = og.offset_gamma_factored_summed(x, leaves[0], leaves[1], mtab, leaves[2],
+                                            g, w, ev)
+    gb_k, gd_k, gr_k = torch.autograd.grad((out_k * cot).sum(), leaves)
+    with torch.no_grad():
+        out_k_nograd = og.offset_gamma_factored_summed(x, base, deltas, mtab, rate, g, w, ev)
+    torch.cuda.synchronize()
+    if below:
+        _check_below((out_k, out_k_nograd), (slice(None), 0))
+    if not (torch.isfinite(gb_k).all() and torch.isfinite(gd_k[..., :ev]).all()):
+        raise RuntimeError("non-finite kernel gradient")
+    if (gd_k[..., ev:] != 0).any():
+        raise RuntimeError("ev-masked lanes got a nonzero delta gradient")
+
+    leaves_p = [base[keep].double().requires_grad_(True),
+                deltas[:, keep, :ev].double().requires_grad_(True),
+                rate.double().requires_grad_(True)]
+    out_p = og.offset_gamma_factored_summed_plain(
+        x[keep, :ev].double(), leaves_p[0], leaves_p[1], mtab, leaves_p[2],
+        g.double(), w.double(), ev,
+    )
+    gb_p, gd_p, gr_p = torch.autograd.grad((out_p * cot[:, keep].double()).sum(), leaves_p)
+    errs = {}
+    _check_close(errs, "forward", out_k[:, keep], out_p, fwd_tol)
+    _check_close(errs, "forward_nograd", out_k_nograd[:, keep], out_p, fwd_tol)
+    _check_close(errs, "grad_base", gb_k[keep], gb_p, grad_tol)
+    _check_close(errs, "grad_deltas", gd_k[:, keep, :ev], gd_p, grad_tol)
+    _check_rate(errs, gr_k, gr_p, grad_tol["rtol"])
     return errs
 
 
@@ -303,27 +587,62 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FP32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound_ms(x, a, g, ev, stats):
-    """Least time for the function on these inputs: max of bytes moved (the
-    ev real lanes of x and a read once, outputs written once) over the
-    memory rate, and the float32 operations the data needs over the fp32
-    peak. Operations are counted per (pixel, bin) pair with x > g_j - the
-    masked pairs need no work: 3 (difference, log, weight) + per config 4
-    (exponent, max, exp, sum) or 6 with the two statistics sums; plus per
-    (pixel, config) 4 (log of the sum, rate term, lgamma, event sum) and 5
-    more with the statistics."""
+    """Least time for the summed function on these inputs: max of bytes
+    moved (the ev real lanes of x and a read once, outputs written once)
+    over the memory rate, and the float32 operations the data needs over
+    the fp32 peak. Operations are counted per (pixel, bin) pair with
+    x > g_j - the masked pairs need no work: 3 (difference, log, weight) +
+    per config 4 (exponent, max, exp, sum) or 6 with the two statistics
+    sums; plus per (pixel, config) 4 (log of the sum, rate term, lgamma,
+    event sum) and 5 more with the statistics."""
     M, nb, EVP = a.shape
     item = a.element_size()
     read = nb * ev * (1 + M) * item
     write = M * nb * item + (2 * M * nb * EVP * item if stats else 0)
-    xs = x[:, :ev]
-    pairs = float((xs[..., None] > g).sum())
-    per_pair = 3 + (6 if stats else 4) * M
-    per_px_cfg = 4 + (5 if stats else 0)
-    ops = pairs * per_pair + nb * ev * M * per_px_cfg
-    t_bytes = (read + write) / PEAK_BYTES_PER_S
-    t_ops = ops / PEAK_FP32_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    pairs = float((x[:, :ev, None] > g).sum())
+    ops = pairs * (3 + (6 if stats else 4) * M) + nb * ev * M * (4 + (5 if stats else 0))
+    return _bound(read + write, ops)
+
+
+def bound_pixel_ms(x, a2, g, stats):
+    """Least time for the per-pixel function on these inputs (x (n_px,), a2
+    (M, n_px)): x and a read once, out (and spl, spd) written once, against
+    the operations per (pixel, bin) pair with x > g_j - 3 (difference, log,
+    weight) + per config 4 (exponent, max, exp, sum) or 6 with the two
+    statistics sums - plus per (pixel, config) 3 (log of the sum, rate
+    term, lgamma) and 5 more with the statistics."""
+    M, n_px = a2.shape
+    item = a2.element_size()
+    nbytes = n_px * (1 + M) * item + M * n_px * item * (3 if stats else 1)
+    pairs = float((x[:, None] > g).sum())
+    ops = pairs * (3 + (6 if stats else 4) * M) + n_px * M * (3 + (5 if stats else 0))
+    return _bound(nbytes, ops)
+
+
+def bound_factored_ms(x, deltas, g, M, ev):
+    """Least time for the factored function with its statistics on these
+    inputs (x (nb, EVP), deltas (Kf, nb, EVP), M configs): x, base and the
+    deltas read once over the ev real lanes, out (M, nb) and spl, spd (M,
+    nb, EVP) written once, against the operations of the factored form per
+    (pixel, bin) pair with x > g_j, the fewest the function needs:
+    3 (difference, log, weight) + 3 for the first pass (max of the bin
+    term, least and largest difference) + (1 + Kf) exps and their 1 + Kf
+    exponents + per config 1 product and 3 sums (s, sum p L, sum p d); plus
+    per (pixel, config) 1 (concentration) + 4 (log of the sum with its
+    shift, rate term, lgamma, event sum) + 5 statistics."""
+    Kf, nb, EVP = deltas.shape
+    item = deltas.element_size()
+    nbytes = (nb * ev * (1 + Kf) + nb) * item + (M * nb + 2 * M * nb * EVP) * item
+    pairs = float((x[:, :ev, None] > g).sum())
+    ops = pairs * (6 + 2 * (1 + Kf) + 4 * M) + nb * ev * M * 10
+    return _bound(nbytes, ops)
 
 
 def main():
@@ -331,6 +650,9 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tapqir_tpu_torch.ops import offset_gamma as og
+
+    t_start = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
 
     # phase 1: device
     name = torch.cuda.get_device_name(0)
@@ -350,11 +672,10 @@ def main():
     for ln in ptx:
         print(f"[build] {ln}", flush=True)
 
-    # phase 3: kernel against plain
+    # phase 3: summed kernel against plain
     M, nb, EVP, ev, J = 4, 5120, 256, 196, 61
-    f32 = torch.float32
     errs = compare(M, nb, EVP, ev, J, f32, 0, FWD_TOL, GRAD_TOL)
-    print(f"[kernel] slice shapes M={M} nb={nb} EVP={EVP} ev={ev} J={J} f32: "
+    print(f"[summed] slice shapes M={M} nb={nb} EVP={EVP} ev={ev} J={J} f32: "
           f"{json.dumps(errs)} (fwd {FWD_TOL}, grad {GRAD_TOL}, rate rtol {RATE_RTOL})",
           flush=True)
     cases = [
@@ -362,77 +683,173 @@ def main():
         ("ev-masked lanes", dict(M=4, nb=64, EVP=256, ev=130, J=61, dtype=f32)),
         ("ragged nb", dict(M=4, nb=37, EVP=256, ev=196, J=61, dtype=f32)),
         ("M=16", dict(M=16, nb=300, EVP=256, ev=196, J=61, dtype=f32)),
-        ("float64", dict(M=4, nb=12, EVP=256, ev=196, J=7, dtype=torch.float64)),
+        ("float64", dict(M=4, nb=12, EVP=256, ev=196, J=7, dtype=f64)),
     ]
     for i, (label, c) in enumerate(cases):
-        f64 = c["dtype"] == torch.float64
+        is64 = c["dtype"] == f64
         e = compare(c["M"], c["nb"], c["EVP"], c["ev"], c["J"], c["dtype"], 10 + i,
-                    F64_TOL if f64 else FWD_TOL, F64_GRAD_TOL if f64 else GRAD_TOL,
+                    F64_TOL if is64 else FWD_TOL, F64_GRAD_TOL if is64 else GRAD_TOL,
                     below=c.get("below", False))
-        print(f"[kernel] edge case {label}: {json.dumps(e)}", flush=True)
+        print(f"[summed] edge case {label}: {json.dumps(e)}", flush=True)
 
-    # phase 4: timing at the slice shapes
+    # phase 4: per-pixel kernel against plain
+    n_px = 10 * 512 * 1 * 14 * 14
+    pixel_errs = {}
+    for Mp in (1, 4):
+        pixel_errs[Mp] = compare_pixel(Mp, n_px, J, f32, 20 + Mp, PIXEL_FWD_TOL,
+                                       PIXEL_GRAD_TOL)
+        print(f"[pixel] M={Mp} n_px={n_px} J={J} f32: {json.dumps(pixel_errs[Mp])} "
+              f"(fwd {PIXEL_FWD_TOL}, grad {PIXEL_GRAD_TOL}, rate rtol {RATE_RTOL})",
+              flush=True)
+        torch.cuda.empty_cache()
+    cases = [
+        ("below-every-bin", dict(M=4, n_px=5000, J=61, dtype=f32, below=True)),
+        ("ragged n_px", dict(M=4, n_px=n_px + 77, J=61, dtype=f32)),
+        ("M=1 squeeze", dict(M=1, n_px=5000, J=61, dtype=f32, squeeze=True)),
+        ("float64", dict(M=4, n_px=3000, J=7, dtype=f64)),
+    ]
+    for i, (label, c) in enumerate(cases):
+        is64 = c["dtype"] == f64
+        e = compare_pixel(c["M"], c["n_px"], c["J"], c["dtype"], 30 + i,
+                          F64_TOL if is64 else PIXEL_FWD_TOL,
+                          F64_GRAD_TOL if is64 else PIXEL_GRAD_TOL,
+                          below=c.get("below", False), squeeze=c.get("squeeze", False))
+        print(f"[pixel] edge case {label}: {json.dumps(e)}", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 5: factored kernel against plain
+    Kf = 2
+    fact_errs = compare_factored(Kf, nb, EVP, ev, J, f32, 40, FACT_FWD_TOL, FACT_GRAD_TOL)
+    print(f"[factored] Kf={Kf} (M={1 << Kf}) nb={nb} EVP={EVP} ev={ev} J={J} f32: "
+          f"{json.dumps(fact_errs)} (fwd {FACT_FWD_TOL}, grad {FACT_GRAD_TOL})", flush=True)
+    cases = [
+        ("base < 1", dict(Kf=2, nb=64, ev=196, J=61, dtype=f32, small_base=True)),
+        ("below-every-bin", dict(Kf=2, nb=64, ev=196, J=61, dtype=f32, below=True)),
+        ("ragged nb", dict(Kf=2, nb=37, ev=196, J=61, dtype=f32)),
+        ("Kf=4 (M=16)", dict(Kf=4, nb=300, ev=196, J=61, dtype=f32)),
+        ("float64", dict(Kf=2, nb=12, ev=196, J=7, dtype=f64)),
+    ]
+    for i, (label, c) in enumerate(cases):
+        is64 = c["dtype"] == f64
+        e = compare_factored(c["Kf"], c["nb"], EVP, c["ev"], c["J"], c["dtype"], 50 + i,
+                             F64_TOL if is64 else FACT_FWD_TOL,
+                             F64_GRAD_TOL if is64 else FACT_GRAD_TOL,
+                             below=c.get("below", False),
+                             small_base=c.get("small_base", False))
+        print(f"[factored] edge case {label}: {json.dumps(e)}", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 6: timing at the slice shapes
+    timing = {}
     x, a, rate, g, w = kernel_inputs(M, nb, EVP, ev, J, f32, 0, "cuda")
     x[:, ev:] = 91.0  # finite padding for the plain version
     a[..., ev:] = 1.0
     r1 = rate.reshape(1)
-    go = torch.ones((M, nb), device="cuda", dtype=f32)
-    ms_fwd = time_ms(lambda: og.summed_fwd(x, a, r1, g, w, ev), 50)
-    ms_stats = time_ms(lambda: og.summed_stats(x, a, r1, g, w, ev), 50)
 
-    def plain_fwd():
-        with torch.no_grad():
-            og.offset_gamma_summed_plain(x, a, rate, g, w, ev)
+    def plain_pair(fn, leaves, go):
+        def fwd():
+            with torch.no_grad():
+                fn(*leaves)
 
-    def plain_grad():
-        a_p = a.detach().requires_grad_(True)
-        r_p = rate.detach().requires_grad_(True)
-        out = og.offset_gamma_summed_plain(x, a_p, r_p, g, w, ev)
-        torch.autograd.grad(out, (a_p, r_p), go)
+        def grad():
+            ls = [t.detach().requires_grad_(True) for t in leaves]
+            torch.autograd.grad(fn(*ls), ls, go)
 
-    plain_ms_fwd = time_ms(plain_fwd, 5)
-    plain_ms_stats = time_ms(plain_grad, 5)
-    b_fwd, by_fwd = bound_ms(x, a, g, ev, stats=False)
-    b_stats, by_stats = bound_ms(x, a, g, ev, stats=True)
-    print(f"[timing] {name} ({smi}): forward kernel {ms_fwd:.4f} ms, plain "
-          f"{plain_ms_fwd:.4f} ms, bound {b_fwd:.4f} ms ({by_fwd}); with "
-          f"statistics {ms_stats:.4f} ms, plain forward+backward "
-          f"{plain_ms_stats:.4f} ms, bound {b_stats:.4f} ms ({by_stats}); "
-          "library: none (no single PyTorch call computes this function)", flush=True)
-    del x, a, go
+        return time_ms(fwd, 5), time_ms(grad, 5)
+
+    timing["summed_fwd"] = [time_ms(lambda: og.summed_fwd(x, a, r1, g, w, ev), 50)]
+    timing["summed_stats"] = [time_ms(lambda: og.summed_stats(x, a, r1, g, w, ev), 50)]
+    p_fwd, p_grad = plain_pair(
+        lambda a_, r_: og.offset_gamma_summed_plain(x, a_, r_, g, w, ev), [a, rate],
+        torch.ones((M, nb), device="cuda"))
+    timing["summed_fwd"] += [p_fwd, *bound_ms(x, a, g, ev, stats=False)]
+    timing["summed_stats"] += [p_grad, *bound_ms(x, a, g, ev, stats=True)]
+    del x, a
+
+    xp, ap, _, _, _ = pixel_inputs(M, n_px, J, f32, 0, "cuda")
+    for Mp in (1, M):
+        a2 = ap[:Mp].contiguous()
+        ms_f = time_ms(lambda: og.pixel_fwd(xp, a2, r1, g, w), 50)
+        ms_s = time_ms(lambda: og.pixel_stats(xp, a2, r1, g, w), 50)
+        p_fwd, p_grad = plain_pair(
+            lambda a_, r_: og.offset_gamma_log_prob_plain(xp, a_, r_, g, w), [a2, rate],
+            torch.ones_like(a2))
+        b_f, b_s = bound_pixel_ms(xp, a2, g, False), bound_pixel_ms(xp, a2, g, True)
+        print(f"[timing] per-pixel M={Mp} n_px={n_px}: forward {ms_f:.4f} ms (plain "
+              f"{p_fwd:.4f}, bound {b_f[0]:.4f} {b_f[1]}); with statistics {ms_s:.4f} ms "
+              f"(plain forward+backward {p_grad:.4f}, bound {b_s[0]:.4f} {b_s[1]})",
+              flush=True)
+        timing["pixel_fwd"] = [ms_f, p_fwd, *b_f]
+        timing["pixel_stats"] = [ms_s, p_grad, *b_s]
+    del xp, ap, a2
+
+    xf, base, deltas, mtab, _, _, _ = factored_inputs(Kf, nb, EVP, ev, J, f32, 0, "cuda")
+    xf[:, ev:] = 91.0
+    deltas[..., ev:] = 0.0
+    masks = og.config_masks(mtab, Kf)
+    ms_fact = time_ms(lambda: og.factored_stats(xf, base, deltas, masks, r1, g, w, ev), 50)
+    _, p_grad = plain_pair(
+        lambda b_, d_, r_: og.offset_gamma_factored_summed_plain(xf, b_, d_, mtab, r_, g,
+                                                                 w, ev),
+        [base, deltas, rate], torch.ones((len(masks), nb), device="cuda"))
+    timing["factored_stats"] = [ms_fact, p_grad,
+                                *bound_factored_ms(xf, deltas, g, len(masks), ev)]
+    del xf, base, deltas
     torch.cuda.empty_cache()
+    for k, (ms, plain_ms, b, by) in timing.items():
+        print(f"[timing] {k} on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b:.4f} ms ({by}); library: none (no single PyTorch call "
+              "computes this function)", flush=True)
+    print(f"[timing] kernel phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # phase 5: the main path
+    # phases 7-9: the dense and factored fits and the per-pixel path
     num_iter = 400
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        res = run_main_path(tmp, num_iter=num_iter, device="cuda")
-    check_main_path(res, num_iter)
-    if res["launches"]["stats"] < num_iter or res["launches"]["fwd"] < 1:
-        raise RuntimeError(f"kernel launches on the main path: {res['launches']}")
-    print(f"[main] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
-          f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
-          f"({smi}); peak memory {res['peak_bytes'] / 2**30:.3f} GiB; set-up: "
-          f"simulate {res['simulate_seconds']:.1f} s, save {res['save_seconds']:.1f} s, "
-          f"load+init {res['load_init_seconds']:.1f} s; held-out -ELBO {res['loss_before']:.6g} -> "
-          f"{res['loss_after']:.6g}; logged -ELBO {res['logged_losses']}; "
-          f"launches {res['launches']}; checkpoint reloaded at iter "
-          f"{res['iter_reloaded']}", flush=True)
-    if not res["loss_after"] < res["loss_before"]:
-        raise RuntimeError("400 SVI steps did not lower the held-out -ELBO")
+        dense = run_main_path(tmp, num_iter=num_iter, device="cuda")
+        gc.collect()  # the dense models' device data must not count in the next peak
+        check_main_path(dense, num_iter)
+        fact, fmodel = run_factored_path(tmp, num_iter=num_iter, device="cuda")
+        check_main_path(fact, num_iter)
+        pixel = run_pixel_path(fmodel.data, device="cuda")
+    for label, res in (("dense", dense), ("factored", fact)):
+        print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
+              f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
+              f"({smi}); peak memory {res['peak_bytes'] / 2**30:.3f} GiB; "
+              f"load+init {res['load_init_seconds']:.1f} s; held-out -ELBO "
+              f"{res['loss_before']:.6g} -> {res['loss_after']:.6g}; logged -ELBO "
+              f"{res['logged_losses']}; launches {res['launches']}; checkpoint "
+              f"reloaded at iter {res['iter_reloaded']}", flush=True)
+        if not res["loss_after"] < res["loss_before"]:
+            raise RuntimeError(f"{label}: {num_iter} SVI steps did not lower the held-out -ELBO")
+    print(f"[setup] simulate {dense['simulate_seconds']:.1f} s, save "
+          f"{dense['save_seconds']:.1f} s", flush=True)
+    print(f"[pixel-path] {json.dumps(pixel)}", flush=True)
+    dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
+    if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
+        raise RuntimeError(f"dense path: kernel launches {dl}")
+    if fl["factored_stats"] < num_iter or fl["summed_fwd"] or fl["summed_stats"]:
+        raise RuntimeError(f"factored path: kernel launches {fl}")
+    if pl["pixel_fwd"] < 1 or pl["pixel_stats"] < 2:
+        raise RuntimeError(f"per-pixel path: kernel launches {pl}")
+    print(f"[done] in {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    common = {"route": "cuda", "source": KERNEL_SOURCE, "library_ms": None}
+    def entry(kname, body, launches, max_abs_err):
+        ms, plain_ms, b, by = timing[kname]
+        return dict(name=f"offset_gamma_{kname}", route="cuda", source=KERNEL_SOURCE,
+                    replaces=f"{PALLAS_SOURCE}:{body}", launches=launches,
+                    max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                    bound_by=by, library_ms=None)
+
+    perr = pixel_errs[M]
     kernels = [
-        dict(name="offset_gamma_summed_fwd",
-             replaces="tapqir_tpu/ops/offset_gamma.py:365",
-             launches=res["launches"]["fwd"], max_abs_err=errs["forward_nograd"],
-             ms=ms_fwd, plain_ms=plain_ms_fwd, bound_ms=b_fwd, bound_by=by_fwd,
-             **common),
-        dict(name="offset_gamma_summed_stats",
-             replaces="tapqir_tpu/ops/offset_gamma.py:384",
-             launches=res["launches"]["stats"],
-             max_abs_err=max(errs["forward"], errs["grad_concentration"]),
-             ms=ms_stats, plain_ms=plain_ms_stats, bound_ms=b_stats,
-             bound_by=by_stats, **common),
+        entry("summed_fwd", 365, dl["summed_fwd"], errs["forward_nograd"]),
+        entry("summed_stats", 384, dl["summed_stats"],
+              max(errs["forward"], errs["grad_concentration"])),
+        entry("pixel_fwd", 137, pl["pixel_fwd"], perr["forward_nograd"]),
+        entry("pixel_stats", 151, pl["pixel_stats"],
+              max(perr["forward"], perr["grad_concentration"])),
+        entry("factored_stats", 520, fl["factored_stats"],
+              max(fact_errs[k] for k in ("forward", "grad_base", "grad_deltas"))),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,12 @@ from tapqir_tpu_torch.distributions.core import (  # noqa: F401
     halfnormal_log_prob,
 )
 from tapqir_tpu_torch.distributions.ksmogn import (  # noqa: F401
+    KSMOGN,
     ksmogn_image,
+    ksmogn_log_prob,
     ksmogn_sample,
+    offset_gamma_factored_summed,
+    offset_gamma_log_prob,
     offset_gamma_log_prob_summed,
 )
 from tapqir_tpu_torch.distributions.util import (  # noqa: F401

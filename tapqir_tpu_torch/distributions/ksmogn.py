@@ -4,39 +4,59 @@
     mu^I    = b + sum_k mu^S_k            (per-channel image mean)
     p(D)    = sum_delta w_delta * Gamma(D - delta | mu^I / g, 1 / g)
 
-This slice ports the event-summed likelihood on its lane-padded ``ev``
-branch (the CUDA kernel on the card, :mod:`tapqir_tpu_torch.ops.offset_gamma`),
-the per-pixel plain path (``_offset_gamma_log_prob_xla`` in the JAX package),
-and the image model and sampler the simulator needs.
+The offset-Gamma log-pdf comes in the three forms of
+:mod:`tapqir_tpu_torch.ops.offset_gamma` (a CUDA kernel each on the card,
+the plain PyTorch version on the CPU): per pixel, event-summed over a
+lane-padded flat axis, and event-summed with the per-config concentration
+built inside the kernel from additive parts. On top of them sit the image
+model, the full image log-likelihood and its sampler, and the ``KSMOGN``
+object of the original Tapqir's API.
 """
+
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from tapqir_tpu_torch.distributions.util import gaussian_spots
 from tapqir_tpu_torch.ops.offset_gamma import (
-    offset_gamma_log_prob_plain,
+    offset_gamma_factored_summed,
+    offset_gamma_log_prob,
     offset_gamma_summed,
 )
 
 __all__ = [
+    "offset_gamma_log_prob",
     "offset_gamma_log_prob_summed",
+    "offset_gamma_factored_summed",
     "ksmogn_image",
+    "ksmogn_log_prob",
     "ksmogn_sample",
+    "KSMOGN",
 ]
-
-# the plain per-pixel path under the JAX package's name
-_offset_gamma_log_prob_xla = offset_gamma_log_prob_plain
 
 
 def offset_gamma_log_prob_summed(value, concentration, rate, offset_samples,
-                                 offset_logits, ev):
-    """log p summed over a lane-padded flat event axis of which the first
-    ``ev`` entries are real pixels.
+                                 offset_logits, event_ndims=2, ev=None):
+    """log p summed over the trailing ``event_ndims`` dims.
 
-    Shapes: ``concentration`` is (M,) + batch + (EVP,), ``value`` is batch +
-    (EVP,). Returns (M,) + batch. Padded value entries must exceed every
-    offset sample; padded concentrations must be positive.
+    Shapes: ``concentration`` is (M,) + batch + event, ``value`` is batch +
+    event (or broadcasts to it). Returns (M,) + batch.
+
+    With ``ev`` set, the trailing axis is a lane-padded flat event axis of
+    which only the first ``ev`` entries are real pixels (``event_ndims``
+    must be 1): the event sum runs inside the summed kernel. Padded value
+    entries must exceed every offset sample; padded concentrations must be
+    positive. Without ``ev`` the per-pixel kernel scores every pixel and the
+    event dims are summed after it.
     """
+    if ev is None:
+        lp = offset_gamma_log_prob(
+            value, concentration, rate, offset_samples, offset_logits
+        )
+        return lp.sum(tuple(range(-event_ndims, 0)))
+    if event_ndims != 1:
+        raise ValueError(f"a lane-padded event axis is one axis, got event_ndims={event_ndims}")
     M = concentration.shape[0]
     batch_shape = tuple(concentration.shape[1:-1])
     ev_pad = concentration.shape[-1]
@@ -76,6 +96,18 @@ def ksmogn_image(height, width, x, y, target_locs, background, P, m=None,
     return background[..., None, None] + spots.sum((-5, -3))
 
 
+def ksmogn_log_prob(value, height, width, x, y, target_locs, background, gain,
+                    offset_samples, offset_logits, P, m=None, alpha=None):
+    """Full image log-likelihood, summed over the event dims (P, P), or
+    (C, P, P) with crosstalk; per pixel through the per-pixel kernel."""
+    mu = ksmogn_image(height, width, x, y, target_locs, background, P, m, alpha)
+    event_axes = (-2, -1) if alpha is None else (-3, -2, -1)
+    lp = offset_gamma_log_prob(
+        value, mu / gain, 1.0 / gain, offset_samples, offset_logits
+    )
+    return lp.sum(event_axes)
+
+
 def ksmogn_sample(generator, height, width, x, y, target_locs, background,
                   gain, offset_samples, offset_logits, P, m=None, alpha=None):
     """Sample images: Gamma(mu/g, 1/g) + a categorical offset per pixel."""
@@ -90,3 +122,43 @@ def ksmogn_sample(generator, height, width, x, y, target_locs, background,
     odx = torch.searchsorted(cdf, u.reshape(-1), right=True)
     odx = odx.clamp(max=cdf.shape[0] - 1).reshape(val.shape)
     return val + offset_samples.to(val.dtype)[odx]
+
+
+@dataclass(frozen=True)
+class KSMOGN:
+    """Stateless image distribution with the original Tapqir's object API
+    (``log_prob`` / ``sample`` / ``mean``), for users coming from it."""
+
+    height: torch.Tensor
+    width: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    target_locs: torch.Tensor
+    background: torch.Tensor
+    gain: torch.Tensor
+    offset_samples: torch.Tensor
+    offset_logits: torch.Tensor
+    P: int
+    m: Optional[torch.Tensor] = None
+    alpha: Optional[torch.Tensor] = None
+
+    def _spots(self):
+        return (self.height, self.width, self.x, self.y, self.target_locs,
+                self.background)
+
+    def log_prob(self, value):
+        return ksmogn_log_prob(
+            value, *self._spots(), self.gain, self.offset_samples,
+            self.offset_logits, self.P, self.m, self.alpha,
+        )
+
+    def sample(self, generator):
+        return ksmogn_sample(
+            generator, *self._spots(), self.gain, self.offset_samples,
+            self.offset_logits, self.P, self.m, self.alpha,
+        )
+
+    @property
+    def mean(self):
+        mu = ksmogn_image(*self._spots(), self.P, self.m, self.alpha)
+        return mu + torch.sum(self.offset_samples * torch.exp(self.offset_logits))

@@ -4,7 +4,8 @@ tapqir_tpu/models/cosmos.py; the training path of this slice).
 The generative model, the mean-field guide and the marginalized ELBO are the
 JAX package's: the discrete latents z, theta and m are summed out with dense
 tables and logsumexp, every guide site is drawn in ONE packed standard-Gamma
-draw, and the image likelihood is the event-summed offset-Gamma kernel.
+draw, and the image likelihood is the event-summed offset-Gamma kernel
+(dense by default; the factored kernel with ``use_factored = True``).
 Subsampled-plate scaling is (Nt/n)(F/f) for local terms and Nt/n for the
 per-AOI terms.
 
@@ -31,7 +32,10 @@ from tapqir_tpu_torch.distributions.core import (
     halfnormal_log_prob,
     std_gamma_sample_packed,
 )
-from tapqir_tpu_torch.distributions.ksmogn import offset_gamma_log_prob_summed
+from tapqir_tpu_torch.distributions.ksmogn import (
+    offset_gamma_factored_summed,
+    offset_gamma_log_prob_summed,
+)
 from tapqir_tpu_torch.distributions.util import gaussian_spots_flat
 from tapqir_tpu_torch.infer.discrete import (
     log_probs_m,
@@ -380,22 +384,55 @@ class cosmos(Model):
         loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)
         return (wq * (inner + term_hw + loglik - log_qm - term_q)).sum(0)  # (n, f, Q)
 
+    @staticmethod
+    def _spots_kernel_layout(h, w, xs, ys, target_locs, P, ev_pad):
+        """Rendered spots in the factored kernel's (K, n, f, C, EVP) layout,
+        made spot-major by moving the small (n, f, Q, K) parameters before
+        the render instead of the rendered tensor after it."""
+
+        def tr(a):  # (n, f, Q, K) -> (K, n, f, Q, 1)
+            return torch.movedim(a, -1, 0)[..., None]
+
+        g = gaussian_spots_flat(
+            tr(h), tr(w), tr(xs), tr(ys), target_locs[None], P, ev_pad
+        )  # (K, n, f, C, 1, EVP)
+        return g[..., 0, :]
+
     def _likelihood(self, obs, b, h, w, xs, ys, target_locs, gain, data):
-        """(M, n, f, C) event-summed KSMOGN log-likelihood: spots rendered
-        on the flat padded pixel axis, the (M, batch, EVP) concentration by
-        an einsum over configs, and the event sum in the summed kernel."""
+        """(M, n, f, C) event-summed KSMOGN log-likelihood on the flat padded
+        pixel axis.
+
+        Default: spots rendered spot-last (n, f, C, K, EVP), the (M, batch,
+        EVP) concentration by an einsum over configs, and the event sum in
+        the summed kernel. With ``use_factored = True`` set on the model (as
+        on the JAX package's): spots rendered spot-major, and the configs
+        assembled inside the factored kernel from ``b / gain`` and the
+        per-spot ``spots / gain``."""
         n_, f_, C_, ev_pad = obs.shape
         K = self.K
         P = self.data.P
         mtab = self._const["mtab"]
         nfc = n_ * f_ * C_
-        gauss = gaussian_spots_flat(h, w, xs, ys, target_locs, P, ev_pad)  # (n, f, C, K, EVP)
-        gauss_flat = gauss.reshape(nfc, K, ev_pad)
-        img_flat = b.reshape(-1)[None, :, None] + torch.einsum(
-            "mk,xkp->mxp", mtab, gauss_flat
-        )  # (M, nfc, EVP)
-        out = offset_gamma_log_prob_summed(
-            obs.reshape(nfc, ev_pad), img_flat / gain, 1.0 / gain,
-            data["offset_samples"], data["offset_logits"], ev=P * P,
-        )
+        if getattr(self, "use_factored", False):
+            spots = self._spots_kernel_layout(
+                h, w, xs, ys, target_locs, P, ev_pad
+            )  # (K, n, f, C, EVP)
+            out = offset_gamma_factored_summed(
+                obs.reshape(nfc, ev_pad), b.reshape(-1) / gain,
+                spots.reshape(K, nfc, ev_pad) / gain, m_configs(K), 1.0 / gain,
+                data["offset_samples"], data["offset_logits"], ev=P * P,
+            )
+        else:
+            gauss = gaussian_spots_flat(
+                h, w, xs, ys, target_locs, P, ev_pad
+            )  # (n, f, C, K, EVP)
+            gauss_flat = gauss.reshape(nfc, K, ev_pad)
+            img_flat = b.reshape(-1)[None, :, None] + torch.einsum(
+                "mk,xkp->mxp", mtab, gauss_flat
+            )  # (M, nfc, EVP)
+            out = offset_gamma_log_prob_summed(
+                obs.reshape(nfc, ev_pad), img_flat / gain, 1.0 / gain,
+                data["offset_samples"], data["offset_logits"],
+                event_ndims=1, ev=P * P,
+            )
         return out.reshape(mtab.shape[0], n_, f_, C_)

@@ -1,27 +1,37 @@
-"""Event-summed offset-marginalized Gamma log-likelihood: the CUDA kernel
-(``csrc/offset_gamma.cu``), its autograd wrapper, and its plain PyTorch
-version.
+"""Offset-marginalized Gamma log-likelihood: the CUDA kernels
+(``csrc/offset_gamma.cu``), their autograd wrappers, and their plain
+PyTorch versions.
 
-Counterpart of the dense summed pair of tapqir_tpu/ops/offset_gamma.py
-(``offset_gamma_summed_pallas`` -> ``_lse_sum_core`` -> ``_sum_fwd_kernel``
-/ ``_sum_stats_kernel``). For each config m, image n and real pixel i < ev:
+Counterpart of tapqir_tpu/ops/offset_gamma.py. For config m and pixel i:
 
-    out[m, n] = sum_i ( logsumexp_j[w_j + (a-1) log(x-g_j) - b (x-g_j)]
-                        + a log b - lgamma(a) )      (masked to x > g_j)
+    lp[m, i] = logsumexp_j[w_j + (a-1) log(x-g_j) - b (x-g_j)]
+               + a log b - lgamma(a)                 (masked to x > g_j)
 
-A loss evaluated without a gradient launches the forward-only variant; with
-a gradient the forward also emits the per-pixel statistics
-spl = d/da and spd = d/db, so the backward is elementwise in torch
-(``da = go * spl``, ``drate = sum go * spd``), as the TPU's backward was XLA.
+in three forms, each with its kernel variants and launch counts:
 
-The kernel is built with ``nvcc`` for sm_90a at first use into ``_build/``
-next to this package and loaded with ctypes through a plain C interface.
-CUDA tensors always go through the kernel (or raise); CPU tensors take the
-plain version. There is no fallback from one to the other.
+* per pixel (``offset_gamma_log_prob``; ``pixel_fwd`` / ``pixel_stats``
+  replace ``_fwd_kernel`` / ``_fwd_stats_kernel``);
+* event-summed over each image's first ``ev`` lanes
+  (``offset_gamma_summed``; ``summed_fwd`` / ``summed_stats`` replace
+  ``_sum_fwd_kernel`` / ``_sum_stats_kernel``);
+* event-summed with the concentration a_m = base + sum_k mtab[m, k] delta_k
+  built inside the kernel (``offset_gamma_factored_summed``;
+  ``factored_stats`` replaces ``_fact_stats_kernel``).
+
+With a gradient the forward also emits the per-pixel statistics
+spl = d/da and spd = d/db, so the backward is elementwise in torch, as the
+TPU's backward was XLA. The factored form has no forward-only variant:
+without a gradient it drops the statistics, as the JAX package does.
+
+The kernels are built with ``nvcc`` for sm_90a at first use into
+``_build/`` next to this package and loaded with ctypes through a plain C
+interface. CUDA tensors always go through a kernel (or raise); CPU tensors
+take the plain version. There is no fallback from one to the other.
 """
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -29,6 +39,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "offset_gamma.cu"
@@ -37,10 +48,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+MAX_FACTORS = 6  # kMaxFactors of the factored kernel
+MAX_CONFIGS = 64  # kMaxConfigs
 
 
 # ---------------------------------------------------------------------------
-# plain version (CPU path and the kernel's reference on the card)
+# plain versions (CPU path and the kernels' reference on the card)
 # ---------------------------------------------------------------------------
 
 
@@ -73,6 +86,18 @@ def offset_gamma_summed_plain(value, concentration, rate, offset_samples,
         value, concentration, rate, offset_samples, offset_logits
     )
     return (lp * mask).sum(-1)
+
+
+def offset_gamma_factored_summed_plain(value, base, deltas, mtab, rate,
+                                       offset_samples, offset_logits, ev):
+    """The factored form through a dense concentration, the JAX package's
+    XLA path: a = base + tensordot(mtab, deltas), then the summed plain
+    version. Shapes as :func:`offset_gamma_factored_summed`."""
+    mt = torch.as_tensor(np.asarray(mtab), dtype=deltas.dtype, device=deltas.device)
+    conc = base[..., None] + torch.tensordot(mt, deltas, dims=([1], [0]))
+    return offset_gamma_summed_plain(
+        value, conc, rate, offset_samples, offset_logits, ev
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +150,21 @@ class _Library:
     @staticmethod
     def _load(path: Path):
         lib = ctypes.CDLL(str(path))
-        args = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        for name in ("og_summed_f32", "og_summed_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        signatures = {
+            # x, a, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, stats, stream
+            "og_summed": [ptr] * 8 + [i32] * 6 + [ptr],
+            # x, base, deltas, mask bits (host), g, w, rate, out, spl, spd,
+            # M, Kf, nb, EVP, ev, J, stream
+            "og_factored": [ptr] * 10 + [i32] * 6 + [ptr],
+            # x, a, g, w, rate, out, spl, spd, M, n_px, J, stats, stream
+            "og_pixel": [ptr] * 8 + [i32, i64, i32, i32, ptr],
+        }
+        for entry, args in signatures.items():
+            for suffix in ("f32", "f64"):
+                fn = getattr(lib, f"{entry}_{suffix}")
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
         lib.og_max_bins.argtypes = []
         lib.og_max_bins.restype = ctypes.c_int
         return lib
@@ -138,65 +173,148 @@ class _Library:
 library = _Library()
 
 
-class _Launcher:
-    """One variant of the kernel (forward only, or forward + statistics),
-    with its launch count."""
-
-    def __init__(self, stats: bool):
-        self.stats = stats
-        self.launches = 0
-
-    def __call__(self, x2, a3, rate, g, w, ev):
-        """x2 (nb, EVP), a3 (M, nb, EVP), rate (1,), g and w (J,): CUDA
-        tensors of one floating dtype, contiguous. Returns out (M, nb) and,
-        for the statistics variant, spl and spd (M, nb, EVP)."""
-        _check_inputs(x2, a3, rate, g, w, ev)
-        lib = library.get()
-        M, nb, EVP = a3.shape
-        J = g.shape[0]
-        if J > lib.og_max_bins():
-            raise ValueError(f"{J} offset bins exceed the kernel's {lib.og_max_bins()}")
-        out = torch.empty((M, nb), dtype=a3.dtype, device=a3.device)
-        if self.stats:
-            spl = torch.empty_like(a3)
-            spd = torch.empty_like(a3)
-            p_spl, p_spd = spl.data_ptr(), spd.data_ptr()
-        else:
-            spl = spd = None
-            p_spl = p_spd = None
-        fn = lib.og_summed_f32 if a3.dtype == torch.float32 else lib.og_summed_f64
-        stream = torch.cuda.current_stream(a3.device).cuda_stream
-        err = fn(
-            x2.data_ptr(), a3.data_ptr(), g.data_ptr(), w.data_ptr(),
-            rate.data_ptr(), out.data_ptr(), p_spl, p_spd,
-            M, nb, EVP, int(ev), J, int(self.stats), stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"offset_gamma_summed kernel launch failed: CUDA error {err}")
-        self.launches += 1
-        return (out, spl, spd) if self.stats else out
-
-
-summed_fwd = _Launcher(stats=False)  # replaces _sum_fwd_kernel
-summed_stats = _Launcher(stats=True)  # replaces _sum_stats_kernel
-
-
-def _check_inputs(x2, a3, rate, g, w, ev):
-    if a3.device.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {a3.device}")
-    if a3.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the kernel takes float32 or float64, got {a3.dtype}")
-    if a3.ndim != 3 or x2.ndim != 2 or x2.shape != a3.shape[1:]:
-        raise ValueError(f"shapes: value {tuple(x2.shape)} vs concentration {tuple(a3.shape)}")
+def _check_inputs(x, a, rate, g, w):
+    """What every launcher takes: CUDA tensors of one floating dtype,
+    contiguous, a scalar rate and (J,) offsets within the kernel's limit."""
+    if a.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {a.device}")
+    if a.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the kernel takes float32 or float64, got {a.dtype}")
     if rate.numel() != 1 or g.ndim != 1 or w.shape != g.shape:
         raise ValueError("rate must be a scalar and offsets (J,) vectors")
-    if not 0 < ev <= a3.shape[-1]:
-        raise ValueError(f"ev={ev} outside (0, {a3.shape[-1]}]")
-    for t in (x2, a3, rate, g, w):
-        if t.device != a3.device or t.dtype != a3.dtype:
+    for t in (x, a, rate, g, w):
+        if t.device != a.device or t.dtype != a.dtype:
             raise TypeError("all inputs must share the concentration's device and dtype")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
+    lib = library.get()
+    if g.shape[0] > lib.og_max_bins():
+        raise ValueError(f"{g.shape[0]} offset bins exceed the kernel's {lib.og_max_bins()}")
+    return lib
+
+
+def _check_ev(ev, EVP):
+    if not 0 < ev <= EVP:
+        raise ValueError(f"ev={ev} outside (0, {EVP}]")
+
+
+class _Launcher:
+    """One kernel variant and its launch count; the count rises only where
+    the kernel is launched."""
+
+    def __init__(self, entry, stats):
+        self.entry = entry
+        self.stats = stats
+        self.launches = 0
+
+    def _outputs(self, out_shape, stats_shape, like):
+        out = torch.empty(out_shape, dtype=like.dtype, device=like.device)
+        if not self.stats:
+            return out, None, None
+        return (out, torch.empty(stats_shape, dtype=like.dtype, device=like.device),
+                torch.empty(stats_shape, dtype=like.dtype, device=like.device))
+
+    def _launch(self, lib, like, *args):
+        suffix = "f32" if like.dtype == torch.float32 else "f64"
+        fn = getattr(lib, f"{self.entry}_{suffix}")
+        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{self.entry} kernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+    @staticmethod
+    def _ptr(t):
+        return None if t is None else t.data_ptr()
+
+
+class _SummedLauncher(_Launcher):
+    def __call__(self, x2, a3, rate, g, w, ev):
+        """x2 (nb, EVP), a3 (M, nb, EVP), rate (1,), g and w (J,). Returns
+        out (M, nb) and, for the statistics variant, spl and spd (M, nb,
+        EVP)."""
+        lib = _check_inputs(x2, a3, rate, g, w)
+        if a3.ndim != 3 or x2.ndim != 2 or x2.shape != a3.shape[1:]:
+            raise ValueError(f"shapes: value {tuple(x2.shape)} vs concentration {tuple(a3.shape)}")
+        M, nb, EVP = a3.shape
+        _check_ev(ev, EVP)
+        out, spl, spd = self._outputs((M, nb), a3.shape, a3)
+        self._launch(
+            lib, a3, x2.data_ptr(), a3.data_ptr(), g.data_ptr(), w.data_ptr(),
+            rate.data_ptr(), out.data_ptr(), self._ptr(spl), self._ptr(spd),
+            M, nb, EVP, int(ev), g.shape[0], int(self.stats),
+        )
+        return (out, spl, spd) if self.stats else out
+
+
+class _PixelLauncher(_Launcher):
+    def __call__(self, x, a2, rate, g, w):
+        """x (n_px,), a2 (M, n_px), rate (1,), g and w (J,). Returns out (M,
+        n_px) and, for the statistics variant, spl and spd (M, n_px)."""
+        lib = _check_inputs(x, a2, rate, g, w)
+        if a2.ndim != 2 or x.ndim != 1 or x.shape[0] != a2.shape[1]:
+            raise ValueError(f"shapes: value {tuple(x.shape)} vs concentration {tuple(a2.shape)}")
+        M, n_px = a2.shape
+        out, spl, spd = self._outputs(a2.shape, a2.shape, a2)
+        self._launch(
+            lib, a2, x.data_ptr(), a2.data_ptr(), g.data_ptr(), w.data_ptr(),
+            rate.data_ptr(), out.data_ptr(), self._ptr(spl), self._ptr(spd),
+            M, n_px, g.shape[0], int(self.stats),
+        )
+        return (out, spl, spd) if self.stats else out
+
+
+class _FactoredLauncher(_Launcher):
+    def __call__(self, x2, base, deltas, masks, rate, g, w, ev):
+        """x2 (nb, EVP), base (nb,), deltas (Kf, nb, EVP), masks: M ints
+        (bit k of masks[m] says config m holds spot k), rate (1,), g and w
+        (J,). Returns out (M, nb), spl and spd (M, nb, EVP)."""
+        lib = _check_inputs(x2, deltas, rate, g, w)
+        _check_inputs(x2, base, rate, g, w)
+        Kf, nb, EVP = deltas.shape
+        if x2.shape != (nb, EVP) or base.shape != (nb,):
+            raise ValueError(
+                f"shapes: value {tuple(x2.shape)}, base {tuple(base.shape)} vs "
+                f"deltas {tuple(deltas.shape)}"
+            )
+        M = len(masks)
+        if not 1 <= Kf <= MAX_FACTORS or not 1 <= M <= MAX_CONFIGS:
+            raise ValueError(
+                f"the kernel takes 1..{MAX_FACTORS} factors and 1..{MAX_CONFIGS} "
+                f"configs, got Kf={Kf}, M={M}"
+            )
+        if any(not 0 <= m < (1 << Kf) for m in masks):
+            raise ValueError(f"config masks {masks} name spots beyond Kf={Kf}")
+        _check_ev(ev, EVP)
+        out, spl, spd = self._outputs((M, nb), (M, nb, EVP), deltas)
+        bits = (ctypes.c_int * M)(*masks)
+        self._launch(
+            lib, deltas, x2.data_ptr(), base.data_ptr(), deltas.data_ptr(),
+            ctypes.cast(bits, ctypes.c_void_p), g.data_ptr(), w.data_ptr(),
+            rate.data_ptr(), out.data_ptr(), spl.data_ptr(), spd.data_ptr(),
+            M, Kf, nb, EVP, int(ev), g.shape[0],
+        )
+        return out, spl, spd
+
+
+summed_fwd = _SummedLauncher("og_summed", stats=False)  # replaces _sum_fwd_kernel
+summed_stats = _SummedLauncher("og_summed", stats=True)  # replaces _sum_stats_kernel
+pixel_fwd = _PixelLauncher("og_pixel", stats=False)  # replaces _fwd_kernel
+pixel_stats = _PixelLauncher("og_pixel", stats=True)  # replaces _fwd_stats_kernel
+factored_stats = _FactoredLauncher("og_factored", stats=True)  # replaces _fact_stats_kernel
+LAUNCHERS = {
+    "summed_fwd": summed_fwd, "summed_stats": summed_stats,
+    "pixel_fwd": pixel_fwd, "pixel_stats": pixel_stats,
+    "factored_stats": factored_stats,
+}
+
+
+# ---------------------------------------------------------------------------
+# autograd wrappers and entry points
+# ---------------------------------------------------------------------------
+
+
+def _wants_grad(*tensors):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class _SummedFunction(torch.autograd.Function):
@@ -236,6 +354,147 @@ def offset_gamma_summed(value, concentration, rate, offset_samples,
     g = offset_samples.to(dtype).contiguous()
     w = offset_logits.to(dtype).contiguous()
     rate1 = rate.to(dtype).reshape(1)
-    if torch.is_grad_enabled() and (a3.requires_grad or rate1.requires_grad):
+    if _wants_grad(a3, rate1):
         return _SummedFunction.apply(x2, a3, rate1, g, w, int(ev))
     return summed_fwd(x2, a3, rate1, g, w, int(ev))
+
+
+class _PixelFunction(torch.autograd.Function):
+    """Per-pixel forward + statistics in one launch; elementwise backward
+    (``_lse_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x, a2, rate, g, w):
+        out, spl, spd = pixel_stats(x, a2, rate, g, w)
+        ctx.save_for_backward(spl, spd)
+        return out
+
+    @staticmethod
+    def backward(ctx, go):
+        spl, spd = ctx.saved_tensors
+        return None, go * spl, (go * spd).sum().reshape(1), None, None
+
+
+def pixel_layout(value, concentration):
+    """The per-pixel kernel's flat layout of a broadcast call: value as
+    (n_px,), concentration as (M, n_px), and the output shape. Leading axes
+    that the concentration has and the value lacks become the M configs
+    sharing each pixel's value (the JAX kernel's (M,) + value.shape layout,
+    M = 1 when the shapes are equal); every other axis broadcasts."""
+    shape = torch.broadcast_shapes(value.shape, concentration.shape)
+    lead = len(shape) - value.dim()
+    px_shape = shape[lead:]
+    n_px = math.prod(px_shape)
+    x = value.expand(px_shape).reshape(n_px)
+    a2 = concentration.expand(shape).reshape(math.prod(shape[:lead]), n_px)
+    return x, a2, shape
+
+
+def offset_gamma_log_prob(value, concentration, rate, offset_samples,
+                          offset_logits):
+    """Per-pixel log p(value) = log sum_j exp(logits_j) Gamma(value - g_j;
+    a, b), the counterpart of ``offset_gamma_log_prob_pallas`` for every
+    layout that broadcasts (see :func:`pixel_layout`).
+
+    On the card the rate must be a scalar (0-dim) tensor, since the kernel
+    takes one, and any other rate raises; the JAX package sends such a call
+    to its XLA path. CPU tensors take the plain version, which broadcasts
+    any rate. A pixel below every offset bin gives about -1e30 on the card
+    and -inf on the CPU, as the Pallas kernel and the XLA path do.
+
+    :return: log-probabilities of the broadcast shape of value and
+        concentration, in the concentration's dtype.
+    """
+    dtype = concentration.dtype
+    rate = torch.as_tensor(rate, dtype=dtype, device=concentration.device)
+    if concentration.device.type == "cpu":
+        return offset_gamma_log_prob_plain(
+            value, concentration, rate, offset_samples, offset_logits
+        )
+    if rate.dim() != 0:
+        raise ValueError(f"the per-pixel kernel takes a scalar rate, got shape {tuple(rate.shape)}")
+    x, a2, shape = pixel_layout(value.to(dtype), concentration)
+    x, a2 = x.contiguous(), a2.contiguous()
+    g = offset_samples.to(dtype).contiguous()
+    w = offset_logits.to(dtype).contiguous()
+    rate1 = rate.reshape(1)
+    if _wants_grad(a2, rate1):
+        out = _PixelFunction.apply(x, a2, rate1, g, w)
+    else:
+        out = pixel_fwd(x, a2, rate1, g, w)
+    return out.reshape(shape)
+
+
+def config_masks(mtab, Kf):
+    """An (M, Kf) 0/1 host table as M bitmasks (bit k: spot k present)."""
+    mt = np.asarray(mtab)
+    if mt.ndim != 2 or mt.shape[1] != Kf:
+        raise ValueError(f"mtab {mt.shape} vs deltas Kf={Kf}")
+    if not np.isin(mt, (0, 1)).all():
+        raise ValueError("mtab entries must be 0 or 1")
+    return tuple(int(sum(int(b) << k for k, b in enumerate(row))) for row in mt)
+
+
+class _FactoredFunction(torch.autograd.Function):
+    """Factored forward + statistics in one launch; the backward is
+    ``_lse_fact_bwd``'s arithmetic on a base of shape (nb,)."""
+
+    @staticmethod
+    def forward(ctx, x2, base, deltas, rate, g, w, masks, ev):
+        out, spl, spd = factored_stats(x2, base, deltas, masks, rate, g, w, ev)
+        ctx.save_for_backward(spl, spd)
+        ctx.masks, ctx.Kf = masks, deltas.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, go):
+        spl, spd = ctx.saved_tensors
+        gsl = go[..., None] * spl  # (M, nb, EVP)
+        dbase = gsl.sum((0, 2))
+        # d delta_k = sum of gsl over the configs holding spot k, from views
+        # (the table stays on the host: no copy to the card per step)
+        ddeltas = torch.zeros((ctx.Kf,) + tuple(gsl.shape[1:]), dtype=gsl.dtype,
+                              device=gsl.device)
+        for m, bits in enumerate(ctx.masks):
+            for k in range(ctx.Kf):
+                if (bits >> k) & 1:
+                    ddeltas[k] += gsl[m]
+        drate = (go[..., None] * spd).sum().reshape(1)
+        return None, dbase, ddeltas, drate, None, None, None, None
+
+
+def offset_gamma_factored_summed(value, base, deltas, mtab, rate,
+                                 offset_samples, offset_logits, ev):
+    """Event-summed offset-Gamma log-pdf over all spot-presence configs,
+    with a_m = base + sum_k mtab[m, k] deltas[k] built inside the kernel, so
+    no (M,) + batch + (EVP,) concentration is made (JAX:
+    ``offset_gamma_factored_summed``).
+
+    :param value: batch + (EVP,) lane-padded flat images.
+    :param base: batch, per-image base concentration (no spots), > 0.
+    :param deltas: (Kf,) + batch + (EVP,) per-spot contributions >= 0.
+    :param mtab: (M, Kf) 0/1 host table (numpy array or nested sequence) of
+        configs; on the card Kf <= 6 and M <= 64.
+    :param rate: scalar tensor (the Gamma rate 1/gain).
+    :param ev: number of real pixels; the rest of EVP is masked.
+    :return: (M,) + batch log-probabilities summed over each image's pixels.
+    """
+    if deltas.device.type == "cpu":
+        return offset_gamma_factored_summed_plain(
+            value, base, deltas, mtab, rate, offset_samples, offset_logits, ev
+        )
+    dtype = deltas.dtype
+    Kf, batch, EVP = deltas.shape[0], tuple(deltas.shape[1:-1]), deltas.shape[-1]
+    masks = config_masks(mtab, Kf)
+    nb = math.prod(batch)
+    x2 = value.to(dtype).reshape(nb, EVP).contiguous()
+    b1 = base.to(dtype).reshape(nb).contiguous()
+    d3 = deltas.reshape(Kf, nb, EVP).contiguous()
+    g = offset_samples.to(dtype).contiguous()
+    w = offset_logits.to(dtype).contiguous()
+    rate1 = torch.as_tensor(rate, dtype=dtype, device=deltas.device).reshape(1)
+    if _wants_grad(b1, d3, rate1):
+        out = _FactoredFunction.apply(x2, b1, d3, rate1, g, w, masks, int(ev))
+    else:  # the JAX package's forward too runs the stats kernel and drops them
+        out = factored_stats(x2, b1, d3, masks, rate1, g, w, int(ev))[0]
+    return out.reshape((len(masks),) + batch)

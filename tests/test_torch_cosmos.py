@@ -30,6 +30,15 @@ RTOL = 1e-6
 WINDOW_SEED = 2  # a JAX key whose frame window wraps past the last frame
 # the module, not the class the package's __init__ binds to the same name
 jax_cosmos_module = importlib.import_module("tapqir_tpu.models.cosmos")
+port_cosmos_module = importlib.import_module("tapqir_tpu_torch.models.cosmos")
+
+
+def _counted(calls, side, fn):
+    def wrapped(*args, **kwargs):
+        calls[side] += 1
+        return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def _close(got, want, what):
@@ -107,13 +116,21 @@ def _torch_batch(ndx, fidx, f):
 
 
 @pytest.mark.parametrize(
-    "nbatch,fbatch,seed,sampling",
-    [(2, 4, 0, "random"), (2, 4, WINDOW_SEED, "window"), (4, 6, 1, "random")],
-    ids=["subsampled-random-frames", "subsampled-wrapping-window", "full-batch"],
+    "nbatch,fbatch,seed,sampling,factored",
+    [(2, 4, 0, "random", False), (2, 4, WINDOW_SEED, "window", False),
+     (4, 6, 1, "random", False), (2, 4, 3, "random", True)],
+    ids=["subsampled-random-frames", "subsampled-wrapping-window", "full-batch",
+         "factored-likelihood"],
 )
 def test_elbo_and_window_gradients_match_jax(nbatch, fbatch, seed, sampling,
-                                              monkeypatch):
+                                              factored, monkeypatch):
     jm, tm = _models(nbatch, fbatch, sampling=sampling)
+    calls = {"jax": 0, "port": 0}
+    if factored:  # both packages select the factored route the same way
+        jm.use_factored = tm.use_factored = True
+        for side, mod in (("jax", jax_cosmos_module), ("port", port_cosmos_module)):
+            monkeypatch.setattr(mod, "offset_gamma_factored_summed",
+                                _counted(calls, side, mod.offset_gamma_factored_summed))
     ndx_np, fidx_np, f, j_loss, draws, j_grads = _jax_loss_draws(
         jm, jax.random.PRNGKey(seed), monkeypatch, grad=True
     )
@@ -136,6 +153,7 @@ def test_elbo_and_window_gradients_match_jax(nbatch, fbatch, seed, sampling,
     )
     t_grads = torch.autograd.grad(t_loss, list(t_win.values()))
     np.testing.assert_allclose(t_loss.item(), j_loss, rtol=RTOL)
+    assert calls == {"jax": int(factored), "port": int(factored)}
     assert set(t_win) == set(j_grads)
     for name, g in zip(t_win, t_grads):
         _close(g.numpy(), j_grads[name], name)

@@ -1,12 +1,13 @@
-"""Tests of the port's CUDA kernel; they need the card and skip without one
-(a CUDA kernel has no CPU mode - its plain version is tested on the CPU in
-test_torch_likelihood.py). Run them on a machine with an H100:
+"""Tests of the port's CUDA kernels; they need the card and skip without one
+(a CUDA kernel has no CPU mode - the plain versions are tested on the CPU in
+test_torch_likelihood.py, test_torch_pixel_likelihood.py and
+test_torch_factored.py). Run them on a machine with an H100:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest --noconftest tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version at the tolerances
-stated in chip_smoke.py (forward rtol 3e-5 / atol 1e-2, gradient rtol 2e-4 /
-atol 1e-4 in float32; 1e-9 and 1e-6 in float64).
+Each kernel is held against its plain PyTorch version at the tolerances
+stated in chip_smoke.py (those of tests/test_pallas.py in float32; 1e-9 and
+1e-6 in float64).
 """
 
 import importlib.util
@@ -76,4 +77,90 @@ def test_cosmos_fit_on_the_card(cs, tmp_path):
     res = cs.run_main_path(tmp_path, Nt=16, F=40, P=14, J=11, nbatch=4, fbatch=16,
                            num_iter=20, device="cuda", n_chunk=2)
     cs.check_main_path(res, 20)
-    assert res["launches"]["stats"] == 20 and res["launches"]["fwd"] == 1
+    assert res["launches"]["summed_stats"] == 20 and res["launches"]["summed_fwd"] == 1
+
+
+PIXEL_CASES = {
+    "M4": dict(M=4, n_px=5000, J=61, dtype=torch.float32),
+    "M1-squeeze": dict(M=1, n_px=3000, J=61, dtype=torch.float32, squeeze=True),
+    "below-every-bin": dict(M=4, n_px=2000, J=61, dtype=torch.float32, below=True),
+    "ragged-n_px": dict(M=5, n_px=70001, J=11, dtype=torch.float32),
+    "float64": dict(M=4, n_px=3000, J=7, dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", list(PIXEL_CASES))
+def test_pixel_kernel_matches_plain(cs, case):
+    c = dict(PIXEL_CASES[case])
+    f64 = c["dtype"] == torch.float64
+    errs = cs.compare_pixel(
+        c["M"], c["n_px"], c["J"], c["dtype"], 5,
+        cs.F64_TOL if f64 else cs.PIXEL_FWD_TOL,
+        cs.F64_GRAD_TOL if f64 else cs.PIXEL_GRAD_TOL,
+        below=c.get("below", False), squeeze=c.get("squeeze", False),
+    )
+    assert all(np.isfinite(v) for v in errs.values())
+
+
+FACTORED_CASES = {
+    "kf2": dict(Kf=2, nb=40, J=61, dtype=torch.float32),
+    "base-below-one": dict(Kf=2, nb=16, J=61, dtype=torch.float32, small_base=True),
+    "below-every-bin": dict(Kf=2, nb=16, J=61, dtype=torch.float32, below=True),
+    "ragged-nb": dict(Kf=2, nb=37, J=61, dtype=torch.float32),
+    "kf4": dict(Kf=4, nb=24, J=61, dtype=torch.float32),
+    "float64": dict(Kf=3, nb=12, J=7, dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", list(FACTORED_CASES))
+def test_factored_kernel_matches_plain(cs, case):
+    c = dict(FACTORED_CASES[case])
+    f64 = c["dtype"] == torch.float64
+    errs = cs.compare_factored(
+        c["Kf"], c["nb"], 256, 196, c["J"], c["dtype"], 7,
+        cs.F64_TOL if f64 else cs.FACT_FWD_TOL,
+        cs.F64_GRAD_TOL if f64 else cs.FACT_GRAD_TOL,
+        below=c.get("below", False), small_base=c.get("small_base", False),
+    )
+    assert all(np.isfinite(v) for v in errs.values())
+
+
+def test_pixel_and_factored_launchers_check_their_inputs(cs):
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    x, a, rate, g, w = cs.pixel_inputs(2, 300, 7, torch.float32, 0, "cuda")
+    r1 = rate.reshape(1)
+    with pytest.raises(TypeError):
+        og.pixel_fwd(x.double(), a, r1, g, w)
+    with pytest.raises(ValueError):
+        og.pixel_fwd(x[:10], a, r1, g, w)
+    with pytest.raises(ValueError):  # the kernel takes a scalar rate only
+        og.offset_gamma_log_prob(x, a, torch.full((300,), 0.1, device="cuda"), g, w)
+    n = og.pixel_fwd.launches
+    og.pixel_fwd(x, a, r1, g, w)
+    assert og.pixel_fwd.launches == n + 1
+
+    xf, base, deltas, mtab, rate, g, w = cs.factored_inputs(2, 4, 256, 196, 7,
+                                                           torch.float32, 0, "cuda")
+    r1 = rate.reshape(1)
+    with pytest.raises(ValueError):  # config 4 names a third spot
+        og.factored_stats(xf, base, deltas, (0, 1, 2, 4), r1, g, w, 196)
+    with pytest.raises(ValueError):
+        og.factored_stats(xf, base[:3], deltas, (0, 1, 2, 3), r1, g, w, 196)
+    with pytest.raises(ValueError):  # seven spot factors: one beyond the kernel's
+        og.offset_gamma_factored_summed(xf, base, deltas[:1].expand(7, 4, 256),
+                                        np.ones((2, 7)), rate, g, w, 196)
+    n = og.factored_stats.launches
+    og.factored_stats(xf, base, deltas, (0, 1, 2, 3), r1, g, w, 196)
+    assert og.factored_stats.launches == n + 1
+
+
+def test_factored_fit_and_pixel_path_on_the_card(cs, tmp_path):
+    cs.prepare_dataset(tmp_path, Nt=16, F=40, P=14, J=11, device="cuda", n_chunk=2)
+    res, model = cs.run_factored_path(tmp_path, nbatch=4, fbatch=16, num_iter=20,
+                                      device="cuda")
+    cs.check_main_path(res, 20)
+    assert res["launches"]["factored_stats"] == 21
+    assert res["launches"]["summed_stats"] == res["launches"]["summed_fwd"] == 0
+    pixel = cs.run_pixel_path(model.data, n_aoi=4, n_frames=16, device="cuda")
+    assert pixel["launches"]["pixel_fwd"] == 1 and pixel["launches"]["pixel_stats"] == 2

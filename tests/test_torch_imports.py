@@ -87,3 +87,38 @@ def test_wrapper_takes_plain_path_only_on_cpu():
     # the launcher itself refuses CPU tensors instead of falling back
     with pytest.raises(ValueError, match="CUDA tensors"):
         og.summed_stats(x, a, rate.reshape(1), g, w, ev)
+
+
+def _pixel_and_factored_calls():
+    rng = np.random.default_rng(1)
+    nb, EVP, ev = 3, 128, 100
+    x = torch.tensor(rng.integers(95, 300, (nb, EVP)), dtype=torch.float32)
+    a = torch.tensor(rng.uniform(10, 50, (2, nb, EVP)), dtype=torch.float32)
+    base = torch.tensor(rng.uniform(10, 50, nb), dtype=torch.float32)
+    deltas = torch.tensor(rng.uniform(0, 50, (2, nb, EVP)), dtype=torch.float32)
+    mtab = [[0, 0], [1, 0], [0, 1], [1, 1]]
+    g = torch.tensor([86.0, 88.0, 90.0, 92.0])
+    w = torch.log(torch.full((4,), 0.25))
+    rate = torch.tensor(1 / 7.0)
+    return {
+        "pixel": (
+            lambda: og.offset_gamma_log_prob(x, a, rate, g, w),
+            lambda: og.offset_gamma_log_prob_plain(x, a, rate, g, w),
+            lambda: og.pixel_stats(x.reshape(-1), a.reshape(2, -1), rate.reshape(1), g, w),
+        ),
+        "factored": (
+            lambda: og.offset_gamma_factored_summed(x, base, deltas, mtab, rate, g, w, ev),
+            lambda: og.offset_gamma_factored_summed_plain(x, base, deltas, mtab, rate, g, w, ev),
+            lambda: og.factored_stats(x, base, deltas, (0, 1, 2, 3), rate.reshape(1), g, w, ev),
+        ),
+    }
+
+
+@pytest.mark.parametrize("form", ["pixel", "factored"])
+def test_pixel_and_factored_wrappers_take_plain_path_only_on_cpu(form):
+    wrapper, plain, launcher = _pixel_and_factored_calls()[form]
+    before = {k: v.launches for k, v in og.LAUNCHERS.items()}
+    assert torch.equal(wrapper(), plain())
+    assert {k: v.launches for k, v in og.LAUNCHERS.items()} == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        launcher()

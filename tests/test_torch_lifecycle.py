@@ -19,6 +19,7 @@ from tapqir_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError
 from tapqir_tpu_torch.models import models
 from tapqir_tpu_torch.models.model import key_to_seed, seed_to_key
+from tapqir_tpu_torch.ops import offset_gamma as og
 from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
 
 torch.set_num_threads(1)
@@ -171,7 +172,7 @@ def test_chip_smoke_main_path_tiny_on_cpu(tmp_path):
                            num_iter=6, device="cpu", n_chunk=2)
     cs.check_main_path(res, 6)
     assert res["checkpoint_exists"] and res["iter_reloaded"] == 6
-    assert res["launches"] == {"fwd": 0, "stats": 0}  # the CPU takes the plain path
+    assert res["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
     # resume from the checkpoint: iter advances from where it stopped
     tm = models["cosmos"](device="cpu")
     tm.load(tmp_path)
@@ -179,3 +180,18 @@ def test_chip_smoke_main_path_tiny_on_cpu(tmp_path):
     assert tm.iter == 6
     tm.run(4)
     assert tm.iter == 10
+
+
+def test_chip_smoke_factored_and_pixel_paths_tiny_on_cpu(tmp_path):
+    """chip_smoke.py's factored fit (on the dataset the dense path saved,
+    linked) and its per-pixel path, at a tiny size on the CPU."""
+    cs = _chip_smoke()
+    cs.prepare_dataset(tmp_path, Nt=8, F=12, P=14, J=7, device="cpu", n_chunk=2)
+    res, model = cs.run_factored_path(tmp_path, nbatch=4, fbatch=8, num_iter=4,
+                                      device="cpu")
+    cs.check_main_path(res, 4)
+    assert model.use_factored and (tmp_path / "factored" / "data.tpqr").is_symlink()
+    assert res["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    pixel = cs.run_pixel_path(model.data, n_aoi=2, n_frames=5, device="cpu")
+    assert pixel["shape"] == [2, 5, 1, 14, 14]
+    assert pixel["launches"] == dict.fromkeys(og.LAUNCHERS, 0)

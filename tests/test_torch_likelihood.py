@@ -150,7 +150,8 @@ def test_image_model_and_summed_likelihood_match_reference_goldens(golden, which
     conc = torch.cat([(img / t["gain"]).reshape(batch + (ev,)),
                       torch.ones(batch + (ev_pad - ev,), dtype=torch.float64)], -1)
     lp = offset_gamma_log_prob_summed(
-        val, conc[None], 1.0 / t["gain"], off, t["offset_logits"], ev=ev
+        val, conc[None], 1.0 / t["gain"], off, t["offset_logits"], event_ndims=1,
+        ev=ev,
     )[0]
     if alpha is not None:  # crosstalk: summed over channels too
         lp = lp.sum(-1)
