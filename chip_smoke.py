@@ -11,8 +11,12 @@ one. Phases, each printing its findings; any failure is an exception:
 3. the summed kernel against its plain PyTorch version at the slice's
    shapes (M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
    bins, float32: forward, concentration and rate gradients), then edge
-   cases: pixels below every offset bin, ev-masked lanes, a ragged nb, M=16
-   and a small float64 case;
+   cases: pixels below every offset bin, ev-masked lanes, a ragged nb, M=16,
+   a small float64 case, J in {1, 7, 64, 65, 1024} around the kernel's tile
+   of 8 bins, and the inputs of VARIANTS (whole tiles of bins masked, a bin
+   term spread over more than 100 log units, a < 1 with d just above 0);
+   every case also launches each kernel twice and requires bitwise-equal
+   outputs;
 4. the per-pixel kernel against its plain version at 10x512x1x14x14 =
    1,003,520 pixels, J=61, M=1 and M=4 (forward, concentration and rate
    gradients), then pixels below every bin, a ragged pixel count, the M=1
@@ -20,9 +24,12 @@ one. Phases, each printing its findings; any failure is an exception:
 5. the factored kernel against its plain version at Kf=2 spots (M=4),
    nb=5120, EVP=256, ev=196, J=61 (forward; base, delta and rate
    gradients), then base < 1, pixels below every bin, a ragged nb, Kf=4
-   (M=16) and float64;
-6. timing of every kernel with CUDA events beside its plain version and the
-   least time the card could take (bound);
+   (M=16), float64, ev-masked lanes with J=65, and the VARIANTS inputs
+   (the small-d one with every concentration below 1);
+6. timing of every kernel with CUDA events beside its plain version, the
+   least time the card could take (bound) and the least time of its
+   special-function unit for the exact evaluation (one log per pixel and
+   bin, one exp per config, pixel and bin);
 7. the dense main path: simulate an eLife-scale cosmos dataset (Nt=856
    AOIs, F=790 frames, P=14, 61 offset bins) with the port's simulator,
    save it, then models["cosmos"]() -> load -> init(lr=0.005,
@@ -64,6 +71,10 @@ SIM_PARAMS = {
 # H100 SXM published peaks: HBM3 bandwidth and dense FP32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+# the special-function unit (MUFU: ex2, lg2): 16 results per SM per clock
+# on compute capability 9.0 (CUDA programming guide), 132 SMs, at the
+# card's maximum SM clock of 1980 MHz (nvidia-smi clocks.max.sm)
+PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 KERNEL_SOURCE = "tapqir_tpu_torch/csrc/offset_gamma.cu"
 PALLAS_SOURCE = "tapqir_tpu/ops/offset_gamma.py"
 # tolerances of tests/test_pallas.py, float32 kernel against the plain
@@ -84,6 +95,43 @@ def offset_histogram(n_offsets=61):
     centers = np.arange(90 - n_offsets // 2, 90 + n_offsets // 2 + 1, dtype=np.float64)
     w = np.exp(-0.5 * ((centers - 90.0) / 8.0) ** 2)
     return centers, w / w.sum()
+
+
+def offset_logits(n_offsets=61):
+    """Exactly ``n_offsets`` integer bins from 90 - n_offsets // 2 (those of
+    :func:`offset_histogram` for an odd count) and their log weights, taken
+    in log space so that the far bins of a wide histogram (J=1024) stay
+    finite."""
+    centers = 90.0 - n_offsets // 2 + np.arange(n_offsets, dtype=np.float64)
+    lw = -0.5 * ((centers - 90.0) / 8.0) ** 2
+    return centers, lw - np.log(np.exp(lw).sum())
+
+
+# the kernels' edge-case inputs (kernel_inputs, factored_inputs)
+VARIANTS = {
+    "masked-tiles": "bins in descending order and pixels just above the 3 "
+                    "lowest offsets, so the leading tiles of bins are masked whole",
+    "spread": "log weights of the lower half of the bins 150 below the upper "
+              "half: the bin term spreads over more than 100 log units",
+    "small-d": "a third of the pixels 2^-16 above an offset, with "
+               "concentrations below 1",
+}
+
+
+def _apply_variant(variant, rng, x, g, w, ev):
+    """Edit value x (nb, EVP) and the bins g, w in place for ``variant``
+    (see VARIANTS); returns g, w."""
+    if variant == "masked-tiles":
+        g, w = g[::-1].copy(), w[::-1].copy()
+        x[:, :ev] = np.sort(g)[rng.integers(0, 3, size=(x.shape[0], ev))] + 0.5
+    elif variant == "spread":
+        w = w + np.where(np.arange(len(g)) < len(g) // 2, -150.0, 0.0)
+    elif variant == "small-d":
+        k = rng.integers(0, len(g), size=(x.shape[0], ev // 3))
+        x[:, : ev // 3] = g[k] + 2.0 ** -16
+    elif variant is not None:
+        raise ValueError(f"unknown variant {variant}")
+    return g, w
 
 
 def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8):
@@ -349,22 +397,25 @@ def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(M, nb, EVP, ev, J, dtype, seed, device):
+def kernel_inputs(M, nb, EVP, ev, J, dtype, seed, device, variant=None):
     """Inputs at realistic magnitudes: J integer offset bins around 90,
     pixel values from one above the lowest bin to 399 (some below some
-    bins), concentrations 10..80, rate 1/7. Lanes >= ev hold NaN: the
-    kernel must never read them."""
+    bins), concentrations 10..80 (0.05..0.95 for the small-d variant), rate
+    1/7; ``variant`` names an edge case of VARIANTS. Lanes >= ev hold NaN:
+    the kernel must never read them."""
     rng = np.random.default_rng(seed)
-    g, w = offset_histogram(J)
+    g, w = offset_logits(J)
     x = rng.integers(int(g.min()) + 1, 400, size=(nb, EVP)).astype(np.float64)
     a = rng.uniform(10.0, 80.0, size=(M, nb, EVP))
+    g, w = _apply_variant(variant, rng, x, g, w, ev)
+    if variant == "small-d":
+        a = rng.uniform(0.05, 0.95, size=(M, nb, EVP))
     x[:, ev:] = np.nan
     a[:, :, ev:] = np.nan
     t = dict(device=device, dtype=dtype)
     return (
         torch.tensor(x, **t), torch.tensor(a, **t),
-        torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t),
-        torch.tensor(np.log(w), **t),
+        torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t), torch.tensor(w, **t),
     )
 
 
@@ -380,6 +431,15 @@ def _check_rate(errs, got, want, rtol):
     errs["grad_rate_rel"] = abs(float(got) - float(want)) / abs(float(want))
 
 
+def _check_repeat(label, launcher, *args):
+    """Two launches on the same inputs must give bitwise-equal outputs."""
+    first, second = launcher(*args), launcher(*args)
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(u, v) for u, v in zip(first, second)):
+        raise RuntimeError(f"{label}: two launches on the same inputs differ")
+
+
 def _check_below(outs, sel):
     for o in outs:
         v = o[sel]
@@ -387,14 +447,16 @@ def _check_below(outs, sel):
             raise RuntimeError(f"below-every-bin entries gave {v.flatten()[:8].tolist()}")
 
 
-def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False):
+def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False,
+            variant=None):
     """Summed kernel (through the autograd wrapper) against the plain
     version: forward, concentration gradient and rate gradient under a
-    random cotangent in [-1, 1]. Returns the max abs errors, after checking
-    the tolerances."""
+    random cotangent in [-1, 1], on the inputs of ``variant`` (VARIANTS);
+    both kernel variants must repeat bitwise. Returns the max abs errors,
+    after checking the tolerances."""
     from tapqir_tpu_torch.ops import offset_gamma as og
 
-    x, a, rate, g, w = kernel_inputs(M, nb, EVP, ev, J, dtype, seed, "cuda")
+    x, a, rate, g, w = kernel_inputs(M, nb, EVP, ev, J, dtype, seed, "cuda", variant)
     keep = torch.ones(nb, dtype=torch.bool, device="cuda")
     if below:  # image 0: five pixels below every offset bin
         x[0, :5] = g.min() - 10.0
@@ -411,6 +473,8 @@ def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False):
     torch.cuda.synchronize()
     if below:
         _check_below((out_k, out_k_nograd), (slice(None), 0))
+    for launcher in (og.summed_fwd, og.summed_stats):
+        _check_repeat("summed", launcher, x, a, rate.reshape(1), g, w, ev)
 
     # the plain version on the real lanes (it would read the NaN padding), in
     # float64 on the same values: float32 round-off of the plain version
@@ -447,12 +511,12 @@ def pixel_inputs(M, n_px, J, dtype, seed, device):
     """Per-pixel inputs at the magnitudes of :func:`kernel_inputs`: value
     (n_px,), concentration (M, n_px)."""
     rng = np.random.default_rng(seed)
-    g, w = offset_histogram(J)
+    g, w = offset_logits(J)
     t = dict(device=device, dtype=dtype)
     return (
         torch.tensor(rng.integers(int(g.min()) + 1, 400, size=n_px).astype(np.float64), **t),
         torch.tensor(rng.uniform(10.0, 80.0, size=(M, n_px)), **t),
-        torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t), torch.tensor(np.log(w), **t),
+        torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t), torch.tensor(w, **t),
     )
 
 
@@ -501,38 +565,45 @@ def compare_pixel(M, n_px, J, dtype, seed, fwd_tol, grad_tol, below=False,
     return errs
 
 
-def factored_inputs(Kf, nb, EVP, ev, J, dtype, seed, device):
+def factored_inputs(Kf, nb, EVP, ev, J, dtype, seed, device, variant=None):
     """Factored inputs at cosmos magnitudes (per-image base b/gain 10..40,
     spot contributions 0..40 with half the pixels near zero, as away from
-    a spot's centre) and the full 2^Kf config table. Lanes >= ev of value
-    and deltas hold NaN: the kernel must never read them."""
+    a spot's centre) and the full 2^Kf config table; ``variant`` names an
+    edge case of VARIANTS (small-d: base 0.05 and contributions 0..0.4, so
+    every concentration is below 1). Lanes >= ev of value and deltas hold
+    NaN: the kernel must never read them."""
     from tapqir_tpu_torch.infer.discrete import m_configs
 
     rng = np.random.default_rng(seed)
-    g, w = offset_histogram(J)
+    g, w = offset_logits(J)
     x = rng.integers(int(g.min()) + 1, 400, size=(nb, EVP)).astype(np.float64)
     base = rng.uniform(10.0, 40.0, size=nb)
     deltas = rng.uniform(0.0, 40.0, size=(Kf, nb, EVP))
     deltas[:, :, rng.integers(0, ev, size=ev // 2)] *= 1e-3
+    g, w = _apply_variant(variant, rng, x, g, w, ev)
+    if variant == "small-d":
+        base[:] = 0.05
+        deltas *= 1e-2
     x[:, ev:] = np.nan
     deltas[:, :, ev:] = np.nan
     t = dict(device=device, dtype=dtype)
     return (torch.tensor(x, **t), torch.tensor(base, **t), torch.tensor(deltas, **t),
             m_configs(Kf), torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t),
-            torch.tensor(np.log(w), **t))
+            torch.tensor(w, **t))
 
 
 def compare_factored(Kf, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol,
-                     below=False, small_base=False):
+                     below=False, small_base=False, variant=None):
     """Factored kernel (through ``offset_gamma_factored_summed``) against
     the plain version (dense concentration) in float64: forward with and
     without gradient, base, delta and rate gradients under a random
-    cotangent. Returns the max abs errors, after checking the
+    cotangent, on the inputs of ``variant`` (VARIANTS); the kernel must
+    repeat bitwise. Returns the max abs errors, after checking the
     tolerances."""
     from tapqir_tpu_torch.ops import offset_gamma as og
 
     x, base, deltas, mtab, rate, g, w = factored_inputs(Kf, nb, EVP, ev, J, dtype,
-                                                        seed, "cuda")
+                                                        seed, "cuda", variant)
     M = mtab.shape[0]
     if small_base:  # base < 1: the Pallas kernel flips its base-factor shift
         base.fill_(0.05)
@@ -552,6 +623,8 @@ def compare_factored(Kf, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol,
     torch.cuda.synchronize()
     if below:
         _check_below((out_k, out_k_nograd), (slice(None), 0))
+    _check_repeat("factored", og.factored_stats, x, base, deltas, og.config_masks(mtab, Kf),
+                  rate.reshape(1), g, w, ev)
     if not (torch.isfinite(gb_k).all() and torch.isfinite(gd_k[..., :ev]).all()):
         raise RuntimeError("non-finite kernel gradient")
     if (gd_k[..., ev:] != 0).any():
@@ -591,6 +664,14 @@ def _bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FP32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mufu_floor_ms(x_real, g, M):
+    """Least time of the special-function unit for the exact evaluation: one
+    log per (pixel, bin) pair with x > g_j and one exp per config and such
+    pair, over PEAK_MUFU_PER_S (x_real: the real pixels' values)."""
+    pairs = float((x_real[..., None] > g).sum())
+    return 1e3 * pairs * (1 + M) / PEAK_MUFU_PER_S
 
 
 def bound_ms(x, a, g, ev, stats):
@@ -684,12 +765,16 @@ def main():
         ("ragged nb", dict(M=4, nb=37, EVP=256, ev=196, J=61, dtype=f32)),
         ("M=16", dict(M=16, nb=300, EVP=256, ev=196, J=61, dtype=f32)),
         ("float64", dict(M=4, nb=12, EVP=256, ev=196, J=7, dtype=f64)),
+        *((f"J={Jc}", dict(M=4, nb=64 if Jc < 1024 else 8, EVP=256, ev=196, J=Jc,
+                           dtype=f32)) for Jc in (1, 7, 64, 65, 1024)),
+        *((v, dict(M=4, nb=64, EVP=256, ev=196, J=61, dtype=f32, variant=v))
+          for v in VARIANTS),
     ]
     for i, (label, c) in enumerate(cases):
         is64 = c["dtype"] == f64
         e = compare(c["M"], c["nb"], c["EVP"], c["ev"], c["J"], c["dtype"], 10 + i,
                     F64_TOL if is64 else FWD_TOL, F64_GRAD_TOL if is64 else GRAD_TOL,
-                    below=c.get("below", False))
+                    below=c.get("below", False), variant=c.get("variant"))
         print(f"[summed] edge case {label}: {json.dumps(e)}", flush=True)
 
     # phase 4: per-pixel kernel against plain
@@ -728,6 +813,8 @@ def main():
         ("ragged nb", dict(Kf=2, nb=37, ev=196, J=61, dtype=f32)),
         ("Kf=4 (M=16)", dict(Kf=4, nb=300, ev=196, J=61, dtype=f32)),
         ("float64", dict(Kf=2, nb=12, ev=196, J=7, dtype=f64)),
+        ("ev-masked lanes, J=65", dict(Kf=2, nb=64, ev=130, J=65, dtype=f32)),
+        *((v, dict(Kf=2, nb=64, ev=196, J=61, dtype=f32, variant=v)) for v in VARIANTS),
     ]
     for i, (label, c) in enumerate(cases):
         is64 = c["dtype"] == f64
@@ -735,7 +822,8 @@ def main():
                              F64_TOL if is64 else FACT_FWD_TOL,
                              F64_GRAD_TOL if is64 else FACT_GRAD_TOL,
                              below=c.get("below", False),
-                             small_base=c.get("small_base", False))
+                             small_base=c.get("small_base", False),
+                             variant=c.get("variant"))
         print(f"[factored] edge case {label}: {json.dumps(e)}", flush=True)
     torch.cuda.empty_cache()
 
@@ -764,6 +852,8 @@ def main():
         torch.ones((M, nb), device="cuda"))
     timing["summed_fwd"] += [p_fwd, *bound_ms(x, a, g, ev, stats=False)]
     timing["summed_stats"] += [p_grad, *bound_ms(x, a, g, ev, stats=True)]
+    floor = dict.fromkeys(("summed_fwd", "summed_stats", "factored_stats"),
+                          mufu_floor_ms(x[:, :ev], g, M))
     del x, a
 
     xp, ap, _, _, _ = pixel_inputs(M, n_px, J, f32, 0, "cuda")
@@ -781,6 +871,7 @@ def main():
               flush=True)
         timing["pixel_fwd"] = [ms_f, p_fwd, *b_f]
         timing["pixel_stats"] = [ms_s, p_grad, *b_s]
+        floor["pixel_fwd"] = floor["pixel_stats"] = mufu_floor_ms(xp, g, Mp)
     del xp, ap, a2
 
     xf, base, deltas, mtab, _, _, _ = factored_inputs(Kf, nb, EVP, ev, J, f32, 0, "cuda")
@@ -798,8 +889,8 @@ def main():
     torch.cuda.empty_cache()
     for k, (ms, plain_ms, b, by) in timing.items():
         print(f"[timing] {k} on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b:.4f} ms ({by}); library: none (no single PyTorch call "
-              "computes this function)", flush=True)
+              f"ms, bound {b:.4f} ms ({by}), special-function floor {floor[k]:.4f} ms; "
+              "library: none (no single PyTorch call computes this function)", flush=True)
     print(f"[timing] kernel phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phases 7-9: the dense and factored fits and the per-pixel path

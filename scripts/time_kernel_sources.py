@@ -1,0 +1,228 @@
+#!/usr/bin/env python3
+"""Time versions of the offset-Gamma kernel source against each other, in
+turns, in one process on one card.
+
+    python3 scripts/time_kernel_sources.py --source old=path/to/old.cu \\
+        --source new=tapqir_tpu_torch/csrc/offset_gamma.cu [--iters 50]
+
+Every source must export the C interface of
+``tapqir_tpu_torch/csrc/offset_gamma.cu`` (``og_summed_*``,
+``og_factored_*``). Each is built with the port's nvcc flags (all builds
+started together) into ``tapqir_tpu_torch/_build/`` and loaded with ctypes;
+its registers and spills (``-Xptxas -v``) are printed, and, from
+``cuobjdump -sass``, the instruction mix per (pixel, bin) pair of the bin
+loop of each float32 summed-template kernel. Then, at the shapes
+of chip_smoke.py's phase 6 (M=4 configs, nb=5120 images, EVP=256 lanes,
+ev=196 pixels, J=61 bins, float32, seed 0), the summed forward, summed
+statistics and factored statistics kernels of every source are timed with
+CUDA events over ``--iters`` launches after one warm-up, in the order the
+sources were given and then in reverse (old, new, new, old for two), and
+each source's outputs are compared with the first source's. Prints the
+card's name and power limit, and one JSON line at the end. Needs a CUDA
+card.
+"""
+
+import argparse
+import collections
+import ctypes
+import hashlib
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+# the float32 instances of offset_gamma_summed_kernel<T, STATS, FACT>
+SUMMED_F32 = {"summed_fwd": "summed_kernelIfLb0ELb0E",
+              "summed_stats": "summed_kernelIfLb1ELb0E",
+              "factored_stats": "summed_kernelIfLb1ELb1E"}
+
+
+def _cuda_tool(name):
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return shutil.which(name) or os.path.join(cuda_home, "bin", name)
+
+
+def bin_loop_mix(sass, kernel):
+    """Instruction counts per (pixel, bin) pair in the bin loop of
+    ``kernel``'s SASS: the shortest loop (a backward branch and the code it
+    jumps back over) holding a MUFU ex2 or lg2, divided by the bins one
+    pass covers - its MUFU.LG2 count (one base-2 log per bin), or, for an
+    accurate logf (a polynomial, no MUFU), its MUFU.EX2 count over the
+    chunk of 4 configs (one expf per config and bin)."""
+    func = next(f for f in sass.split("Function : ")[1:]
+                if kernel in f.split("\n", 1)[0])
+    ins = []  # (address, opcode with modifiers, branch target or None)
+    for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                         r"([^;]*);", func):
+        target = re.search(r"0x([0-9a-f]+)", m.group(3)) if m.group(2) == "BRA" else None
+        ins.append((int(m.group(1), 16), m.group(2), target and int(target.group(1), 16)))
+    loops = [[op for a, op, _ in ins if t <= a <= addr]
+             for addr, _, t in ins if t is not None and t < addr]
+    body = min((ops for ops in loops
+                if any(op.startswith(("MUFU.LG2", "MUFU.EX2")) for op in ops)), key=len)
+    bins = (sum(op.startswith("MUFU.LG2") for op in body)
+            or sum(op.startswith("MUFU.EX2") for op in body) / 4)
+    mix = collections.Counter(op.split(".")[0] for op in body)
+    return {"instructions_per_pair": len(body) / bins,
+            **{op: n / bins for op, n in mix.most_common()}}
+
+
+def build_all(sources):
+    """nvcc every source at once; returns {label: (library path, log)}."""
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    nvcc = _cuda_tool("nvcc")
+    build = ROOT / "tapqir_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for label, src in sources.items():
+        tag = hashlib.sha256(Path(src).read_bytes()).hexdigest()[:16]
+        out = build / f"lib_{label}_{tag}.so"
+        procs[label] = out, subprocess.Popen(
+            [nvcc, *og.NVCC_FLAGS, "-o", str(out), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for label, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {sources[label]}:\n{log}")
+        built[label] = out, log
+    return built
+
+
+def kernel_calls(lib, ins):
+    """The three summed-template kernels of ``lib`` as closures on ``ins``,
+    each writing into its own preallocated outputs."""
+    x, a, r1, g, w, ev, xf, base, deltas, masks = ins
+    M, nb, EVP = a.shape
+    Kf = deltas.shape[0]
+    J = g.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    bits = (ctypes.c_int * len(masks))(*masks)
+
+    def outs(m):
+        return [torch.empty(s, device="cuda") for s in ((m, nb), (m, nb, EVP), (m, nb, EVP))]
+
+    o_fwd, o_st, o_fa = outs(M), outs(M), outs(len(masks))
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"kernel launch failed: CUDA error {err}")
+
+    def summed(o, stats):
+        def call():
+            check(lib.og_summed_f32(
+                x.data_ptr(), a.data_ptr(), g.data_ptr(), w.data_ptr(), r1.data_ptr(),
+                o[0].data_ptr(), o[1].data_ptr() if stats else None,
+                o[2].data_ptr() if stats else None, M, nb, EVP, ev, J, int(stats), stream))
+            return o if stats else o[:1]
+        return call
+
+    def factored():
+        check(lib.og_factored_f32(
+            xf.data_ptr(), base.data_ptr(), deltas.data_ptr(),
+            ctypes.cast(bits, ctypes.c_void_p), g.data_ptr(), w.data_ptr(),
+            r1.data_ptr(), o_fa[0].data_ptr(), o_fa[1].data_ptr(), o_fa[2].data_ptr(),
+            len(masks), Kf, nb, EVP, ev, J, stream))
+        return o_fa
+
+    return {"summed_fwd": summed(o_fwd, False), "summed_stats": summed(o_st, True),
+            "factored_stats": factored}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--source", action="append", required=True,
+                    help="label=path of a kernel source; two or more")
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_kernel_sources: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    sources = dict(s.split("=", 1) for s in args.source)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi}", flush=True)
+    built = build_all(sources)
+    registers = {}
+    for label, (path, log) in built.items():
+        registers[label] = [ln.strip() for ln in log.splitlines()
+                            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        print(f"[build] {label}: {path.name}", flush=True)
+        for ln in registers[label]:
+            print(f"[build] {label}: {ln}", flush=True)
+    mixes = {}
+    for label, (path, _) in built.items():
+        sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(path)],
+                              capture_output=True, text=True, check=True).stdout
+        for name, kernel in SUMMED_F32.items():
+            mix = mixes[f"{label}:{name}"] = bin_loop_mix(sass, kernel)
+            print(f"[sass] {label} {name}: per (pixel, bin) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in mix.items()), flush=True)
+    libs = {label: og._Library._load(path) for label, (path, _) in built.items()}
+
+    # phase 6 inputs of chip_smoke.py, padding finite
+    M, nb, EVP, ev, J, Kf = 4, 5120, 256, 196, 61, 2
+    x, a, rate, g, w = cs.kernel_inputs(M, nb, EVP, ev, J, torch.float32, 0, "cuda")
+    x[:, ev:] = 91.0
+    a[..., ev:] = 1.0
+    xf, base, deltas, mtab, _, _, _ = cs.factored_inputs(Kf, nb, EVP, ev, J, torch.float32,
+                                                         0, "cuda")
+    xf[:, ev:] = 91.0
+    deltas[..., ev:] = 0.0
+    ins = (x, a, rate.reshape(1), g, w, ev, xf, base, deltas, og.config_masks(mtab, Kf))
+    calls = {label: kernel_calls(lib, ins) for label, lib in libs.items()}
+
+    first = next(iter(calls))
+    agree = {}
+    for label, kern in calls.items():
+        for name, fn in kern.items():
+            got = [t.clone() for t in fn()]
+            want = calls[first][name]()
+            torch.cuda.synchronize()
+            agree[f"{label}:{name}"] = max(float((u - v).abs().max()) for u, v in zip(got, want))
+
+    order = list(calls) + list(reversed(calls))
+    ms = {label: {name: [] for name in calls[label]} for label in calls}
+    for name in calls[first]:
+        for label in order:
+            ms[label][name].append(cs.time_ms(calls[label][name], args.iters))
+    for name in calls[first]:
+        line = ", ".join(f"{label} {ms[label][name]}" for label in calls)
+        print(f"[timing] {name} in turns {order} on {smi}: {line}", flush=True)
+
+    # the SM clock under this load: read while ~1 s of launches of the last
+    # source's summed statistics kernel is queued
+    last = list(calls)[-1]
+    for _ in range(int(1000 / ms[last]["summed_stats"][0])):
+        calls[last]["summed_stats"]()
+    clocks = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    torch.cuda.synchronize()
+    print(f"[clock] under load (clocks.sm, clocks.max.sm, power.draw): {clocks}", flush=True)
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+                      "order": order, "iters": args.iters, "ms": ms,
+                      "max_abs_diff_vs_first": agree, "registers": registers,
+                      "bin_loop_mix": mixes,
+                      "clocks_under_load": clocks}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

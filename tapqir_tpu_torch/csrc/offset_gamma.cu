@@ -24,56 +24,89 @@
 //    factors, M <= 64 configs), so the (M, nb, EVP) concentration never
 //    exists in memory: only x, base and the Kf deltas are read.
 //
-// What bounds them on this card: per (pixel, bin) the work is 1 log and M
-// exp plus ~4M+3 (forward) or ~6M+3 (with stats) FMA-class operations,
-// against ~4 + 4M (+8M) bytes per PIXEL (x, a in; lp or spl, spd out). At
-// the slice shapes (M=4, J=61) that is ~1 KFLOP and ~1.5k MUFU ops per ~50
-// bytes: the kernels are bound by arithmetic, not memory, and among the
-// arithmetic by the exp/log instruction sequences.
+// What bounds them on this card: not memory. At the slice shapes (M=4
+// configs, nb=5120 images of ev=196 pixels, J=61 bins) the summed stats
+// kernel moves ~68 MB (0.02 ms at 3.35 TB/s) but evaluates up to 61.2 M
+// (pixel, bin) pairs, each with 1 log, M exps and the configs' sums. Two
+// limits of an SM meet there:
+//  * instruction issue: 4 schedulers x 32 lanes, 128 thread-instructions
+//    per SM per clock;
+//  * the special-function unit (MUFU: ex2, lg2): 16 results per SM per
+//    clock. The 1 + M = 5 MUFU operations per pair are a floor of ~0.07 ms
+//    for 61.2 M pairs on 132 SMs at 1980 MHz, whatever else is done.
+// The accurate logf is a polynomial (no MUFU) and expf range reduction
+// around one MUFU operation, and an online logsumexp that rescales at every
+// (config, bin) adds a compare, an exp of -|t - mx|, three selects and two
+// multiplies: the per-pixel kernel's loop (lse_bins) issues 104 (forward)
+// and 121 (with statistics) SASS instructions per pair at M=4.
 //
-// Design (shared by all three kernels):
-//  * each thread owns a pixel and keeps the configs' running max / sum (and
-//    the two stats sums) in registers while it loops over the J bins, so
-//    log(x - g_j) is computed once per (pixel, bin) and shared by the
-//    configs (the TPU staged the same reuse through (J, rows, 128) VMEM
-//    buffers, which have no purpose here);
-//  * the logsumexp is an online max-rescaled sum with ONE exp per (config,
-//    bin): exp(-|t - mx|) is either the new term or the rescale factor;
-//  * g and w sit in shared memory (J <= kMaxJ);
+// Summed kernel design (all three instances):
+//  * float32 works in base 2 on the MUFU: g_j and w_j log2(e) sit in
+//    shared memory as one float2 per bin (one 64-bit load), the rate as
+//    b log2(e); per (pixel, bin) one lg2.approx of d, per (config, bin) one
+//    ex2.approx; the tail goes back to natural units once per (pixel,
+//    config) by ln 2 and takes the accurate logf of the sum. d is clamped
+//    to FLT_MIN before lg2 (whose ftz form reads a denormal as 0), so a
+//    difference in (0, FLT_MIN) gives log2 = -126, never -inf, which a < 1
+//    would turn into +inf and NaN. lgamma, the digamma series and the
+//    float64 instance keep the accurate sequences (no --use_fast_math).
+//  * the running max per config stays exact but is rescaled once per tile
+//    of kTile bins: the tile's terms t are formed, their max taken, the
+//    sums rescaled by one exp2(old - new) only where the max rose, then
+//    each term adds exp2(t - max), e L and e d with plain FMAs: the SASS
+//    loop issues 41 instructions and 5.5 MUFU operations per pair at M=4
+//    with statistics, 31 without. The bins are padded to whole tiles in
+//    shared memory with offsets at +inf, masked like any bin above the
+//    pixel. Measured on an H100 (700 W, 1980 MHz) the loop runs at ~0.49
+//    instructions per scheduler per clock, about issue time plus MUFU time,
+//    and 2.1x faster than the same kernel built on lse_bins.
+//  * full warps: a 256-thread block walks the flat real pixels of several
+//    images (kImagesPerBlock, fewer when the per-pixel buffer below would
+//    outgrow kPartialBytes), so at most one warp of a block is partly idle,
+//    where a block of 224 threads per 196-pixel image ran a seventh warp
+//    with 4 live lanes; neighbouring threads read and write neighbouring
+//    lanes of an image.
+//  * per-image sums without atomics: each pixel's lp goes to a shared
+//    (config, pixel) buffer, and one warp per (config, image) sums it in a
+//    fixed order (strided lane sums, then shuffles), out written as (M, nb)
+//    directly; two launches on the same inputs give bitwise-equal outputs.
 //  * configs are processed in register chunks of kChunk, so any M works;
 //    M beyond kChunk repeats the log per chunk.
-// Summed and factored kernels: one block owns one whole image and sums its
-// pixels by warp shuffles and one pass over the warps' partials: no
-// atomics, a fixed summation order, out written as (M, nb) directly.
-// Pixel kernel: a grid-stride loop over the flat pixels; out, spl and spd
-// are written straight to (M, n_px).
+// The pixel kernel keeps the first design: a thread per pixel in a
+// grid-stride loop, the accurate exp / log and the online logsumexp with
+// ONE exp per (config, bin), exp(-|t - mx|) being either the new term or
+// the rescale factor (lse_bins); out, spl and spd go straight to (M, n_px).
 //
-// The factored kernel keeps the summed kernel's exact online max per config
-// (M exps per (pixel, bin)) rather than the Pallas kernel's factored form
-// (1 + Kf exps, each factor shifted by per-pixel analytic bounds): the
-// bounds are loose by the spread of w_j - b (x - g_j) over the bins, and in
-// float32 a spread beyond ~87 underflows every shifted term of a pixel (a
-// wide offset histogram or a small gain gets there), while the online max
-// is exact for any input. At cosmos's Kf = 2 the factored form would save
-// one exp in four. Its edge cases come out as the Pallas kernel's: base < 1
-// needs no shift to flip, and a pixel below every bin ends near -1e30.
+// The factored instance keeps the exact running max per config (M exps per
+// pair) rather than the Pallas kernel's factored form (1 + Kf exps, each
+// factor shifted by per-pixel analytic bounds): the bounds are loose by the
+// spread of w_j - b (x - g_j) over the bins, and in float32 a spread beyond
+// ~87 underflows every shifted term of a pixel (a wide offset histogram or
+// a small gain gets there), while the running max is exact for any input.
+// At cosmos's Kf = 2 the factored form would save one MUFU op in five. Its
+// edge cases come out as the Pallas kernel's: base < 1 needs no shift to
+// flip, and a pixel below every bin ends near -1e30.
 //
-// A pixel below every bin keeps t = NEG for every j and ends at NEG + log J
-// (finite, about -1e30), as the TPU kernels do.
+// A pixel below every bin keeps t = NEG for every j and ends at NEG + log
+// (bins counted) - finite, about -1e30 - as the TPU kernels do.
 // lgamma comes from CUDA's math library; digamma is the Stirling series of
 // the JAX package (_digamma_stirling: absolute error < 7e-8 plus round-off).
 
+#include <cfloat>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxJ = 1024;
+constexpr int kMaxJ = 1024;  // a multiple of kTile
 constexpr int kChunk = 4;
-constexpr int kMaxWarps = 32;
 constexpr int kMaxFactors = 6;
 constexpr int kMaxConfigs = 64;
+constexpr int kTile = 8;              // bins per rescale of the running max
+constexpr int kSumThreads = 256;      // summed kernel: threads per block
+constexpr int kImagesPerBlock = 4;    // summed kernel: images per block
+constexpr int kPartialBytes = 32768;  // summed kernel: per-pixel lp buffer
 
 template <typename T> __device__ __forceinline__ T dlog(T v);
 template <> __device__ __forceinline__ float dlog<float>(float v) { return logf(v); }
@@ -84,9 +117,45 @@ template <> __device__ __forceinline__ double dexp<double>(double v) { return ex
 template <typename T> __device__ __forceinline__ T dabs(T v);
 template <> __device__ __forceinline__ float dabs<float>(float v) { return fabsf(v); }
 template <> __device__ __forceinline__ double dabs<double>(double v) { return fabs(v); }
+template <typename T> __device__ __forceinline__ T dmax(T u, T v);
+template <> __device__ __forceinline__ float dmax<float>(float u, float v) { return fmaxf(u, v); }
+template <> __device__ __forceinline__ double dmax<double>(double u, double v) { return fmax(u, v); }
 template <typename T> __device__ __forceinline__ T dlgamma(T v);
 template <> __device__ __forceinline__ float dlgamma<float>(float v) { return lgammaf(v); }
 template <> __device__ __forceinline__ double dlgamma<double>(double v) { return lgamma(v); }
+
+// The summed kernel's log and exp inside the bin loop, and its units: base 2
+// on the special-function unit in float32 (terms scaled by kScale = log2 e,
+// brought back by kUnit = ln 2), natural base and the accurate sequences in
+// float64.
+template <typename T> struct BinArith;
+template <> struct BinArith<float> {
+  static constexpr float kScale = 1.4426950408889634f;
+  static constexpr float kUnit = 0.6931471805599453f;
+  static __device__ __forceinline__ float log(float d) {
+    float y;
+    asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(fmaxf(d, FLT_MIN)));
+    return y;
+  }
+  static __device__ __forceinline__ float exp(float v) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));
+    return y;
+  }
+};
+template <> struct BinArith<double> {
+  static constexpr double kScale = 1.0;
+  static constexpr double kUnit = 1.0;
+  static __device__ __forceinline__ double log(double d) { return ::log(d); }
+  static __device__ __forceinline__ double exp(double v) { return ::exp(v); }
+};
+
+// one offset bin in shared memory: one 64-bit (float) or 128-bit load
+template <typename T>
+struct alignas(2 * sizeof(T)) Bin {
+  T g;  // offset
+  T w;  // log weight, times kScale
+};
 
 // digamma(a), a > 0: four-step recurrence to z = a + 4, Stirling series
 // through z^-6 (tapqir_tpu/ops/offset_gamma.py:_digamma_stirling).
@@ -116,9 +185,9 @@ struct ConfigMasks {
   int bits[kMaxConfigs];
 };
 
-// The online logsumexp over the J bins of one pixel for a chunk of configs
-// (am1 = a - 1): running max mx, sum s and, with STATS, the sums of p_j L_j
-// and p_j d_j (unnormalized, sl and sd).
+// The per-pixel kernel's online logsumexp over the J bins of one pixel for
+// a chunk of configs (am1 = a - 1): running max mx, sum s and, with STATS,
+// the sums of p_j L_j and p_j d_j (unnormalized, sl and sd).
 template <typename T, bool STATS>
 __device__ __forceinline__ void lse_bins(T xi, const T (&am1)[kChunk],
                                          const T* sg, const T* sw, int J, T b,
@@ -155,16 +224,77 @@ __device__ __forceinline__ void lse_bins(T xi, const T (&am1)[kChunk],
   }
 }
 
-// lp of one (config, pixel) from its lse sums; with STATS also spl and spd.
+// The summed kernel's logsumexp over the Jt (a multiple of kTile) bins of
+// one pixel for a chunk of configs, in BinArith's units: the exact running
+// max mx per config, rescaled once per tile where it rose, and the sums s,
+// sl (of e L, L = log d in those units) and sd (of e d).
+template <typename T, bool STATS>
+__device__ __forceinline__ void lse_tiles(T xi, const T (&am1)[kChunk],
+                                          const Bin<T>* sbin, int Jt, T b,
+                                          T (&mx)[kChunk], T (&s)[kChunk],
+                                          T (&sl)[kChunk], T (&sd)[kChunk]) {
+  using A = BinArith<T>;
+  const T NEG = T(-1e30) * A::kScale;  // -1e30 in natural units
+#pragma unroll
+  for (int c = 0; c < kChunk; ++c) {
+    mx[c] = NEG;  // not -inf: a tile of log weights -inf then adds exp2(-inf) = 0
+    s[c] = T(0);
+    sl[c] = T(0);
+    sd[c] = T(0);
+  }
+  for (int j0 = 0; j0 < Jt; j0 += kTile) {
+    T L[kTile], cj[kTile], dd[kTile];
+#pragma unroll
+    for (int u = 0; u < kTile; ++u) {
+      const Bin<T> bin = sbin[j0 + u];
+      const T d = xi - bin.g;
+      const bool ok = d > T(0);
+      L[u] = ok ? A::log(d) : T(0);
+      cj[u] = ok ? bin.w - b * d : NEG;
+      dd[u] = ok ? d : T(0);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      T t[kTile];
+      T tm = -T(CUDART_INF);
+#pragma unroll
+      for (int u = 0; u < kTile; ++u) {
+        t[u] = am1[c] * L[u] + cj[u];
+        tm = dmax<T>(tm, t[u]);
+      }
+      if (tm > mx[c]) {  // the running max rose: rescale the sums once
+        const T r = A::exp(mx[c] - tm);
+        s[c] *= r;
+        if (STATS) {
+          sl[c] *= r;
+          sd[c] *= r;
+        }
+        mx[c] = tm;
+      }
+#pragma unroll
+      for (int u = 0; u < kTile; ++u) {
+        const T e = A::exp(t[u] - mx[c]);
+        s[c] += e;
+        if (STATS) {
+          sl[c] = e * L[u] + sl[c];
+          sd[c] = e * dd[u] + sd[c];
+        }
+      }
+    }
+  }
+}
+
+// lp of one (config, pixel) from its lse sums (mx and sl in units of
+// `unit` natural log units); with STATS also spl and spd.
 template <typename T, bool STATS>
 __device__ __forceinline__ T finish(T a, T mx, T s, T sl, T sd, T log_b,
-                                    T inv_b, T& pl, T& pd) {
+                                    T inv_b, T unit, T& pl, T& pd) {
   if (STATS) {
     const T inv_s = T(1) / s;
-    pl = sl * inv_s + log_b - digamma_stirling<T>(a);
+    pl = unit * sl * inv_s + log_b - digamma_stirling<T>(a);
     pd = a * inv_b - sd * inv_s;
   }
-  return mx + dlog<T>(s) + a * log_b - dlgamma<T>(a);
+  return unit * mx + dlog<T>(s) + a * log_b - dlgamma<T>(a);
 }
 
 template <typename T>
@@ -178,7 +308,7 @@ __device__ __forceinline__ void load_bins(const T* g, const T* w, T* sg, T* sw,
 }
 
 template <typename T, bool STATS, bool FACT>
-__global__ void offset_gamma_summed_kernel(
+__global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
     const T* __restrict__ x,     // (nb, EVP)
     const T* __restrict__ a,     // (M, nb, EVP); FACT: deltas (Kf, nb, EVP)
     const T* __restrict__ base,  // FACT: (nb,)
@@ -190,51 +320,62 @@ __global__ void offset_gamma_summed_kernel(
     T* __restrict__ out,         // (M, nb)
     T* __restrict__ spl,         // (M, nb, EVP) when STATS
     T* __restrict__ spd,         // (M, nb, EVP) when STATS
-    int M, int nb, int EVP, int ev, int J) {
-  __shared__ T sg[kMaxJ];
-  __shared__ T sw[kMaxJ];
-  __shared__ T red[kMaxWarps][kChunk];
+    int M, int nb, int EVP, int ev, int J,
+    int ipb) {                   // images per block
+  using A = BinArith<T>;
+  __shared__ Bin<T> sbin[kMaxJ];
+  extern __shared__ __align__(16) unsigned char og_smem[];
+  T* part = reinterpret_cast<T*>(og_smem);  // (kChunk, npx): each pixel's lp
 
-  const int n = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = (blockDim.x + 31) >> 5;
-  load_bins<T>(g, w, sg, sw, J);
+  const int nwarps = blockDim.x >> 5;
+  const int n0 = blockIdx.x * ipb;
+  const int nimg = min(ipb, nb - n0);
+  const int npx = nimg * ev;
+  const int Jt = (J + kTile - 1) / kTile * kTile;
+  for (int j = tid; j < Jt; j += blockDim.x) {
+    Bin<T> bin;
+    bin.g = j < J ? g[j] : T(CUDART_INF);  // padding: above every pixel
+    bin.w = j < J ? w[j] * A::kScale : T(0);
+    sbin[j] = bin;
+  }
+  __syncthreads();
 
   const T b = rate[0];
+  const T b_units = b * A::kScale;
   const T log_b = dlog<T>(b);
   const T inv_b = T(1) / b;
-  const T bn = FACT ? base[n] : T(0);
   const size_t plane = (size_t)nb * EVP;
-  const T* xn = x + (size_t)n * EVP;
+
+  if (STATS && ev < EVP) {  // padded lanes: no contribution, zero gradient
+    const int pad = EVP - ev;
+    for (int q = tid; q < nimg * pad; q += blockDim.x) {
+      const int nl = q / pad;
+      const size_t off = (size_t)(n0 + nl) * EVP + ev + (q - nl * pad);
+      for (int m = 0; m < M; ++m) {
+        spl[m * plane + off] = T(0);
+        spd[m * plane + off] = T(0);
+      }
+    }
+  }
 
   for (int m0 = 0; m0 < M; m0 += kChunk) {
-    T acc[kChunk];
     int bits[kChunk];  // FACT: the chunk's configs, read once per chunk
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
-      acc[c] = T(0);
       bits[c] = (FACT && m0 + c < M) ? masks.bits[m0 + c] : 0;
     }
 
-    for (int i = tid; i < EVP; i += blockDim.x) {
-      const size_t off = (size_t)n * EVP + i;
-      if (i >= ev) {  // padded lanes: no contribution, zero gradient
-        if (STATS) {
-#pragma unroll
-          for (int c = 0; c < kChunk; ++c) {
-            if (m0 + c < M) {
-              spl[(m0 + c) * plane + off] = T(0);
-              spd[(m0 + c) * plane + off] = T(0);
-            }
-          }
-        }
-        continue;
-      }
-      const T xi = xn[i];
+    for (int p = tid; p < npx; p += blockDim.x) {
+      const int nl = p / ev;
+      const int n = n0 + nl;
+      const size_t off = (size_t)n * EVP + (p - nl * ev);
+      const T xi = x[off];
       T av[kChunk], am1[kChunk], mx[kChunk], s[kChunk], sl[kChunk], sd[kChunk];
       if (FACT) {
+        const T bn = base[n];
         T dk[kMaxFactors];
 #pragma unroll
         for (int k = 0; k < kMaxFactors; ++k) dk[k] = k < Kf ? a[k * plane + off] : T(0);
@@ -255,13 +396,13 @@ __global__ void offset_gamma_summed_kernel(
       }
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) am1[c] = av[c] - T(1);
-      lse_bins<T, STATS>(xi, am1, sg, sw, J, b, mx, s, sl, sd);
+      lse_tiles<T, STATS>(xi, am1, sbin, Jt, b_units, mx, s, sl, sd);
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         if (m0 + c < M) {
           T pl, pd;
-          acc[c] += finish<T, STATS>(av[c], mx[c], s[c], sl[c], sd[c], log_b,
-                                     inv_b, pl, pd);
+          part[c * npx + p] = finish<T, STATS>(av[c], mx[c], s[c], sl[c], sd[c],
+                                               log_b, inv_b, A::kUnit, pl, pd);
           if (STATS) {
             spl[(m0 + c) * plane + off] = pl;
             spd[(m0 + c) * plane + off] = pd;
@@ -269,18 +410,18 @@ __global__ void offset_gamma_summed_kernel(
         }
       }
     }
-
-    // per-image sum: warp shuffles, then one pass over the warps' partials
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const T v = warp_sum<T>(acc[c]);
-      if (lane == 0) red[warp][c] = v;
-    }
     __syncthreads();
-    if (tid < kChunk && m0 + tid < M) {
-      T tot = T(0);
-      for (int k = 0; k < nwarps; ++k) tot += red[k][tid];
-      out[(size_t)(m0 + tid) * nb + n] = tot;
+
+    // per-image sums in a fixed order: one warp per (config, image)
+    for (int q = warp; q < kChunk * nimg; q += nwarps) {
+      const int c = q / nimg;
+      const int nl = q - c * nimg;
+      if (m0 + c >= M) continue;  // uniform across the warp
+      const T* src = part + c * npx + nl * ev;
+      T v = T(0);
+      for (int i = lane; i < ev; i += 32) v += src[i];
+      v = warp_sum<T>(v);
+      if (lane == 0) out[(size_t)(m0 + c) * nb + n0 + nl] = v;
     }
     __syncthreads();
   }
@@ -321,7 +462,8 @@ __global__ void offset_gamma_pixel_kernel(
         if (m0 + c < M) {
           T pl, pd;
           out[(m0 + c) * n + i] = finish<T, STATS>(av[c], mx[c], s[c], sl[c],
-                                                   sd[c], log_b, inv_b, pl, pd);
+                                                   sd[c], log_b, inv_b, T(1),
+                                                   pl, pd);
           if (STATS) {
             spl[(m0 + c) * n + i] = pl;
             spd[(m0 + c) * n + i] = pd;
@@ -332,10 +474,28 @@ __global__ void offset_gamma_pixel_kernel(
   }
 }
 
-// one thread per real pixel of an image, in whole warps, at most 256
-int image_threads(int ev) {
-  int threads = ((ev + 31) / 32) * 32;
-  return threads > 256 ? 256 : threads;
+// The summed kernel's launch: images per block (kImagesPerBlock, fewer
+// where the per-pixel lp buffer would outgrow kPartialBytes) and that
+// buffer as dynamic shared memory, raised past the default 48 KB only for
+// very wide images.
+template <typename T, bool STATS, bool FACT>
+int launch_summed_kernel(const T* x, const T* a, const T* base,
+                         const ConfigMasks& masks, int Kf, const T* g,
+                         const T* w, const T* rate, T* out, T* spl, T* spd,
+                         int M, int nb, int EVP, int ev, int J,
+                         cudaStream_t stream) {
+  int ipb = kImagesPerBlock;
+  while (ipb > 1 && (size_t)kChunk * ipb * ev * sizeof(T) > (size_t)kPartialBytes) --ipb;
+  const size_t dyn = (size_t)kChunk * ipb * ev * sizeof(T);
+  auto kernel = offset_gamma_summed_kernel<T, STATS, FACT>;
+  if (dyn + sizeof(Bin<T>) * kMaxJ > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<dim3((nb + ipb - 1) / ipb), kSumThreads, dyn, stream>>>(
+      x, a, base, masks, Kf, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, ipb);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -346,19 +506,15 @@ int launch_summed(const void* x, const void* a, const void* g, const void* w,
     return (int)cudaErrorInvalidValue;
   }
   const ConfigMasks none = {};
-  const dim3 grid(nb);
-  const int threads = image_threads(ev);
   cudaStream_t s = (cudaStream_t)stream;
   if (stats) {
-    offset_gamma_summed_kernel<T, true, false><<<grid, threads, 0, s>>>(
+    return launch_summed_kernel<T, true, false>(
         (const T*)x, (const T*)a, nullptr, none, 0, (const T*)g, (const T*)w,
-        (const T*)rate, (T*)out, (T*)spl, (T*)spd, M, nb, EVP, ev, J);
-  } else {
-    offset_gamma_summed_kernel<T, false, false><<<grid, threads, 0, s>>>(
-        (const T*)x, (const T*)a, nullptr, none, 0, (const T*)g, (const T*)w,
-        (const T*)rate, (T*)out, nullptr, nullptr, M, nb, EVP, ev, J);
+        (const T*)rate, (T*)out, (T*)spl, (T*)spd, M, nb, EVP, ev, J, s);
   }
-  return (int)cudaGetLastError();
+  return launch_summed_kernel<T, false, false>(
+      (const T*)x, (const T*)a, nullptr, none, 0, (const T*)g, (const T*)w,
+      (const T*)rate, (T*)out, nullptr, nullptr, M, nb, EVP, ev, J, s);
 }
 
 template <typename T>
@@ -375,12 +531,10 @@ int launch_factored(const void* x, const void* base, const void* deltas,
     if (mask_bits[m] < 0 || mask_bits[m] >= (1 << Kf)) return (int)cudaErrorInvalidValue;
     masks.bits[m] = mask_bits[m];
   }
-  offset_gamma_summed_kernel<T, true, true>
-      <<<dim3(nb), image_threads(ev), 0, (cudaStream_t)stream>>>(
-          (const T*)x, (const T*)deltas, (const T*)base, masks, Kf,
-          (const T*)g, (const T*)w, (const T*)rate, (T*)out, (T*)spl,
-          (T*)spd, M, nb, EVP, ev, J);
-  return (int)cudaGetLastError();
+  return launch_summed_kernel<T, true, true>(
+      (const T*)x, (const T*)deltas, (const T*)base, masks, Kf, (const T*)g,
+      (const T*)w, (const T*)rate, (T*)out, (T*)spl, (T*)spd, M, nb, EVP, ev,
+      J, (cudaStream_t)stream);
 }
 
 template <typename T>

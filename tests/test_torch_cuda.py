@@ -7,7 +7,11 @@ test_torch_factored.py). Run them on a machine with an H100:
 
 Each kernel is held against its plain PyTorch version at the tolerances
 stated in chip_smoke.py (those of tests/test_pallas.py in float32; 1e-9 and
-1e-6 in float64).
+1e-6 in float64). The summed and factored cases cover the summed kernel's
+tiles of 8 bins (J around multiples of 8, whole tiles masked, a bin term
+spread over more than 100 log units, a < 1 with d just above 0), its blocks
+of several images (nb not a multiple of them, ev < EVP), and launch each
+kernel twice on the same inputs, requiring bitwise-equal outputs.
 """
 
 import importlib.util
@@ -39,6 +43,16 @@ CASES = {
     "ragged-nb": dict(M=4, nb=37, EVP=256, ev=196, J=61, dtype=torch.float32),
     "M16": dict(M=16, nb=24, EVP=256, ev=196, J=61, dtype=torch.float32),
     "float64": dict(M=4, nb=12, EVP=256, ev=196, J=7, dtype=torch.float64),
+    **{f"J{J}": dict(M=4, nb=13 if J < 1024 else 5, EVP=256, ev=196, J=J,
+                     dtype=torch.float32) for J in (1, 7, 61, 64, 65, 1024)},
+    "masked-tiles": dict(M=4, nb=16, EVP=256, ev=196, J=61, dtype=torch.float32,
+                         variant="masked-tiles"),
+    "spread": dict(M=4, nb=16, EVP=256, ev=196, J=61, dtype=torch.float32,
+                   variant="spread"),
+    "small-d-a-below-one": dict(M=4, nb=16, EVP=256, ev=196, J=61, dtype=torch.float32,
+                                variant="small-d"),
+    "ragged-nb-ev-masked": dict(M=4, nb=7, EVP=256, ev=77, J=65, dtype=torch.float32),
+    "float64-J65": dict(M=5, nb=6, EVP=256, ev=196, J=65, dtype=torch.float64),
 }
 
 
@@ -49,7 +63,7 @@ def test_kernel_matches_plain(cs, case):
     errs = cs.compare(
         c["M"], c["nb"], c["EVP"], c["ev"], c["J"], c["dtype"], 3,
         cs.F64_TOL if f64 else cs.FWD_TOL, cs.F64_GRAD_TOL if f64 else cs.GRAD_TOL,
-        below=c.get("below", False),
+        below=c.get("below", False), variant=c.get("variant"),
     )
     assert all(np.isfinite(v) for v in errs.values())
 
@@ -109,6 +123,14 @@ FACTORED_CASES = {
     "ragged-nb": dict(Kf=2, nb=37, J=61, dtype=torch.float32),
     "kf4": dict(Kf=4, nb=24, J=61, dtype=torch.float32),
     "float64": dict(Kf=3, nb=12, J=7, dtype=torch.float64),
+    **{f"J{J}": dict(Kf=2, nb=9 if J < 1024 else 3, J=J, dtype=torch.float32)
+       for J in (1, 64, 65, 1024)},
+    "masked-tiles": dict(Kf=2, nb=16, J=61, dtype=torch.float32, variant="masked-tiles"),
+    "spread": dict(Kf=2, nb=16, J=61, dtype=torch.float32, variant="spread"),
+    "small-d-base-below-one": dict(Kf=2, nb=16, J=61, dtype=torch.float32,
+                                   variant="small-d"),
+    "ev-masked": dict(Kf=2, nb=11, J=61, ev=130, dtype=torch.float32),
+    "float64-J65": dict(Kf=2, nb=6, J=65, dtype=torch.float64),
 }
 
 
@@ -117,10 +139,11 @@ def test_factored_kernel_matches_plain(cs, case):
     c = dict(FACTORED_CASES[case])
     f64 = c["dtype"] == torch.float64
     errs = cs.compare_factored(
-        c["Kf"], c["nb"], 256, 196, c["J"], c["dtype"], 7,
+        c["Kf"], c["nb"], 256, c.get("ev", 196), c["J"], c["dtype"], 7,
         cs.F64_TOL if f64 else cs.FACT_FWD_TOL,
         cs.F64_GRAD_TOL if f64 else cs.FACT_GRAD_TOL,
         below=c.get("below", False), small_base=c.get("small_base", False),
+        variant=c.get("variant"),
     )
     assert all(np.isfinite(v) for v in errs.values())
 
