@@ -20,7 +20,10 @@ one. Phases, each printing its findings; any failure is an exception:
 4. the per-pixel kernel against its plain version at 10x512x1x14x14 =
    1,003,520 pixels, J=61, M=1 and M=4 (forward, concentration and rate
    gradients), then pixels below every bin, a ragged pixel count, the M=1
-   squeeze and a small float64 case;
+   squeeze, a small float64 case, J in {1, 7, 64, 65, 1024}, the VARIANTS
+   inputs and M in {2, 3, 5, 16} around the kernel's config chunks of 1, 2
+   and 4; every case also launches each kernel twice and requires
+   bitwise-equal outputs;
 5. the factored kernel against its plain version at Kf=2 spots (M=4),
    nb=5120, EVP=256, ev=196, J=61 (forward; base, delta and rate
    gradients), then base < 1, pixels below every bin, a ragged nb, Kf=4
@@ -29,7 +32,8 @@ one. Phases, each printing its findings; any failure is an exception:
 6. timing of every kernel with CUDA events beside its plain version, the
    least time the card could take (bound) and the least time of its
    special-function unit for the exact evaluation (one log per pixel and
-   bin, one exp per config, pixel and bin);
+   bin, one exp per config, pixel and bin); the per-pixel kernels at M=4
+   and, apart, at M=1;
 7. the dense main path: simulate an eLife-scale cosmos dataset (Nt=856
    AOIs, F=790 frames, P=14, 61 offset bins) with the port's simulator,
    save it, then models["cosmos"]() -> load -> init(lr=0.005,
@@ -507,29 +511,38 @@ def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False,
     return errs
 
 
-def pixel_inputs(M, n_px, J, dtype, seed, device):
-    """Per-pixel inputs at the magnitudes of :func:`kernel_inputs`: value
-    (n_px,), concentration (M, n_px)."""
+def pixel_arrays(M, n_px, J, seed, variant=None):
+    """Per-pixel inputs as float64 numpy arrays, at the magnitudes of
+    :func:`kernel_inputs`: value (n_px,), concentration (M, n_px), rate,
+    offsets and log weights (J,); ``variant`` names an edge case of
+    VARIANTS."""
     rng = np.random.default_rng(seed)
     g, w = offset_logits(J)
+    x = rng.integers(int(g.min()) + 1, 400, size=n_px).astype(np.float64)
+    a = rng.uniform(10.0, 80.0, size=(M, n_px))
+    g, w = _apply_variant(variant, rng, x[None], g, w, n_px)
+    if variant == "small-d":
+        a = rng.uniform(0.05, 0.95, size=(M, n_px))
+    return x, a, 1.0 / 7.0, g, w
+
+
+def pixel_inputs(M, n_px, J, dtype, seed, device, variant=None):
+    """:func:`pixel_arrays` as tensors of ``dtype`` on ``device``."""
     t = dict(device=device, dtype=dtype)
-    return (
-        torch.tensor(rng.integers(int(g.min()) + 1, 400, size=n_px).astype(np.float64), **t),
-        torch.tensor(rng.uniform(10.0, 80.0, size=(M, n_px)), **t),
-        torch.tensor(1.0 / 7.0, **t), torch.tensor(g, **t), torch.tensor(w, **t),
-    )
+    return tuple(torch.tensor(v, **t) for v in pixel_arrays(M, n_px, J, seed, variant))
 
 
 def compare_pixel(M, n_px, J, dtype, seed, fwd_tol, grad_tol, below=False,
-                  squeeze=False):
+                  squeeze=False, variant=None):
     """Per-pixel kernel (through ``offset_gamma_log_prob``) against the
     plain version in float64: forward with and without gradient,
-    concentration and rate gradients under a random cotangent. ``squeeze``
-    passes an M=1 concentration of the value's shape. Returns the max abs
-    errors, after checking the tolerances."""
+    concentration and rate gradients under a random cotangent, on the
+    inputs of ``variant`` (VARIANTS); both kernel variants must repeat
+    bitwise. ``squeeze`` passes an M=1 concentration of the value's shape.
+    Returns the max abs errors, after checking the tolerances."""
     from tapqir_tpu_torch.ops import offset_gamma as og
 
-    x, a, rate, g, w = pixel_inputs(M, n_px, J, dtype, seed, "cuda")
+    x, a, rate, g, w = pixel_inputs(M, n_px, J, dtype, seed, "cuda", variant)
     if squeeze:
         a = a[0]
     keep = torch.ones(n_px, dtype=torch.bool, device="cuda")
@@ -550,6 +563,8 @@ def compare_pixel(M, n_px, J, dtype, seed, fwd_tol, grad_tol, below=False,
         raise RuntimeError(f"per-pixel output {tuple(out_k.shape)} for {tuple(a.shape)}")
     if below:
         _check_below((out_k, out_k_nograd), (..., slice(0, 5)))
+    for launcher in (og.pixel_fwd, og.pixel_stats):
+        _check_repeat("pixel", launcher, x, a.reshape(-1, n_px), rate.reshape(1), g, w)
 
     a_p = a[..., keep].double().requires_grad_(True)
     r_p = rate.double().requires_grad_(True)
@@ -792,13 +807,18 @@ def main():
         ("ragged n_px", dict(M=4, n_px=n_px + 77, J=61, dtype=f32)),
         ("M=1 squeeze", dict(M=1, n_px=5000, J=61, dtype=f32, squeeze=True)),
         ("float64", dict(M=4, n_px=3000, J=7, dtype=f64)),
+        *((f"J={Jc}", dict(M=4, n_px=20000 if Jc < 1024 else 3000, J=Jc, dtype=f32))
+          for Jc in (1, 7, 64, 65, 1024)),
+        *((v, dict(M=4, n_px=20000, J=61, dtype=f32, variant=v)) for v in VARIANTS),
+        *((f"M={Mc}", dict(M=Mc, n_px=20000, J=61, dtype=f32)) for Mc in (2, 3, 5, 16)),
     ]
     for i, (label, c) in enumerate(cases):
         is64 = c["dtype"] == f64
         e = compare_pixel(c["M"], c["n_px"], c["J"], c["dtype"], 30 + i,
                           F64_TOL if is64 else PIXEL_FWD_TOL,
                           F64_GRAD_TOL if is64 else PIXEL_GRAD_TOL,
-                          below=c.get("below", False), squeeze=c.get("squeeze", False))
+                          below=c.get("below", False), squeeze=c.get("squeeze", False),
+                          variant=c.get("variant"))
         print(f"[pixel] edge case {label}: {json.dumps(e)}", flush=True)
     torch.cuda.empty_cache()
 
@@ -856,22 +876,18 @@ def main():
                           mufu_floor_ms(x[:, :ev], g, M))
     del x, a
 
+    # per-pixel at M=4 (the kernels' JSON entries) and at M=1 (KSMOGN.log_prob)
     xp, ap, _, _, _ = pixel_inputs(M, n_px, J, f32, 0, "cuda")
-    for Mp in (1, M):
+    for Mp, tag in ((M, ""), (1, " M=1")):
         a2 = ap[:Mp].contiguous()
         ms_f = time_ms(lambda: og.pixel_fwd(xp, a2, r1, g, w), 50)
         ms_s = time_ms(lambda: og.pixel_stats(xp, a2, r1, g, w), 50)
         p_fwd, p_grad = plain_pair(
             lambda a_, r_: og.offset_gamma_log_prob_plain(xp, a_, r_, g, w), [a2, rate],
             torch.ones_like(a2))
-        b_f, b_s = bound_pixel_ms(xp, a2, g, False), bound_pixel_ms(xp, a2, g, True)
-        print(f"[timing] per-pixel M={Mp} n_px={n_px}: forward {ms_f:.4f} ms (plain "
-              f"{p_fwd:.4f}, bound {b_f[0]:.4f} {b_f[1]}); with statistics {ms_s:.4f} ms "
-              f"(plain forward+backward {p_grad:.4f}, bound {b_s[0]:.4f} {b_s[1]})",
-              flush=True)
-        timing["pixel_fwd"] = [ms_f, p_fwd, *b_f]
-        timing["pixel_stats"] = [ms_s, p_grad, *b_s]
-        floor["pixel_fwd"] = floor["pixel_stats"] = mufu_floor_ms(xp, g, Mp)
+        timing["pixel_fwd" + tag] = [ms_f, p_fwd, *bound_pixel_ms(xp, a2, g, False)]
+        timing["pixel_stats" + tag] = [ms_s, p_grad, *bound_pixel_ms(xp, a2, g, True)]
+        floor["pixel_fwd" + tag] = floor["pixel_stats" + tag] = mufu_floor_ms(xp, g, Mp)
     del xp, ap, a2
 
     xf, base, deltas, mtab, _, _, _ = factored_inputs(Kf, nb, EVP, ev, J, f32, 0, "cuda")
@@ -888,8 +904,8 @@ def main():
     del xf, base, deltas
     torch.cuda.empty_cache()
     for k, (ms, plain_ms, b, by) in timing.items():
-        print(f"[timing] {k} on {name} ({smi}): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b:.4f} ms ({by}), special-function floor {floor[k]:.4f} ms; "
+        print(f"[timing] {k} on {name} ({smi}): kernel {ms:.6f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b:.6f} ms ({by}), special-function floor {floor[k]:.6f} ms; "
               "library: none (no single PyTorch call computes this function)", flush=True)
     print(f"[timing] kernel phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -7,19 +7,23 @@ turns, in one process on one card.
 
 Every source must export the C interface of
 ``tapqir_tpu_torch/csrc/offset_gamma.cu`` (``og_summed_*``,
-``og_factored_*``). Each is built with the port's nvcc flags (all builds
-started together) into ``tapqir_tpu_torch/_build/`` and loaded with ctypes;
-its registers and spills (``-Xptxas -v``) are printed, and, from
-``cuobjdump -sass``, the instruction mix per (pixel, bin) pair of the bin
-loop of each float32 summed-template kernel. Then, at the shapes
-of chip_smoke.py's phase 6 (M=4 configs, nb=5120 images, EVP=256 lanes,
-ev=196 pixels, J=61 bins, float32, seed 0), the summed forward, summed
-statistics and factored statistics kernels of every source are timed with
-CUDA events over ``--iters`` launches after one warm-up, in the order the
-sources were given and then in reverse (old, new, new, old for two), and
-each source's outputs are compared with the first source's. Prints the
-card's name and power limit, and one JSON line at the end. Needs a CUDA
-card.
+``og_factored_*``, ``og_pixel_*``). Each is built with the port's nvcc
+flags (all builds started together) into ``tapqir_tpu_torch/_build/`` and
+loaded with ctypes; its registers and spills (``-Xptxas -v``) are printed,
+and, from ``cuobjdump -sass``, a digest of each float32 summed-template
+kernel's code and the instruction mix per (pixel, bin) pair of the bin
+loop of each float32 summed-template and pixel kernel instance. Then, at
+the shapes of chip_smoke.py's phase 6 (float32, seed 0; summed and
+factored: M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
+bins; per pixel: 1,003,520 pixels, J=61, M=1 and M=4), the summed forward,
+summed statistics, factored statistics and per-pixel forward and
+statistics kernels of every source are timed with CUDA events over
+``--iters`` launches after one warm-up, in the order the sources were
+given and then in reverse (old, new, new, old for two). Each source's
+outputs are compared with the first source's, and its per-pixel outputs
+with the float64 plain version (max abs error and the share of
+chip_smoke.py's tolerance used). Prints the card's name and power limit,
+and one JSON line at the end. Needs a CUDA card.
 """
 
 import argparse
@@ -44,6 +48,11 @@ sys.path.insert(0, str(ROOT))
 SUMMED_F32 = {"summed_fwd": "summed_kernelIfLb0ELb0E",
               "summed_stats": "summed_kernelIfLb1ELb0E",
               "factored_stats": "summed_kernelIfLb1ELb1E"}
+# float32 offset_gamma_pixel_kernel<T, STATS[, CH]> in mangled names: with a
+# config chunk CH the bin loop is tiled; without one (an older source) it
+# is a loop over single bins with a chunk of 4
+PIXEL_F32 = re.compile(r"pixel_kernelIfLb([01])E(?:Li(\d+)E)?EEv")
+TILE = 8  # kTile: bins per rescale of the running max
 
 
 def _cuda_tool(name):
@@ -51,15 +60,21 @@ def _cuda_tool(name):
     return shutil.which(name) or os.path.join(cuda_home, "bin", name)
 
 
-def bin_loop_mix(sass, kernel):
+def _function(sass, kernel):
+    return next(f for f in sass.split("Function : ")[1:]
+                if kernel in f.split("\n", 1)[0])
+
+
+def bin_loop_mix(sass, kernel, ex2_per_bin=4):
     """Instruction counts per (pixel, bin) pair in the bin loop of
     ``kernel``'s SASS: the shortest loop (a backward branch and the code it
     jumps back over) holding a MUFU ex2 or lg2, divided by the bins one
     pass covers - its MUFU.LG2 count (one base-2 log per bin), or, for an
-    accurate logf (a polynomial, no MUFU), its MUFU.EX2 count over the
-    chunk of 4 configs (one expf per config and bin)."""
-    func = next(f for f in sass.split("Function : ")[1:]
-                if kernel in f.split("\n", 1)[0])
+    accurate logf (a polynomial, no MUFU), its MUFU.EX2 count over
+    ``ex2_per_bin``: the chunk of configs in a loop over single bins (one
+    expf per config and bin), the chunk times (TILE + 1) / TILE in a tiled
+    loop (one rescale exp per config and tile besides)."""
+    func = _function(sass, kernel)
     ins = []  # (address, opcode with modifiers, branch target or None)
     for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                          r"([^;]*);", func):
@@ -70,7 +85,7 @@ def bin_loop_mix(sass, kernel):
     body = min((ops for ops in loops
                 if any(op.startswith(("MUFU.LG2", "MUFU.EX2")) for op in ops)), key=len)
     bins = (sum(op.startswith("MUFU.LG2") for op in body)
-            or sum(op.startswith("MUFU.EX2") for op in body) / 4)
+            or sum(op.startswith("MUFU.EX2") for op in body) / ex2_per_bin)
     mix = collections.Counter(op.split(".")[0] for op in body)
     return {"instructions_per_pair": len(body) / bins,
             **{op: n / bins for op, n in mix.most_common()}}
@@ -100,9 +115,10 @@ def build_all(sources):
 
 
 def kernel_calls(lib, ins):
-    """The three summed-template kernels of ``lib`` as closures on ``ins``,
-    each writing into its own preallocated outputs."""
-    x, a, r1, g, w, ev, xf, base, deltas, masks = ins
+    """The summed-template kernels and the per-pixel kernels (M=4 and M=1)
+    of ``lib`` as closures on ``ins``, each writing into its own
+    preallocated outputs."""
+    x, a, r1, g, w, ev, xf, base, deltas, masks, xp, ap = ins
     M, nb, EVP = a.shape
     Kf = deltas.shape[0]
     J = g.shape[0]
@@ -135,8 +151,61 @@ def kernel_calls(lib, ins):
             len(masks), Kf, nb, EVP, ev, J, stream))
         return o_fa
 
-    return {"summed_fwd": summed(o_fwd, False), "summed_stats": summed(o_st, True),
-            "factored_stats": factored}
+    def pixel(a2, stats):
+        o = [torch.empty_like(a2) for _ in range(3 if stats else 1)]
+
+        def call():
+            check(lib.og_pixel_f32(
+                xp.data_ptr(), a2.data_ptr(), g.data_ptr(), w.data_ptr(), r1.data_ptr(),
+                o[0].data_ptr(), o[1].data_ptr() if stats else None,
+                o[2].data_ptr() if stats else None, a2.shape[0], a2.shape[1], J,
+                int(stats), stream))
+            return o
+        return call
+
+    calls = {"summed_fwd": summed(o_fwd, False), "summed_stats": summed(o_st, True),
+             "factored_stats": factored}
+    for a2 in (ap, ap[:1].contiguous()):
+        calls[f"pixel_fwd M={a2.shape[0]}"] = pixel(a2, False)
+        calls[f"pixel_stats M={a2.shape[0]}"] = pixel(a2, True)
+    return calls
+
+
+def pixel_accuracy(cs, og, xp, ap, r1, g, w):
+    """A function scoring a per-pixel kernel's (out[, spl, spd]) on these
+    inputs (its M the leading configs of ``ap``) against the float64 plain
+    version: max abs errors and the share of chip_smoke.py's tolerance
+    used (forward PIXEL_FWD_TOL, concentration gradient PIXEL_GRAD_TOL,
+    rate gradient RATE_RTOL)."""
+    refs = {}
+
+    def ref(m):
+        if m not in refs:
+            a_p = ap[:m].double().requires_grad_(True)
+            r_p = r1.double().requires_grad_(True)
+            want = og.offset_gamma_log_prob_plain(xp.double(), a_p, r_p, g.double(),
+                                                  w.double())
+            ga, gr = torch.autograd.grad(want.sum(), (a_p, r_p))
+            refs[m] = want.detach(), ga, float(gr)
+        return refs[m]
+
+    def share(got, want, tol):
+        err = (got.double() - want).abs()
+        return float(err.max()), float((err / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+    def score(outs):
+        want, ga, gr = ref(outs[0].shape[0])
+        err, use = share(outs[0], want, cs.PIXEL_FWD_TOL)
+        res = {"forward_max_abs_err": err, "forward_tolerance_use": use}
+        if len(outs) == 3:
+            err, use = share(outs[1], ga, cs.PIXEL_GRAD_TOL)
+            rel = abs(float(outs[2].double().sum()) - gr) / abs(gr)
+            res.update(grad_concentration_max_abs_err=err,
+                       grad_concentration_tolerance_use=use,
+                       grad_rate_tolerance_use=rel / cs.RATE_RTOL)
+        return res
+
+    return score
 
 
 def main():
@@ -170,7 +239,21 @@ def main():
         sass = subprocess.run([_cuda_tool("cuobjdump"), "-sass", str(path)],
                               capture_output=True, text=True, check=True).stdout
         for name, kernel in SUMMED_F32.items():
+            # the code without its addresses and without the anonymous
+            # namespace's name, which carries a hash of the source file
+            code = re.sub(r"/\*[0-9a-f]{4,}\*/|\d+_GLOBAL__N__\w+?_[0-9a-f]{8}(?=\d)", "",
+                          _function(sass, kernel))
+            digest = hashlib.sha256(code.encode()).hexdigest()[:16]
             mix = mixes[f"{label}:{name}"] = bin_loop_mix(sass, kernel)
+            print(f"[sass] {label} {name}: code digest {digest}; per (pixel, bin) "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in mix.items()), flush=True)
+        pixels = sorted(set(PIXEL_F32.findall(sass)))
+        for stats, chunk in pixels:
+            name = (f"pixel_{'stats' if stats == '1' else 'fwd'} "
+                    f"CH={chunk or '4, single bins'}")
+            ex2_per_bin = int(chunk) * (TILE + 1) / TILE if chunk else 4
+            kernel = f"pixel_kernelIfLb{stats}E{f'Li{chunk}E' if chunk else ''}EEv"
+            mix = mixes[f"{label}:{name}"] = bin_loop_mix(sass, kernel, ex2_per_bin)
             print(f"[sass] {label} {name}: per (pixel, bin) "
                   + ", ".join(f"{k} {v:.3f}" for k, v in mix.items()), flush=True)
     libs = {label: og._Library._load(path) for label, (path, _) in built.items()}
@@ -184,17 +267,25 @@ def main():
                                                          0, "cuda")
     xf[:, ev:] = 91.0
     deltas[..., ev:] = 0.0
-    ins = (x, a, rate.reshape(1), g, w, ev, xf, base, deltas, og.config_masks(mtab, Kf))
+    xp, ap, _, _, _ = cs.pixel_inputs(M, 10 * 512 * 196, J, torch.float32, 0, "cuda")
+    r1 = rate.reshape(1)
+    ins = (x, a, r1, g, w, ev, xf, base, deltas, og.config_masks(mtab, Kf), xp, ap)
     calls = {label: kernel_calls(lib, ins) for label, lib in libs.items()}
 
     first = next(iter(calls))
-    agree = {}
+    agree, accuracy = {}, {}
+    score = pixel_accuracy(cs, og, xp, ap, r1, g, w)
     for label, kern in calls.items():
         for name, fn in kern.items():
             got = [t.clone() for t in fn()]
             want = calls[first][name]()
             torch.cuda.synchronize()
             agree[f"{label}:{name}"] = max(float((u - v).abs().max()) for u, v in zip(got, want))
+            if name.startswith("pixel"):
+                acc = accuracy[f"{label}:{name}"] = score(got)
+                print(f"[accuracy] {label} {name} vs float64 plain: {json.dumps(acc)}",
+                      flush=True)
+    print(f"[agree] max abs difference from {first}: {json.dumps(agree)}", flush=True)
 
     order = list(calls) + list(reversed(calls))
     ms = {label: {name: [] for name in calls[label]} for label in calls}
@@ -218,7 +309,8 @@ def main():
     print(f"[clock] under load (clocks.sm, clocks.max.sm, power.draw): {clocks}", flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
                       "order": order, "iters": args.iters, "ms": ms,
-                      "max_abs_diff_vs_first": agree, "registers": registers,
+                      "max_abs_diff_vs_first": agree, "pixel_accuracy": accuracy,
+                      "registers": registers,
                       "bin_loop_mix": mixes,
                       "clocks_under_load": clocks}))
     return 0

@@ -37,10 +37,10 @@
 // The accurate logf is a polynomial (no MUFU) and expf range reduction
 // around one MUFU operation, and an online logsumexp that rescales at every
 // (config, bin) adds a compare, an exp of -|t - mx|, three selects and two
-// multiplies: the per-pixel kernel's loop (lse_bins) issues 104 (forward)
-// and 121 (with statistics) SASS instructions per pair at M=4.
+// multiplies: a loop built that way issued 104 (forward) and 121 (with
+// statistics) SASS instructions per pair at M=4.
 //
-// Summed kernel design (all three instances):
+// All five kernels share one bin loop (lse_tiles):
 //  * float32 works in base 2 on the MUFU: g_j and w_j log2(e) sit in
 //    shared memory as one float2 per bin (one 64-bit load), the rate as
 //    b log2(e); per (pixel, bin) one lg2.approx of d, per (config, bin) one
@@ -59,7 +59,11 @@
 //    shared memory with offsets at +inf, masked like any bin above the
 //    pixel. Measured on an H100 (700 W, 1980 MHz) the loop runs at ~0.49
 //    instructions per scheduler per clock, about issue time plus MUFU time,
-//    and 2.1x faster than the same kernel built on lse_bins.
+//    and 2.1x faster than the summed kernel built on the loop above.
+//  * configs are processed in register chunks of CH (a template parameter),
+//    so any M works; M beyond CH repeats the log per chunk.
+//
+// Summed kernel (all three of its instances at CH = kChunk):
 //  * full warps: a 256-thread block walks the flat real pixels of several
 //    images (kImagesPerBlock, fewer when the per-pixel buffer below would
 //    outgrow kPartialBytes), so at most one warp of a block is partly idle,
@@ -70,12 +74,21 @@
 //    (config, pixel) buffer, and one warp per (config, image) sums it in a
 //    fixed order (strided lane sums, then shuffles), out written as (M, nb)
 //    directly; two launches on the same inputs give bitwise-equal outputs.
-//  * configs are processed in register chunks of kChunk, so any M works;
-//    M beyond kChunk repeats the log per chunk.
-// The pixel kernel keeps the first design: a thread per pixel in a
-// grid-stride loop, the accurate exp / log and the online logsumexp with
-// ONE exp per (config, bin), exp(-|t - mx|) being either the new term or
-// the rescale factor (lse_bins); out, spl and spd go straight to (M, n_px).
+//
+// Pixel kernel: a thread per pixel of a 256-thread block (a grid-stride
+// loop only beyond kMaxPixelBlocks blocks), out, spl and spd written
+// straight to (M, n_px), so neighbouring threads read and write
+// neighbouring addresses, and no sum crosses threads. Its chunk is sized to
+// M (CH = 1 for M = 1, 2 for M = 2, else kChunk): KSMOGN.log_prob runs at
+// M = 1, where a chunk of 4 spent three quarters of the loop on configs
+// that do not exist. At CH = 1 the loop issues 13.75 instructions and
+// 2.125 MUFU operations per pair (16.75 with statistics). Measured on an
+// H100 (700 W) at 1,003,520 pixels and J = 61: 0.105 / 0.139 ms (forward /
+// statistics) at M = 4 and 0.043 / 0.053 ms at M = 1, 2.1-5.3x the first
+// design; four pixels per thread ran 6-11% slower. The base-2 log moves
+// the forward's largest error from the float64 value from 7.4e-5 to
+// 9.9e-5 there (0.46 of the tolerance of tests/test_pallas.py); the
+// accurate logf for L cost 44-128% more time.
 //
 // The factored instance keeps the exact running max per config (M exps per
 // pair) rather than the Pallas kernel's factored form (1 + Kf exps, each
@@ -100,23 +113,19 @@
 namespace {
 
 constexpr int kMaxJ = 1024;  // a multiple of kTile
-constexpr int kChunk = 4;
+constexpr int kChunk = 4;    // configs per register chunk (largest)
 constexpr int kMaxFactors = 6;
 constexpr int kMaxConfigs = 64;
 constexpr int kTile = 8;              // bins per rescale of the running max
 constexpr int kSumThreads = 256;      // summed kernel: threads per block
 constexpr int kImagesPerBlock = 4;    // summed kernel: images per block
 constexpr int kPartialBytes = 32768;  // summed kernel: per-pixel lp buffer
+constexpr int kPixelThreads = 256;    // pixel kernel: threads per block
+constexpr int kMaxPixelBlocks = 1 << 20;  // pixel kernel: grid-stride beyond
 
 template <typename T> __device__ __forceinline__ T dlog(T v);
 template <> __device__ __forceinline__ float dlog<float>(float v) { return logf(v); }
 template <> __device__ __forceinline__ double dlog<double>(double v) { return log(v); }
-template <typename T> __device__ __forceinline__ T dexp(T v);
-template <> __device__ __forceinline__ float dexp<float>(float v) { return expf(v); }
-template <> __device__ __forceinline__ double dexp<double>(double v) { return exp(v); }
-template <typename T> __device__ __forceinline__ T dabs(T v);
-template <> __device__ __forceinline__ float dabs<float>(float v) { return fabsf(v); }
-template <> __device__ __forceinline__ double dabs<double>(double v) { return fabs(v); }
 template <typename T> __device__ __forceinline__ T dmax(T u, T v);
 template <> __device__ __forceinline__ float dmax<float>(float u, float v) { return fmaxf(u, v); }
 template <> __device__ __forceinline__ double dmax<double>(double u, double v) { return fmax(u, v); }
@@ -124,7 +133,7 @@ template <typename T> __device__ __forceinline__ T dlgamma(T v);
 template <> __device__ __forceinline__ float dlgamma<float>(float v) { return lgammaf(v); }
 template <> __device__ __forceinline__ double dlgamma<double>(double v) { return lgamma(v); }
 
-// The summed kernel's log and exp inside the bin loop, and its units: base 2
+// The log and exp inside the bin loop, and its units: base 2
 // on the special-function unit in float32 (terms scaled by kScale = log2 e,
 // brought back by kUnit = ln 2), natural base and the accurate sequences in
 // float64.
@@ -185,58 +194,36 @@ struct ConfigMasks {
   int bits[kMaxConfigs];
 };
 
-// The per-pixel kernel's online logsumexp over the J bins of one pixel for
-// a chunk of configs (am1 = a - 1): running max mx, sum s and, with STATS,
-// the sums of p_j L_j and p_j d_j (unnormalized, sl and sd).
-template <typename T, bool STATS>
-__device__ __forceinline__ void lse_bins(T xi, const T (&am1)[kChunk],
-                                         const T* sg, const T* sw, int J, T b,
-                                         T (&mx)[kChunk], T (&s)[kChunk],
-                                         T (&sl)[kChunk], T (&sd)[kChunk]) {
-  const T NEG = T(-1e30);
-#pragma unroll
-  for (int c = 0; c < kChunk; ++c) {
-    mx[c] = -T(CUDART_INF);
-    s[c] = T(0);
-    sl[c] = T(0);
-    sd[c] = T(0);
+// Stage the J bins in shared memory as Bin<T> in BinArith's units, padded
+// to whole tiles with offsets at +inf (above every pixel, so masked like
+// any bin there); returns the padded count Jt.
+template <typename T>
+__device__ __forceinline__ int stage_bins(const T* g, const T* w, Bin<T>* sbin,
+                                          int J) {
+  const int Jt = (J + kTile - 1) / kTile * kTile;
+  for (int j = threadIdx.x; j < Jt; j += blockDim.x) {
+    Bin<T> bin;
+    bin.g = j < J ? g[j] : T(CUDART_INF);
+    bin.w = j < J ? w[j] * BinArith<T>::kScale : T(0);
+    sbin[j] = bin;
   }
-  for (int j = 0; j < J; ++j) {
-    const T d = xi - sg[j];
-    const bool ok = d > T(0);
-    const T L = ok ? dlog<T>(d) : T(0);
-    const T cj = ok ? sw[j] - b * d : NEG;
-    const T dd = ok ? d : T(0);
-#pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      const T t = cj + am1[c] * L;
-      const bool up = t > mx[c];
-      const T e = dexp<T>(-dabs<T>(t - mx[c]));  // new term or rescale
-      const T keep = up ? e : T(1);
-      const T add = up ? T(1) : e;
-      s[c] = s[c] * keep + add;
-      if (STATS) {
-        sl[c] = sl[c] * keep + add * L;
-        sd[c] = sd[c] * keep + add * dd;
-      }
-      mx[c] = up ? t : mx[c];
-    }
-  }
+  __syncthreads();
+  return Jt;
 }
 
-// The summed kernel's logsumexp over the Jt (a multiple of kTile) bins of
-// one pixel for a chunk of configs, in BinArith's units: the exact running
-// max mx per config, rescaled once per tile where it rose, and the sums s,
-// sl (of e L, L = log d in those units) and sd (of e d).
-template <typename T, bool STATS>
-__device__ __forceinline__ void lse_tiles(T xi, const T (&am1)[kChunk],
+// The logsumexp over the Jt (a multiple of kTile) bins of one pixel for a
+// chunk of CH configs (am1 = a - 1), in BinArith's units (b too): the exact
+// running max mx per config, rescaled once per tile where it rose, and the
+// sums s, sl (of e L, L = log d in those units) and sd (of e d).
+template <typename T, bool STATS, int CH>
+__device__ __forceinline__ void lse_tiles(T xi, const T (&am1)[CH],
                                           const Bin<T>* sbin, int Jt, T b,
-                                          T (&mx)[kChunk], T (&s)[kChunk],
-                                          T (&sl)[kChunk], T (&sd)[kChunk]) {
+                                          T (&mx)[CH], T (&s)[CH],
+                                          T (&sl)[CH], T (&sd)[CH]) {
   using A = BinArith<T>;
   const T NEG = T(-1e30) * A::kScale;  // -1e30 in natural units
 #pragma unroll
-  for (int c = 0; c < kChunk; ++c) {
+  for (int c = 0; c < CH; ++c) {
     mx[c] = NEG;  // not -inf: a tile of log weights -inf then adds exp2(-inf) = 0
     s[c] = T(0);
     sl[c] = T(0);
@@ -254,7 +241,7 @@ __device__ __forceinline__ void lse_tiles(T xi, const T (&am1)[kChunk],
       dd[u] = ok ? d : T(0);
     }
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
+    for (int c = 0; c < CH; ++c) {
       T t[kTile];
       T tm = -T(CUDART_INF);
 #pragma unroll
@@ -297,16 +284,6 @@ __device__ __forceinline__ T finish(T a, T mx, T s, T sl, T sd, T log_b,
   return unit * mx + dlog<T>(s) + a * log_b - dlgamma<T>(a);
 }
 
-template <typename T>
-__device__ __forceinline__ void load_bins(const T* g, const T* w, T* sg, T* sw,
-                                          int J) {
-  for (int j = threadIdx.x; j < J; j += blockDim.x) {
-    sg[j] = g[j];
-    sw[j] = w[j];
-  }
-  __syncthreads();
-}
-
 template <typename T, bool STATS, bool FACT>
 __global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
     const T* __restrict__ x,     // (nb, EVP)
@@ -334,14 +311,7 @@ __global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
   const int n0 = blockIdx.x * ipb;
   const int nimg = min(ipb, nb - n0);
   const int npx = nimg * ev;
-  const int Jt = (J + kTile - 1) / kTile * kTile;
-  for (int j = tid; j < Jt; j += blockDim.x) {
-    Bin<T> bin;
-    bin.g = j < J ? g[j] : T(CUDART_INF);  // padding: above every pixel
-    bin.w = j < J ? w[j] * A::kScale : T(0);
-    sbin[j] = bin;
-  }
-  __syncthreads();
+  const int Jt = stage_bins<T>(g, w, sbin, J);
 
   const T b = rate[0];
   const T b_units = b * A::kScale;
@@ -396,7 +366,7 @@ __global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
       }
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) am1[c] = av[c] - T(1);
-      lse_tiles<T, STATS>(xi, am1, sbin, Jt, b_units, mx, s, sl, sd);
+      lse_tiles<T, STATS, kChunk>(xi, am1, sbin, Jt, b_units, mx, s, sl, sd);
 #pragma unroll
       for (int c = 0; c < kChunk; ++c) {
         if (m0 + c < M) {
@@ -427,8 +397,8 @@ __global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
   }
 }
 
-template <typename T, bool STATS>
-__global__ void offset_gamma_pixel_kernel(
+template <typename T, bool STATS, int CH>
+__global__ void __launch_bounds__(kPixelThreads) offset_gamma_pixel_kernel(
     const T* __restrict__ x,     // (n_px,)
     const T* __restrict__ a,     // (M, n_px)
     const T* __restrict__ g,     // (J,)
@@ -438,31 +408,32 @@ __global__ void offset_gamma_pixel_kernel(
     T* __restrict__ spl,         // (M, n_px) when STATS
     T* __restrict__ spd,         // (M, n_px) when STATS
     int M, long long n_px, int J) {
-  __shared__ T sg[kMaxJ];
-  __shared__ T sw[kMaxJ];
-  load_bins<T>(g, w, sg, sw, J);
+  using A = BinArith<T>;
+  __shared__ Bin<T> sbin[kMaxJ];
+  const int Jt = stage_bins<T>(g, w, sbin, J);
 
   const T b = rate[0];
+  const T b_units = b * A::kScale;
   const T log_b = dlog<T>(b);
   const T inv_b = T(1) / b;
   const size_t n = (size_t)n_px;
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const T xi = x[i];
-    for (int m0 = 0; m0 < M; m0 += kChunk) {
-      T av[kChunk], am1[kChunk], mx[kChunk], s[kChunk], sl[kChunk], sd[kChunk];
+    for (int m0 = 0; m0 < M; m0 += CH) {
+      T av[CH], am1[CH], mx[CH], s[CH], sl[CH], sd[CH];
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
+      for (int c = 0; c < CH; ++c) {
         av[c] = (m0 + c < M) ? a[(m0 + c) * n + i] : T(1);
         am1[c] = av[c] - T(1);
       }
-      lse_bins<T, STATS>(xi, am1, sg, sw, J, b, mx, s, sl, sd);
+      lse_tiles<T, STATS, CH>(xi, am1, sbin, Jt, b_units, mx, s, sl, sd);
 #pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
+      for (int c = 0; c < CH; ++c) {
         if (m0 + c < M) {
           T pl, pd;
           out[(m0 + c) * n + i] = finish<T, STATS>(av[c], mx[c], s[c], sl[c],
-                                                   sd[c], log_b, inv_b, T(1),
+                                                   sd[c], log_b, inv_b, A::kUnit,
                                                    pl, pd);
           if (STATS) {
             spl[(m0 + c) * n + i] = pl;
@@ -537,25 +508,35 @@ int launch_factored(const void* x, const void* base, const void* deltas,
       J, (cudaStream_t)stream);
 }
 
+// The pixel kernel's launch, its config chunk sized to M.
+template <typename T, bool STATS>
+int launch_pixel_kernel(const T* x, const T* a, const T* g, const T* w,
+                        const T* rate, T* out, T* spl, T* spd, int M,
+                        long long n_px, int J, cudaStream_t stream) {
+  auto kernel = M == 1   ? offset_gamma_pixel_kernel<T, STATS, 1>
+                : M == 2 ? offset_gamma_pixel_kernel<T, STATS, 2>
+                         : offset_gamma_pixel_kernel<T, STATS, kChunk>;
+  const long long blocks = (n_px + kPixelThreads - 1) / kPixelThreads;
+  kernel<<<(unsigned)(blocks < kMaxPixelBlocks ? blocks : kMaxPixelBlocks),
+           kPixelThreads, 0, stream>>>(x, a, g, w, rate, out, spl, spd, M,
+                                       n_px, J);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_pixel(const void* x, const void* a, const void* g, const void* w,
                  const void* rate, void* out, void* spl, void* spd, int M,
                  long long n_px, int J, int stats, void* stream) {
   if (J > kMaxJ || J < 1 || M < 1 || n_px < 1) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  long long blocks = (n_px + threads - 1) / threads;
-  if (blocks > (1 << 20)) blocks = 1 << 20;  // the grid-stride loop covers the rest
   cudaStream_t s = (cudaStream_t)stream;
   if (stats) {
-    offset_gamma_pixel_kernel<T, true><<<(unsigned)blocks, threads, 0, s>>>(
+    return launch_pixel_kernel<T, true>(
         (const T*)x, (const T*)a, (const T*)g, (const T*)w, (const T*)rate,
-        (T*)out, (T*)spl, (T*)spd, M, n_px, J);
-  } else {
-    offset_gamma_pixel_kernel<T, false><<<(unsigned)blocks, threads, 0, s>>>(
-        (const T*)x, (const T*)a, (const T*)g, (const T*)w, (const T*)rate,
-        (T*)out, nullptr, nullptr, M, n_px, J);
+        (T*)out, (T*)spl, (T*)spd, M, n_px, J, s);
   }
-  return (int)cudaGetLastError();
+  return launch_pixel_kernel<T, false>(
+      (const T*)x, (const T*)a, (const T*)g, (const T*)w, (const T*)rate,
+      (T*)out, nullptr, nullptr, M, n_px, J, s);
 }
 
 }  // namespace

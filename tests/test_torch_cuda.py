@@ -7,11 +7,12 @@ test_torch_factored.py). Run them on a machine with an H100:
 
 Each kernel is held against its plain PyTorch version at the tolerances
 stated in chip_smoke.py (those of tests/test_pallas.py in float32; 1e-9 and
-1e-6 in float64). The summed and factored cases cover the summed kernel's
-tiles of 8 bins (J around multiples of 8, whole tiles masked, a bin term
-spread over more than 100 log units, a < 1 with d just above 0), its blocks
-of several images (nb not a multiple of them, ev < EVP), and launch each
-kernel twice on the same inputs, requiring bitwise-equal outputs.
+1e-6 in float64). The cases cover the shared bin loop's tiles of 8 bins (J
+around multiples of 8, whole tiles masked, a bin term spread over more than
+100 log units, a < 1 with d just above 0), the summed kernel's blocks of
+several images (nb not a multiple of them, ev < EVP), the pixel kernel's
+config chunks of 1, 2 and 4 (M = 1, 2, 3, 4, 5, 16), and launch each kernel
+twice on the same inputs, requiring bitwise-equal outputs.
 """
 
 import importlib.util
@@ -100,6 +101,14 @@ PIXEL_CASES = {
     "below-every-bin": dict(M=4, n_px=2000, J=61, dtype=torch.float32, below=True),
     "ragged-n_px": dict(M=5, n_px=70001, J=11, dtype=torch.float32),
     "float64": dict(M=4, n_px=3000, J=7, dtype=torch.float64),
+    **{f"J{J}": dict(M=4, n_px=3000 if J < 1024 else 700, J=J, dtype=torch.float32)
+       for J in (1, 7, 64, 65, 1024)},
+    "masked-tiles": dict(M=4, n_px=3000, J=61, dtype=torch.float32, variant="masked-tiles"),
+    "spread": dict(M=4, n_px=3000, J=61, dtype=torch.float32, variant="spread"),
+    "small-d-a-below-one": dict(M=4, n_px=3000, J=61, dtype=torch.float32,
+                                variant="small-d"),
+    **{f"M{M}": dict(M=M, n_px=3001, J=61, dtype=torch.float32) for M in (2, 3, 5, 16)},
+    "float64-M2-J65": dict(M=2, n_px=1000, J=65, dtype=torch.float64),
 }
 
 
@@ -112,6 +121,7 @@ def test_pixel_kernel_matches_plain(cs, case):
         cs.F64_TOL if f64 else cs.PIXEL_FWD_TOL,
         cs.F64_GRAD_TOL if f64 else cs.PIXEL_GRAD_TOL,
         below=c.get("below", False), squeeze=c.get("squeeze", False),
+        variant=c.get("variant"),
     )
     assert all(np.isfinite(v) for v in errs.values())
 

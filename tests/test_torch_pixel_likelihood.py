@@ -6,6 +6,7 @@ gradient rtol 1e-3), the XLA oracle ``_offset_gamma_log_prob_xla`` and the
 JAX ``ksmogn_log_prob`` / ``KSMOGN`` in float64 (rtol 1e-10), and the
 reference-code goldens (rtol 1e-9)."""
 
+import importlib.util
 from pathlib import Path
 
 import jax
@@ -34,7 +35,8 @@ from tapqir_tpu_torch.ops.offset_gamma import (
 )
 
 torch.set_num_threads(1)
-GOLDEN = Path(__file__).resolve().parent / "golden" / "reference_goldens.npz"
+ROOT = Path(__file__).resolve().parent.parent
+GOLDEN = ROOT / "tests" / "golden" / "reference_goldens.npz"
 
 
 def _case(M=4, n_px=500, J=7, seed=0, dtype=np.float32):
@@ -68,15 +70,38 @@ def _jax_run(fn, value, conc, rate, g, w, cot):
     return np.asarray(out), np.asarray(ga), float(gr)
 
 
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _card_case(M, n_px, J, variant, seed=6):
+    """chip_smoke.py's per-pixel inputs (the kernel's edge cases on the
+    card), in float32."""
+    x, a, rate, g, w = _chip_smoke().pixel_arrays(M, n_px, J, seed, variant)
+    return (x.astype(np.float32), a.astype(np.float32), np.float32(rate),
+            g.astype(np.float32), w.astype(np.float32))
+
+
 @pytest.mark.parametrize(
-    "M,n_px,below,squeeze",
-    [(2, 260, False, False), (4, 130, True, False), (1, 140, False, True)],
-    ids=["forward-and-gradients", "below-every-bin", "M1-squeeze"],
+    "M,n_px,below,squeeze,card",
+    [(2, 260, False, False, None), (4, 130, True, False, None),
+     (1, 140, False, True, None),
+     *((4, 150, False, False, (J, None)) for J in (1, 64, 65)),
+     *((4, 200, False, False, (61, v)) for v in ("masked-tiles", "spread", "small-d")),
+     (1, 200, False, False, (61, None)), (3, 200, False, False, (61, None))],
+    ids=["forward-and-gradients", "below-every-bin", "M1-squeeze", "J1", "J64", "J65",
+         "masked-tiles", "spread", "small-d-a-below-one", "M1", "M3"],
 )
 def test_plain_per_pixel_matches_pallas_interpret(monkeypatch, M, n_px, below,
-                                                  squeeze):
+                                                  squeeze, card):
     monkeypatch.setenv("TAPQIR_PALLAS_INTERPRET", "1")
-    value, conc, rate, g, w = _case(M=M, n_px=n_px)
+    if card is None:
+        value, conc, rate, g, w = _case(M=M, n_px=n_px)
+    else:
+        value, conc, rate, g, w = _card_case(M, n_px, *card)
     if below:
         value[:5] = 50.0  # below every offset bin
     if squeeze:
@@ -101,6 +126,19 @@ def test_plain_per_pixel_matches_xla_oracle_float64():
     value, conc, rate, g, w = _case(M=3, n_px=300, seed=2, dtype=np.float64)
     cot = np.random.default_rng(3).normal(size=conc.shape)
     got, ga, gr = _torch_run(value, conc, rate, g, w, cot)
+    want, wa, wr = _jax_run(_offset_gamma_log_prob_xla, value, conc, rate, g, w, cot)
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    np.testing.assert_allclose(ga, wa, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(gr, wr, rtol=1e-10)
+
+
+def test_plain_per_pixel_matches_xla_oracle_float64_J1024():
+    """The kernel's widest histogram (1024 bins, chip_smoke.py's inputs),
+    which the Pallas kernel cannot stage (``_pick_tile_rows`` gives None)."""
+    jax.config.update("jax_enable_x64", True)
+    value, conc, rate, g, w = _chip_smoke().pixel_arrays(3, 200, 1024, 7)
+    cot = np.random.default_rng(8).normal(size=conc.shape)
+    got, ga, gr = _torch_run(value, conc, np.float64(rate), g, w, cot)
     want, wa, wr = _jax_run(_offset_gamma_log_prob_xla, value, conc, rate, g, w, cot)
     np.testing.assert_allclose(got, want, rtol=1e-10)
     np.testing.assert_allclose(ga, wa, rtol=1e-10, atol=1e-12)
