@@ -43,9 +43,20 @@ one. Phases, each printing its findings; any failure is an exception:
    with ``use_factored = True``, run(400);
 9. the per-pixel path: KSMOGN(...).log_prob on 10 AOIs x 512 frames of that
    dataset (M=1) and the non-ev summed likelihood over the 4 spot configs
-   (event_ndims=2), with gradients on height and background.
-The kernels' launch counts are set to 0 just before each of the paths 7-9
-and read just after it.
+   (event_ndims=2), with gradients on height and background;
+10. the command line's fit on phase 7's workspace: ``python -m
+    tapqir_tpu_torch --cd <workspace> fit --model cosmos -n 10 -f 512 -it
+    200 --no-input``, in process through ``main(argv)``: it resumes phase
+    7's checkpoint (iteration 400 -> 600) and ends in ``compute_stats``
+    (p(specific), credible intervals, SNR / chi2, MCC against the
+    simulator's labels), on the card;
+11. the command line's stats on the same workspace, with the checks of
+    :func:`check_cli_stats` (z_probs bitwise equal to phase 10's), then the
+    stats' arithmetic that runs no kernel on the card against float64 on
+    the CPU (:func:`check_card_vs_cpu`).
+The kernels' launch counts are set to 0 just before each of the paths 7-11
+and read just after it. Phases 10-11 print their stats' seconds by stage
+and their peak device memory; every phase prints its wall time at the end.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -140,7 +151,10 @@ def _apply_variant(variant, rng, x, g, w, ev):
 
 def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8):
     """Simulated cosmos dataset in AOI chunks (each half on-target), with a
-    J-bin offset histogram."""
+    J-bin offset histogram. The on-target AOIs of every chunk come first, as
+    the dataset layout requires (the posteriors evaluate the first N AOIs),
+    and the chunks' ground-truth labels are carried along with their AOI
+    indices offset per chunk."""
     from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
     from tapqir_tpu_torch.utils.simulate import simulate
 
@@ -150,11 +164,24 @@ def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8):
                  device=device)
         for i in range(n_chunk)
     ]
+
+    def cat(name):  # on-target AOIs of every chunk, then the off-target ones
+        arrays = [getattr(d, name) for d in chunks]
+        return np.concatenate([a[d.is_ontarget] for a, d in zip(arrays, chunks)]
+                              + [a[~d.is_ontarget] for a, d in zip(arrays, chunks)])
+
+    labels, first = [], 0
+    for d in chunks:
+        lab = d.labels.copy()
+        lab["aoi"] += first
+        labels.append(lab)
+        first += d.N
     centers, w = offset_histogram(J)
     return CosmosDataset(
-        images=np.concatenate([d.images for d in chunks]),
-        xy=np.concatenate([d.xy for d in chunks]),
-        is_ontarget=np.concatenate([d.is_ontarget for d in chunks]),
+        images=cat("images"),
+        xy=cat("xy"),
+        is_ontarget=cat("is_ontarget"),
+        labels=np.concatenate(labels),
         offset=OffsetData(centers, w),
         name="chip-smoke-elife-scale",
     )
@@ -309,6 +336,218 @@ def check_main_path(res, num_iter):
         raise RuntimeError("the checkpoint was not written or did not reload")
     if not res["reloaded_params_equal"]:
         raise RuntimeError("reloaded parameters differ from the fit's")
+
+
+def _checkpoint_iter(workdir):
+    with np.load(Path(workdir) / ".tapqir" / "cosmos_model.tpqr") as z:
+        return json.loads(bytes(z["meta"]).decode())["iter"]
+
+
+def run_cli(workdir, argv, device="cuda"):
+    """``python -m tapqir_tpu_torch --cd workdir <argv>`` in process, through
+    the module's ``main(argv)`` (with ``--cpu`` when ``device`` is the CPU),
+    the kernels' launch counts set to 0 just before and read just after.
+    Returns the exit code, the model the command built, the launches, the
+    wall seconds and the peak device memory."""
+    from tapqir_tpu_torch import main as cli
+
+    built = []
+    make = cli._make_model
+
+    def record(*args, **kwargs):  # keeps the model the command builds
+        built.append(make(*args, **kwargs))
+        return built[-1]
+
+    cuda = torch.device(device).type == "cuda"
+    cli._make_model = record
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.perf_counter()
+        code = cli.main(["--cd", str(workdir), *argv] + ([] if cuda else ["--cpu"]))
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        cli._make_model = make
+        log = logging.getLogger("tapqir_tpu_torch")
+        for handler in list(log.handlers):  # the command's stdout and log file
+            handler.close()
+            log.removeHandler(handler)
+    return {"code": code, "model": built[-1] if built else None, "launches": launches,
+            "seconds": seconds,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+
+
+def run_cli_fit(workdir, nbatch=10, fbatch=512, num_iter=200, device="cuda"):
+    """Phase 10: ``fit --model cosmos -n nbatch -f fbatch -it num_iter
+    --no-input`` on a workspace that holds a checkpoint; the command resumes
+    it and ends in ``compute_stats``. Adds the checkpoint's iteration before
+    and the z_probs the command wrote to :func:`run_cli`'s result."""
+    before = _checkpoint_iter(workdir)
+    res = run_cli(workdir, ["fit", "--model", "cosmos", "-n", str(nbatch), "-f",
+                            str(fbatch), "-it", str(num_iter), "--no-input"], device)
+    res["iter_before"] = before
+    with np.load(Path(workdir) / "cosmos_params.tpqr") as z:
+        res["z_probs"] = z["z_probs"]
+    return res
+
+
+def check_cli_fit(res, num_iter, device="cuda"):
+    """Raise unless phase 10 exited 0 on ``device``, took ``num_iter`` steps
+    (one summed-statistics launch each on the card, no other kernel) and
+    wrote its files."""
+    m = res["model"]
+    if res["code"] != 0 or m is None:
+        raise RuntimeError(f"CLI fit exited with {res['code']}")
+    if m.device.type != torch.device(device).type:
+        raise RuntimeError(f"CLI fit ran on {m.device}, not on {device}")
+    if m.iter != res["iter_before"] + num_iter:
+        raise RuntimeError(f"CLI fit: iteration {res['iter_before']} -> {m.iter}")
+    want = dict.fromkeys(res["launches"], 0)
+    if m.device.type == "cuda":
+        want["summed_stats"] = num_iter
+    if res["launches"] != want:
+        raise RuntimeError(f"CLI fit: kernel launches {res['launches']}, expected {want}")
+    for f in ("cosmos_params.tpqr", "cosmos_summary.csv", ".tapqir/config.yaml"):
+        if not (m.path / f).exists():
+            raise RuntimeError(f"CLI fit did not write {f}")
+
+
+def run_cli_stats(workdir, device="cuda"):
+    """Phase 11: ``stats --no-input`` on the same workspace."""
+    res = run_cli(workdir, ["stats", "--no-input"], device)
+    with np.load(Path(workdir) / "cosmos_params.tpqr") as z:
+        res["z_probs"] = z["z_probs"]
+    return res
+
+
+def check_cli_stats(res, fit_res):
+    """Raise unless phase 11's stats hold: z_probs normalised on on-target
+    rows and 0 on off-target ones, theta_probs summing to at most 1,
+    p_specific in [0, 1], LL <= Mean <= UL and finite for every CI
+    parameter, SNR and chi2 finite on on-target rows, MCC / recall /
+    precision present and in range, no kernel launched, and z_probs
+    bitwise equal to those phase 10 wrote (both use the default seed).
+    Returns the numbers checked."""
+    from tapqir_tpu_torch.utils.stats import _compute_snr_chi2
+
+    m = res["model"]
+    if res["code"] != 0 or m is None:
+        raise RuntimeError(f"CLI stats exited with {res['code']}")
+    if any(res["launches"].values()):
+        raise RuntimeError(f"CLI stats launched kernels: {res['launches']}")
+    ps, N = m.params_stats, m.data.N
+    z, th = ps["z_probs"], ps["theta_probs"]
+    z_sum_err = float(np.abs(z[:N].sum(-1) - 1.0).max())
+    if z_sum_err > 1e-5 or z[N:].any() or th[:, N:].any():
+        raise RuntimeError(f"z_probs: sum error {z_sum_err} or nonzero off-target rows")
+    th_max = float(th.sum(0).max())
+    if th_max > 1.0 + 1e-5:
+        raise RuntimeError(f"theta_probs sum over spots up to {th_max}")
+    p_spec = ps["p_specific"]
+    if not ((p_spec >= 0).all() and (p_spec <= 1).all()):
+        raise RuntimeError("p_specific outside [0, 1]")
+    for name in m.ci_params:
+        ll, mean, ul = (np.asarray(ps[name][k]) for k in ("LL", "Mean", "UL"))
+        bad = ~(np.isfinite(ll) & np.isfinite(mean) & np.isfinite(ul)
+                & (ll <= mean) & (mean <= ul))
+        if bad.any():
+            raise RuntimeError(f"{name}: {int(bad.sum())} of {bad.size} intervals are "
+                               "not finite with LL <= Mean <= UL")
+    snr, chi2 = _compute_snr_chi2(m, ps)
+    if not (np.isfinite(snr[:, :N]).all() and np.isfinite(chi2[:N]).all()):
+        raise RuntimeError("non-finite SNR or chi2 on on-target rows")
+    summary = m.summary
+    metrics = {k: summary[k]["Mean"] for k in ("MCC", "Recall", "Precision")}
+    if not (-1 <= metrics["MCC"] <= 1 and 0 <= metrics["Recall"] <= 1
+            and 0 <= metrics["Precision"] <= 1):
+        raise RuntimeError(f"classification metrics out of range: {metrics}")
+    if not np.array_equal(res["z_probs"], fit_res["z_probs"]):
+        raise RuntimeError("z_probs of stats differ from those of fit (same default seed)")
+    return {
+        **metrics,
+        "SNR_0": summary["SNR_0"]["Mean"],
+        "p_specific_mean_on_target": float(p_spec[:N].mean()),
+        "z_sum_max_abs_err": z_sum_err,
+        "theta_sum_max": th_max,
+        "gain": summary["gain"]["Mean"],
+        "proximity": summary["proximity"]["Mean"],
+        "lamda": summary["lamda"]["Mean"],
+        "pi": summary["pi"]["Mean"],
+        "z_probs_bitwise_equal_to_fit": True,
+    }
+
+
+# the port's float32 arithmetic on the card against float64 on the CPU, on
+# the same inputs and draws: absolute on probabilities; SNR absolute in
+# units of the noise sigma beside relative (an SNR near 0 has no relative
+# precision), chi2 relative
+PROB_TOL = 1e-4
+SNR_TOL = dict(rtol=1e-4, atol=1e-4)
+CHI2_TOL = dict(rtol=1e-4, atol=0.0)
+
+
+def check_card_vs_cpu(model, nbatch=10, fbatch=512, num_particles=50, n_aoi=64):
+    """The arithmetic of the stats that runs no kernel, on the model's device
+    in its dtype and on the CPU in float64 on the same inputs: ``_probs_batch``
+    on the first block of nbatch x fbatch with the same draws, and
+    ``snr_and_chi2`` on the first ``n_aoi`` AOIs at the saved means. Returns
+    the max abs differences, after checking PROB_TOL, SNR_TOL, CHI2_TOL."""
+    from tapqir_tpu_torch.utils.stats import snr_and_chi2
+
+    dev = model.device
+    N, F = model.data.N, model.data.F
+    ndx = torch.arange(min(nbatch, N), device=dev)
+    fdx = torch.arange(min(fbatch, F), device=dev)
+
+    def cpu64(t):
+        return t.detach().to("cpu", torch.float64)
+
+    with torch.no_grad():
+        pc = model.constrained()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        draws = model._probs_draws(pc, ndx, fdx, num_particles, gen)
+        z_d, th_d = model._probs_batch(pc, ndx, fdx, model._data_dev, num_particles,
+                                       draws=draws)
+        z_h, th_h = model._probs_batch(
+            {k: cpu64(v) for k, v in pc.items()}, ndx.cpu(), fdx.cpu(),
+            {"is_ontarget": model._data_dev["is_ontarget"].cpu()}, num_particles,
+            draws={k: cpu64(v) for k, v in draws.items()})
+    err_probs = max(float((cpu64(z_d) - z_h).abs().max()),
+                    float((cpu64(th_d) - th_h).abs().max()))
+    if not err_probs <= PROB_TOL:
+        raise RuntimeError(f"_probs_batch: card vs CPU float64 {err_probs} > {PROB_TOL}")
+
+    ps, d = model.params_stats, model.data
+    sl = slice(0, n_aoi)
+
+    def inputs(device, dtype):
+        def t(a):
+            return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+        def spot(name):  # (K, Nt, F, Q) -> (n, F, Q, K)
+            return t(np.moveaxis(ps[name]["Mean"], 0, -1)[sl])
+
+        return (t(d.images[sl]), spot("height"), spot("width"), spot("x"), spot("y"),
+                t(d.xy[sl]), t(ps["background"]["Mean"][sl]))
+
+    const = (float(ps["gain"]["Mean"]), d.offset.mean, d.offset.var, d.P, None)
+    with torch.no_grad():
+        snr_d, chi2_d = snr_and_chi2(*inputs(dev, torch.float32), *const)
+        snr_h, chi2_h = snr_and_chi2(*inputs("cpu", torch.float64), *const)
+    snr_d, chi2_d = cpu64(snr_d).numpy(), cpu64(chi2_d).numpy()
+    np.testing.assert_allclose(snr_d, snr_h.numpy(), **SNR_TOL, err_msg="SNR card vs CPU")
+    np.testing.assert_allclose(chi2_d, chi2_h.numpy(), **CHI2_TOL, err_msg="chi2 card vs CPU")
+    return {
+        "probs_max_abs_err": err_probs,
+        "snr_max_abs_err": float(np.abs(snr_d - snr_h.numpy()).max()),
+        "chi2_max_rel_err": float((np.abs(chi2_d - chi2_h.numpy()) / chi2_h.numpy()).max()),
+        "block": [int(ndx.numel()), int(fdx.numel())],
+        "snr_aois": int(snr_h.shape[0]),
+    }
 
 
 def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
@@ -749,6 +988,12 @@ def main():
 
     t_start = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
+    walls, last = {}, [t_start]
+
+    def lap(phase):  # wall seconds of each phase
+        now = time.perf_counter()
+        walls[phase] = round(now - last[0], 3)
+        last[0] = now
 
     # phase 1: device
     name = torch.cuda.get_device_name(0)
@@ -758,6 +1003,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"[device] {name} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}", flush=True)
+    lap("1 device")
 
     # phase 2: build
     og.library.get()
@@ -767,6 +1013,7 @@ def main():
           f"(nvcc {' '.join(og.NVCC_FLAGS)})", flush=True)
     for ln in ptx:
         print(f"[build] {ln}", flush=True)
+    lap("2 build")
 
     # phase 3: summed kernel against plain
     M, nb, EVP, ev, J = 4, 5120, 256, 196, 61
@@ -791,6 +1038,7 @@ def main():
                     F64_TOL if is64 else FWD_TOL, F64_GRAD_TOL if is64 else GRAD_TOL,
                     below=c.get("below", False), variant=c.get("variant"))
         print(f"[summed] edge case {label}: {json.dumps(e)}", flush=True)
+    lap("3 summed kernel")
 
     # phase 4: per-pixel kernel against plain
     n_px = 10 * 512 * 1 * 14 * 14
@@ -821,6 +1069,7 @@ def main():
                           variant=c.get("variant"))
         print(f"[pixel] edge case {label}: {json.dumps(e)}", flush=True)
     torch.cuda.empty_cache()
+    lap("4 per-pixel kernel")
 
     # phase 5: factored kernel against plain
     Kf = 2
@@ -846,6 +1095,7 @@ def main():
                              variant=c.get("variant"))
         print(f"[factored] edge case {label}: {json.dumps(e)}", flush=True)
     torch.cuda.empty_cache()
+    lap("5 factored kernel")
 
     # phase 6: timing at the slice shapes
     timing = {}
@@ -908,16 +1158,33 @@ def main():
               f"ms, bound {b:.6f} ms ({by}), special-function floor {floor[k]:.6f} ms; "
               "library: none (no single PyTorch call computes this function)", flush=True)
     print(f"[timing] kernel phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    lap("6 timing")
 
-    # phases 7-9: the dense and factored fits and the per-pixel path
-    num_iter = 400
+    # phases 7-11: the dense and factored fits, the per-pixel path, and the
+    # command line's fit and stats on the dense fit's workspace
+    num_iter, cli_iter = 400, 200
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         dense = run_main_path(tmp, num_iter=num_iter, device="cuda")
         gc.collect()  # the dense models' device data must not count in the next peak
         check_main_path(dense, num_iter)
+        lap("7 dense fit")
         fact, fmodel = run_factored_path(tmp, num_iter=num_iter, device="cuda")
         check_main_path(fact, num_iter)
+        lap("8 factored fit")
         pixel = run_pixel_path(fmodel.data, device="cuda")
+        del fmodel
+        gc.collect()
+        lap("9 per-pixel path")
+        cli_fit = run_cli_fit(tmp, num_iter=cli_iter, device="cuda")
+        check_cli_fit(cli_fit, cli_iter, device="cuda")
+        fit_stage_seconds = cli_fit.pop("model").stats_seconds
+        gc.collect()
+        lap("10 CLI fit")
+        cli_stats = run_cli_stats(tmp, device="cuda")
+        stats_checks = check_cli_stats(cli_stats, cli_fit)
+        card_cpu = check_card_vs_cpu(cli_stats["model"])
+        stats_stage_seconds = cli_stats.pop("model").stats_seconds
+        lap("11 CLI stats")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -931,6 +1198,16 @@ def main():
     print(f"[setup] simulate {dense['simulate_seconds']:.1f} s, save "
           f"{dense['save_seconds']:.1f} s", flush=True)
     print(f"[pixel-path] {json.dumps(pixel)}", flush=True)
+    for label, res, stages in (("cli-fit", cli_fit, fit_stage_seconds),
+                               ("cli-stats", cli_stats, stats_stage_seconds)):
+        print(f"[{label}] exit {res['code']} in {res['seconds']:.3f} s on {name} ({smi}); "
+              f"peak memory {res['peak_bytes'] / 2**30:.3f} GiB; launches "
+              f"{res['launches']}; stats seconds by stage {json.dumps(stages)}", flush=True)
+    print(f"[cli-fit] iteration {cli_fit['iter_before']} -> "
+          f"{cli_fit['iter_before'] + cli_iter}", flush=True)
+    print(f"[cli-stats] checks {json.dumps(stats_checks)}", flush=True)
+    print(f"[card-vs-cpu] {json.dumps(card_cpu)} (tolerances: probabilities absolute "
+          f"{PROB_TOL}, SNR {SNR_TOL}, chi2 {CHI2_TOL})", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -938,7 +1215,8 @@ def main():
         raise RuntimeError(f"factored path: kernel launches {fl}")
     if pl["pixel_fwd"] < 1 or pl["pixel_stats"] < 2:
         raise RuntimeError(f"per-pixel path: kernel launches {pl}")
-    print(f"[done] in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[done] in {time.perf_counter() - t_start:.1f} s; wall seconds by phase "
+          f"{json.dumps(walls)}", flush=True)
 
     def entry(kname, body, launches, max_abs_err):
         ms, plain_ms, b, by = timing[kname]

@@ -115,6 +115,19 @@ def gamma_log_prob(x, concentration, rate):
     )
 
 
+def gamma_sample(concentration, rate, shape=None, generator=None, draws=None):
+    """Gamma(concentration, rate) of ``shape`` (default: the broadcast shape);
+    ``draws`` are the standard-Gamma draws of that shape."""
+    if shape is None:
+        shape = torch.broadcast_shapes(concentration.shape, torch.as_tensor(rate).shape)
+    g = std_gamma_sample(concentration.expand(shape), generator, draws)
+    return g / rate
+
+
+def gamma_mean(concentration, rate):
+    return concentration / rate
+
+
 # ---------------------------------------------------------------------------
 # HalfNormal(scale), Exponential(rate)
 # ---------------------------------------------------------------------------
@@ -145,6 +158,19 @@ def beta_log_prob(x, c1, c0):
     )
 
 
+def beta_sample(c1, c0, shape=None, generator=None, draws=None):
+    """Beta(c1, c0) of ``shape`` (default: the broadcast shape) from the
+    standard-Gamma pair stacked on a leading axis of 2, clipped strictly
+    inside (0, 1); ``draws`` replaces that (2, *shape) pair."""
+    c1, c0 = torch.as_tensor(c1), torch.as_tensor(c0)
+    if shape is None:
+        shape = torch.broadcast_shapes(c1.shape, c0.shape)
+    dt = torch.promote_types(c1.dtype, c0.dtype)
+    conc = torch.stack([c1.to(dt).expand(shape), c0.to(dt).expand(shape)])
+    g = std_gamma_sample(conc, generator, draws)
+    return beta_from_gamma_pair(g[0], g[1])
+
+
 # ---------------------------------------------------------------------------
 # AffineBeta(mean, sample_size, low, high):
 #   c1 = size (mean - low) / (high - low), c0 = size (high - mean) / (high - low)
@@ -166,12 +192,13 @@ def affine_beta_log_prob(x, mean, sample_size, low, high):
     return beta_log_prob(u, c1, c0) - _log(width)
 
 
-def affine_beta_sample(mean, sample_size, low, high, generator=None):
-    """Sample with tensor ``sample_size``; both Beta Gammas in one draw."""
+def affine_beta_sample(mean, sample_size, low, high, generator=None, shape=None,
+                       draws=None):
+    """Sample of ``shape`` (default: the broadcast shape) with tensor
+    ``sample_size``; both Beta Gammas in one draw (``draws``: the (2,
+    *shape) standard-Gamma pair), the Beta clipped strictly inside (0, 1)."""
     c1, c0 = affine_beta_concentrations(mean, sample_size, low, high)
-    c1, c0 = torch.broadcast_tensors(c1, c0)
-    g1, g0 = std_gamma_sample_packed([c1, c0], generator)
-    return low + (high - low) * beta_from_gamma_pair(g1, g0)
+    return low + (high - low) * beta_sample(c1, c0, shape, generator, draws)
 
 
 # ---------------------------------------------------------------------------
@@ -187,8 +214,23 @@ def dirichlet_log_prob(x, concentration):
     )
 
 
+def dirichlet_sample(concentration, shape=None, generator=None, draws=None):
+    """Dirichlet draws of batch ``shape`` (default: the concentration's
+    batch shape), clipped and renormalized; ``draws`` are the standard-Gamma
+    draws of shape ``shape + concentration.shape[-1:]``."""
+    if shape is None:
+        shape = concentration.shape[:-1]
+    conc = concentration.expand(tuple(shape) + concentration.shape[-1:])
+    return dirichlet_from_gammas(std_gamma_sample(conc, generator, draws))
+
+
+def dirichlet_mean(concentration):
+    """Works on tensors and on numpy arrays."""
+    return concentration / concentration.sum(-1, keepdims=True)
+
+
 # ---------------------------------------------------------------------------
-# Bernoulli (enumeration only - never sampled in SVI)
+# Bernoulli / Categorical (enumeration only in SVI; sampled for posteriors)
 # ---------------------------------------------------------------------------
 
 
@@ -200,3 +242,21 @@ def bernoulli_log_prob(value, probs):
         torch.log(torch.clamp(probs, min=eps)),
         torch.log1p(-torch.clamp(probs, max=1 - eps)),
     )
+
+
+def categorical_sample(probs, shape=None, generator=None, draws=None):
+    """Category indices of ``shape`` (default: the batch shape of ``probs``,
+    categories on the last axis) by the Gumbel-max trick, as
+    ``jax.random.categorical`` draws them; ``draws`` is the standard Gumbel
+    noise of shape ``shape + probs.shape[-1:]``."""
+    if shape is None:
+        shape = probs.shape[:-1]
+    full = tuple(shape) + probs.shape[-1:]
+    if draws is None:
+        tiny = torch.finfo(probs.dtype).tiny
+        u = torch.rand(full, generator=generator, dtype=probs.dtype,
+                       device=probs.device).clamp_min(tiny)
+        draws = -torch.log(-torch.log(u))
+    else:
+        draws = draws.to(dtype=probs.dtype, device=probs.device).reshape(full)
+    return torch.argmax(torch.log(probs) + draws, dim=-1)

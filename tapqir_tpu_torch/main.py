@@ -1,0 +1,344 @@
+"""Command-line interface: ``python -m tapqir_tpu_torch [--cd DIR] fit|stats``
+(counterpart of the workspace and the ``fit`` / ``stats`` commands of
+tapqir_tpu/main.py).
+
+Every command runs inside an analysis folder (``--cd``, default: the
+working directory) that holds ``.tapqir/`` (config.yaml, loginfo, model
+checkpoints, logs) next to ``data.tpqr`` and the result files. The options,
+short flags, defaults and config keys are the JAX package's, and so are the
+files, so either package's CLI continues a workspace the other wrote.
+
+* ``fit`` fits the model by SVI (``Model.run``), then computes the stats;
+* ``stats`` loads the checkpoint's parameters and computes the stats:
+  p(specific), credible intervals, SNR / chi2 and, with ground-truth
+  labels, MCC, recall and precision.
+
+Options not given on the command line are asked for on the terminal unless
+``--no-input``. Commands run on the CUDA card; ``--cpu`` asks for the CPU,
+and without a card and without ``--cpu`` a command exits non-zero. Models
+and options that are not ported yet exit non-zero with a message naming the
+ROADMAP item that ports them.
+"""
+
+import argparse
+import copy
+import logging
+from pathlib import Path
+
+from tapqir_tpu_torch.device import resolve_device
+from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
+from tapqir_tpu_torch.logger import init_logger
+from tapqir_tpu_torch.utils.config import dump_config, load_config
+
+AVAIL_MODELS = ["cosmos", "crosstalk", "cosmos+hmm"]
+
+# what the JAX package's fit / stats accept that the port does not run yet,
+# with the ROADMAP Queue A item that ports it
+NOT_PORTED = {
+    "crosstalk": "the crosstalk model is not ported yet (ROADMAP Queue A item 5)",
+    "cosmos+hmm": "the cosmos+hmm model is not ported yet (ROADMAP Queue A item 4)",
+    "warm_start": "--warm-start/--no-warm-start is not ported yet (ROADMAP Queue A item 4)",
+    "num_restarts": "--num-restarts is not ported yet (ROADMAP Queue A item 7)",
+    "restart_iter": "--restart-iter is not ported yet (ROADMAP Queue A item 7)",
+    "mesh": "--mesh is not ported yet (ROADMAP Queue A item 8)",
+    "profile": "--profile is not ported yet (ROADMAP Queue A item 9)",
+}
+
+# the config a new workspace starts from (the JAX package's)
+DEFAULT_CONFIG = {
+    "P": 14,
+    "nbatch-size": 10,
+    "fbatch-size": 512,
+    "learning-rate": 0.005,
+    "num-channels": 1,
+    "cuda": True,
+    "matlab": False,
+    "priors": {
+        "background_mean_std": 1000,
+        "background_std_std": 100,
+        "lamda_rate": 1,
+        "height_std": 10000,
+        "width_min": 0.75,
+        "width_max": 2.25,
+        "proximity_rate": 1,
+        "gain_std": 50,
+    },
+    "offset-x": 10,
+    "offset-y": 10,
+    "offset-P": 30,
+    "bin-size": 1,
+}
+
+logger = logging.getLogger("tapqir_tpu_torch")
+
+
+class CliError(Exception):
+    """A command cannot run; the message says why."""
+
+
+def _config_path(cd):
+    return Path(cd) / ".tapqir" / "config.yaml"
+
+
+def save_config(cd, config):
+    _config_path(cd).write_text(dump_config(config))
+
+
+def init_workspace(cd):
+    """Create ``<cd>/.tapqir`` and its config.yaml where missing, start the
+    log, and return the config."""
+    workdir = Path(cd) / ".tapqir"
+    first_time = not workdir.is_dir()
+    workdir.mkdir(exist_ok=True)
+    cfg = _config_path(cd)
+    if not cfg.is_file():
+        save_config(cd, copy.deepcopy(DEFAULT_CONFIG))
+    init_logger(cd)
+    if first_time:
+        print(f"Initialized Tapqir workspace at {workdir}.")
+    config = load_config(cfg.read_text())
+    logger.info(f"Configuration options are read from {cfg}.")
+    return config
+
+
+# ---------------------------------------------------------------------------
+# options and prompts
+# ---------------------------------------------------------------------------
+
+
+def _parser():
+    S = argparse.SUPPRESS  # defaults come from the config, after --cd is known
+    parser = argparse.ArgumentParser(
+        prog="python -m tapqir_tpu_torch",
+        description="Bayesian analysis of co-localization single-molecule "
+                    "microscopy image data, in PyTorch on a CUDA card.",
+    )
+    parser.add_argument("--cd", type=Path, default=Path.cwd(),
+                        help="Change working directory.")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def common(p):
+        p.add_argument("--model", choices=AVAIL_MODELS, default=S, help="Tapqir model")
+        p.add_argument("-S", "--num-states", dest="S", type=int, default=S,
+                       help="Number of spot states")
+        p.add_argument("--cpu", dest="cpu", action="store_true", default=S,
+                       help="Run on the CPU instead of the CUDA card")
+        p.add_argument("--cuda", dest="cpu", action="store_false", default=S,
+                       help="Run on the CUDA card (the default)")
+        p.add_argument("--nbatch-size", "-n", type=int, default=S, help="AOI batch size")
+        p.add_argument("--fbatch-size", "-f", type=int, default=S,
+                       help="Frame batch size")
+        p.add_argument("--k-max", "-k", type=int, default=S,
+                       help="Maximum number of spots per image")
+        p.add_argument("--matlab", action="store_true", default=S,
+                       help="Save parameters in matlab format")
+        p.add_argument("--dtype", choices=["float32", "double"], default=S,
+                       help="Floating point precision")
+        p.add_argument("--mesh", type=str, default=S, help="Multi-device mesh")
+        p.add_argument("--no-input", action="store_true", default=S,
+                       help="Disable interactive prompt.")
+
+    fit = sub.add_parser("fit", help="Fit the data to the selected model, then "
+                                     "compute the stats")
+    common(fit)
+    fit.add_argument("--learning-rate", "-lr", type=float, default=S,
+                     help="Learning rate")
+    fit.add_argument("--frame-sampling", choices=["random", "window"], default=S,
+                     help="Frame minibatch scheme: independent random subsets or a "
+                          "cyclic contiguous window")
+    fit.add_argument("--num-iter", "-it", type=int, default=S,
+                     help="Number of iterations (0 = run to convergence)")
+    fit.add_argument("--num-restarts", "-R", type=int, default=S,
+                     help="Batched random restarts")
+    fit.add_argument("--restart-iter", type=int, default=S,
+                     help="Warm-up iterations per restart chain")
+    fit.add_argument("--profile", type=int, default=S,
+                     help="Profile N training steps and exit")
+    fit.add_argument("--warm-start", dest="warm_start", action="store_true", default=S,
+                     help="cosmos+hmm only: start from the workspace's cosmos fit")
+    fit.add_argument("--no-warm-start", dest="warm_start", action="store_false",
+                     default=S)
+    fit.add_argument("--overwrite", "-w", action="store_true", default=S,
+                     help="Persist these values to config.yaml")
+    sub.add_parser("stats", help="Compute credible intervals and other statistics")
+    common(sub.choices["stats"])
+    return parser
+
+
+def _defaults(command, config):
+    if command == "fit":
+        return {
+            "model": "cosmos", "S": 1, "cpu": False,
+            "nbatch_size": config.get("nbatch-size", 10),
+            "fbatch_size": config.get("fbatch-size", 512),
+            "learning_rate": config.get("learning-rate", 0.005),
+            "frame_sampling": "random", "num_iter": 0, "k_max": 2,
+            "matlab": bool(config.get("matlab", False)), "dtype": "float32",
+            "overwrite": True, "no_input": False,
+        }
+    return {
+        "model": config.get("model", "cosmos"), "S": config.get("S", 1), "cpu": False,
+        "nbatch_size": config.get("nbatch-size", 10),
+        "fbatch_size": config.get("fbatch-size", 512),
+        "k_max": config.get("k-max", 2), "matlab": False, "dtype": "float32",
+        "no_input": False,
+    }
+
+
+def _choice(choices):
+    def cast(text):
+        if text not in choices:
+            raise ValueError(text)
+        return text
+
+    return cast
+
+
+def _make_prompter(given):
+    """ask(name, value, text, ...): the value of an option given on the
+    command line as it is; otherwise the answer on the terminal, the
+    current value on an empty answer."""
+
+    def ask(name, value, text, cast=None, is_bool=False):
+        if name in given:
+            return value
+        if is_bool:
+            hint = "Y/n" if value else "y/N"
+            while True:
+                answer = input(f"{text} [{hint}]: ").strip().lower()
+                if not answer:
+                    return bool(value)
+                if answer in ("y", "yes", "n", "no"):
+                    return answer.startswith("y")
+                print("Error: invalid input")
+        cast = cast or type(value)
+        while True:
+            answer = input(f"{text} [{value}]: ").strip()
+            if not answer:
+                return value
+            try:
+                return cast(answer)
+            except ValueError:
+                print(f"Error: {answer!r} is not a valid value.")
+
+    return ask
+
+
+def _refuse_unported(opts, given):
+    if opts["model"] in NOT_PORTED:
+        raise CliError(NOT_PORTED[opts["model"]])
+    for name in ("warm_start", "num_restarts", "restart_iter", "mesh", "profile"):
+        if name in given:
+            raise CliError(NOT_PORTED[name])
+
+
+def _make_model(model, S, k_max, cpu, dtype, priors):
+    from tapqir_tpu_torch.models import models
+
+    try:
+        device = resolve_device("cpu" if cpu else None)
+    except RuntimeError as err:
+        raise CliError(str(err)) from err
+    return models[model](S=S, K=k_max, device=device, dtype=dtype, priors=priors)
+
+
+# ---------------------------------------------------------------------------
+# commands
+# ---------------------------------------------------------------------------
+
+
+def fit(cd, config, opts, given):
+    """Fit the data to the selected model, then compute the stats."""
+    if not opts["no_input"]:
+        ask = _make_prompter(given)
+        opts["model"] = ask("model", opts["model"], "Tapqir model",
+                            cast=_choice(AVAIL_MODELS))
+        opts["S"] = ask("S", opts["S"], "Number of spot states")
+        opts["cpu"] = not ask("cpu", not opts["cpu"],
+                              "Run computations on the accelerator?", is_bool=True)
+        opts["nbatch_size"] = ask("nbatch_size", opts["nbatch_size"], "AOI batch size")
+        opts["fbatch_size"] = ask("fbatch_size", opts["fbatch_size"], "Frame batch size")
+        opts["learning_rate"] = ask("learning_rate", opts["learning_rate"],
+                                    "Learning rate")
+        opts["num_iter"] = ask("num_iter", opts["num_iter"],
+                               "Number of iterations (0 = run to convergence)")
+        opts["matlab"] = ask("matlab", opts["matlab"],
+                             "Save parameters in matlab format?", is_bool=True)
+        opts["overwrite"] = ask("overwrite", opts["overwrite"],
+                                "Overwrite default values?", is_bool=True)
+    _refuse_unported(opts, given)
+
+    if opts["overwrite"]:
+        config.update({
+            "cuda": not opts["cpu"],
+            "nbatch-size": opts["nbatch_size"],
+            "fbatch-size": opts["fbatch_size"],
+            "learning-rate": opts["learning_rate"],
+            "matlab": opts["matlab"],
+            # the model topology, so that stats rebuilds the model of the fit
+            "model": opts["model"],
+            "S": opts["S"],
+            "k-max": opts["k_max"],
+        })
+        save_config(cd, config)
+
+    logger.info("Fitting the data ...")
+    m = _make_model(opts["model"], opts["S"], opts["k_max"], opts["cpu"], opts["dtype"],
+                    config.get("priors"))
+    m.frame_sampling = opts["frame_sampling"]
+    m.load(cd)
+    m.init(opts["learning_rate"], opts["nbatch_size"], opts["fbatch_size"])
+    m.run(opts["num_iter"])
+    logger.info("Fitting the data: Done")
+
+    logger.info("Computing stats ...")
+    m.compute_stats(save_matlab=opts["matlab"])
+    logger.info("Computing stats: Done")
+
+
+def stats(cd, config, opts, given):
+    """Compute credible intervals and other statistics of a fitted model."""
+    if not opts["no_input"]:
+        ask = _make_prompter(given)
+        opts["model"] = ask("model", opts["model"], "Tapqir model",
+                            cast=_choice(AVAIL_MODELS))
+        opts["cpu"] = not ask("cpu", not opts["cpu"],
+                              "Run computations on the accelerator?", is_bool=True)
+        opts["matlab"] = ask("matlab", opts["matlab"],
+                             "Save parameters in matlab format?", is_bool=True)
+    _refuse_unported(opts, given)
+
+    logger.info("Computing stats ...")
+    m = _make_model(opts["model"], opts["S"], opts["k_max"], opts["cpu"], opts["dtype"],
+                    config.get("priors"))
+    m.load(cd)
+    m.init(config.get("learning-rate", 0.005), opts["nbatch_size"], opts["fbatch_size"])
+    m.load_checkpoint(param_only=True)
+    m.compute_stats(save_matlab=opts["matlab"])
+    logger.info("Computing stats: Done")
+
+
+COMMANDS = {"fit": fit, "stats": stats}
+
+
+def main(argv=None) -> int:
+    """Run one command; returns the exit code (argument errors exit with 2)."""
+    parser = _parser()
+    ns = parser.parse_args(argv)
+    if not ns.cd.is_dir():
+        parser.error(f"--cd: directory {ns.cd} does not exist")
+    given = set(vars(ns)) - {"cd", "command"}
+    config = init_workspace(ns.cd)
+    opts = {**_defaults(ns.command, config), **{k: getattr(ns, k) for k in given}}
+    try:
+        COMMANDS[ns.command](ns.cd, config, opts, given)
+    except CliError as err:
+        logger.error(str(err))
+        return 1
+    except TapqirFileNotFoundError as err:
+        logger.exception(f"Failed to load {err.name} file")
+        return 1
+    except CudaOutOfMemoryError:
+        logger.exception("Failed to fit the data")
+        return 1
+    return 0

@@ -1,5 +1,5 @@
 """cosmos: multi-color time-independent colocalization model (counterpart of
-tapqir_tpu/models/cosmos.py; the training path of this slice).
+tapqir_tpu/models/cosmos.py).
 
 The generative model, the mean-field guide and the marginalized ELBO are the
 JAX package's: the discrete latents z, theta and m are summed out with dense
@@ -9,10 +9,16 @@ draw, and the image likelihood is the event-summed offset-Gamma kernel
 Subsampled-plate scaling is (Nt/n)(F/f) for local terms and Nt/n for the
 per-AOI terms.
 
-Draw seam: :meth:`cosmos.elbo_from_windows` takes ``draws``, the packed flat
-vector of standard-Gamma draws, in the JAX package's packing order (gain,
-lamda, pi, proximity c1, proximity c0, background, height, width c1, x c1,
-y c1, width c0, x c0, y c0). Tests feed the JAX package's draws through it.
+Draw seams: :meth:`cosmos.elbo_from_windows` takes ``draws``, the packed
+flat vector of standard-Gamma draws, in the JAX package's packing order
+(gain, lamda, pi, proximity c1, proximity c0, background, height, width c1,
+x c1, y c1, width c0, x c0, y c0); :meth:`cosmos._probs_batch` takes the
+sampled pi, lamda, proximity, x and y with a leading particle axis. Tests
+feed the JAX package's draws through both.
+
+After the fit, :meth:`cosmos.compute_probs_arrays` gives the posterior
+marginals of z and theta, and :meth:`cosmos.compute_params` the credible
+intervals that ``utils/stats.py`` writes out.
 """
 
 import math
@@ -24,11 +30,15 @@ from tapqir_tpu_torch import constraints
 from tapqir_tpu_torch.distributions.core import (
     affine_beta_concentrations,
     affine_beta_log_prob,
+    affine_beta_sample,
     beta_from_gamma_pair,
+    categorical_sample,
     dirichlet_from_gammas,
     dirichlet_log_prob,
+    dirichlet_sample,
     exponential_log_prob,
     gamma_log_prob,
+    gamma_sample,
     halfnormal_log_prob,
     std_gamma_sample_packed,
 )
@@ -36,12 +46,13 @@ from tapqir_tpu_torch.distributions.ksmogn import (
     offset_gamma_factored_summed,
     offset_gamma_log_prob_summed,
 )
-from tapqir_tpu_torch.distributions.util import gaussian_spots_flat
+from tapqir_tpu_torch.distributions.util import expand_offtarget, gaussian_spots_flat
 from tapqir_tpu_torch.infer.discrete import (
     log_probs_m,
     log_probs_theta,
     log_probs_z,
     m_configs,
+    safe_log,
 )
 from tapqir_tpu_torch.models.model import Model
 
@@ -75,6 +86,10 @@ class cosmos(Model):
                          priors=merged)
         self._global_params = ["gain", "proximity", "lamda", "pi"]
         self.conv_params = ["-ELBO", "proximity_loc", "gain_loc", "lamda_loc"]
+        self.ci_params = [
+            "gain", "pi", "lamda", "proximity",
+            "background", "height", "width", "x", "y",
+        ]
 
     # -- variational parameters -------------------------------------------------
     def param_spec(self):
@@ -436,3 +451,219 @@ class cosmos(Model):
                 event_ndims=1, ev=P * P,
             )
         return out.reshape(mtab.shape[0], n_, f_, C_)
+
+    # -- posterior probabilities ----------------------------------------------
+    @staticmethod
+    def _block(a, ndx, fdx):
+        """(K, Nt, F, Q) -> the block (n, f, Q, K)."""
+        return torch.movedim(a.index_select(1, ndx).index_select(2, fdx), 0, -1)
+
+    def _probs_draws(self, pc, ndx, fdx, num_particles, generator=None):
+        """The guide samples :meth:`_probs_batch` averages over, with a
+        leading particle axis p: pi (p, Q, 1+S), lamda (p, Q), proximity
+        (p,), xs and ys (p, n, f, Q, K)."""
+        P = self.data.P
+        lim = (P + 1) / 2
+        size = self._block(pc["size"], ndx, fdx)
+        p = (num_particles,)
+        return {
+            "pi": dirichlet_sample(pc["pi_mean"] * pc["pi_size"],
+                                   p + pc["pi_mean"].shape[:-1], generator),
+            "lamda": gamma_sample(pc["lamda_loc"] * pc["lamda_beta"], pc["lamda_beta"],
+                                  p + pc["lamda_loc"].shape, generator),
+            "proximity": affine_beta_sample(pc["proximity_loc"], pc["proximity_size"],
+                                            0.0, (P + 1) / math.sqrt(12), generator, p),
+            "xs": affine_beta_sample(self._block(pc["x_mean"], ndx, fdx), size, -lim,
+                                     lim, generator, p + size.shape),
+            "ys": affine_beta_sample(self._block(pc["y_mean"], ndx, fdx), size, -lim,
+                                     lim, generator, p + size.shape),
+        }
+
+    def _probs_batch(self, pc, ndx, fdx, data, num_particles, generator=None,
+                     draws=None):
+        """z and theta posterior marginals, (1+S, n, f, Q) and (K, n, f, Q),
+        for one block of AOIs ``ndx`` x frames ``fdx``, averaged over
+        ``num_particles`` guide samples (:meth:`_probs_draws`, from
+        ``generator``). The particles are one batched computation on a
+        leading particle axis. ``draws`` replaces the samples. Works on the
+        device and in the dtype of ``pc``."""
+        K, P = self.K, self.data.P
+        lim = (P + 1) / 2
+        dt, dev = pc["x_mean"].dtype, pc["x_mean"].device
+        mtab = torch.as_tensor(m_configs(K), dtype=dt, device=dev)  # (M, K)
+        lpt = log_probs_theta(K, self.S, dt, dev)  # (1+S, 1+K)
+        spec_tk = torch.as_tensor(np.arange(1 + K)[:, None] == 1 + np.arange(K),
+                                  device=dev)  # (1+K, K)
+        ont = data["is_ontarget"].index_select(0, ndx)
+        qm = self._block(pc["m_probs"], ndx, fdx)
+        if draws is None:
+            draws = self._probs_draws(pc, ndx, fdx, num_particles, generator)
+        pi, lamda, prox, xs, ys = (
+            torch.as_tensor(draws[k]).to(dtype=dt, device=dev)
+            for k in ("pi", "lamda", "proximity", "xs", "ys")
+        )
+
+        # log p(z): (p, n, Q, 1+S), off-target AOIs forced into z = 0
+        lpz = torch.movedim(safe_log(expand_offtarget(pi))[..., ont], -1, 1)
+        lpm1, lpm0 = log_probs_m(lamda, K)  # (p, Q, 1+K, K)
+        log_pm_sum = torch.einsum("mk,pqtk->pmtq", mtab, lpm1) + torch.einsum(
+            "mk,pqtk->pmtq", 1.0 - mtab, lpm0
+        )  # (p, M, 1+K, Q)
+        size_sp = (((P + 1) / (2 * prox)) ** 2 - 1.0).reshape(-1, 1, 1, 1, 1)
+        lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
+            ys, 0.0, 2.0, -lim, lim
+        )  # (p, n, f, Q, K)
+        lpxy_sp = affine_beta_log_prob(
+            xs, 0.0, size_sp, -lim, lim
+        ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
+        lpxy_t = torch.where(
+            spec_tk[:, None, None, None, :], lpxy_sp[:, None], lpxy_ns[:, None]
+        )  # (p, 1+K, n, f, Q, K)
+        term_xy = torch.einsum("mk,ptnfqk->pmtnfq", mtab, lpxy_t)
+        T_full = (
+            lpz.permute(0, 3, 1, 2)[:, None, :, None, :, None, :]  # (p, 1, Z, 1, n, 1, Q)
+            + lpt[None, None, :, :, None, None, None]  # (1, 1, Z, T, 1, 1, 1)
+            + log_pm_sum[:, :, None, :, None, None, :]  # (p, M, 1, T, 1, 1, Q)
+            + term_xy[:, :, None]  # (p, M, 1, T, n, f, Q)
+        )
+        # log q(m) by selection, not by a product with the 0/1 config table:
+        # at the bounds of unit_interval (float32 rounds the sigmoid to 0 or
+        # 1) log(qm) or log1p(-qm) is -inf, which a product with 0 turns into
+        # NaN; selected, it stays -inf and the logsumexp over m absorbs it
+        log_qm = torch.where(
+            mtab[:, None, None, None, :] > 0, torch.log(qm), torch.log1p(-qm)
+        ).sum(-1)  # (M, n, f, Q)
+        # p(z, theta | m, phi), then the expectation over q(m)
+        T_norm = T_full - torch.logsumexp(T_full, dim=(2, 3), keepdim=True)
+        r = torch.logsumexp(T_norm + log_qm[None, :, None, None], dim=1)  # (p, Z, T, n, f, Q)
+        z_p = torch.exp(torch.logsumexp(r, dim=2))  # (p, Z, n, f, Q)
+        th_p = torch.exp(torch.logsumexp(r, dim=1))[:, 1:]  # (p, K, n, f, Q)
+        return z_p.mean(0), th_p.mean(0)
+
+    def compute_probs_arrays(self, num_particles=50, generator=None, draws=None):
+        """Full-dataset z_probs (Nt, F, Q, 1+S) and theta_probs (K, Nt, F, Q)
+        as float64 numpy arrays.
+
+        As in the JAX package, only the N on-target AOIs (which come first)
+        are evaluated, in blocks of nbatch_size x fbatch_size, and the
+        off-target rows stay 0. The last block of each axis is ragged where
+        the JAX package pads it with repeated rows and drops them after; the
+        result is the same. Without ``generator`` the particles come from a
+        generator seeded with 0 (the JAX package's ``PRNGKey(0)``), so two
+        calls return equal arrays. ``draws``, an iterable of one
+        :meth:`_probs_batch` draws dict per block in block order, replaces
+        the samples."""
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(0)
+        blocks = None if draws is None else iter(draws)
+        Nt, F, Q, N = self.data.Nt, self.data.F, self.Q, self.data.N
+        nb, fb = self.nbatch_size, self.fbatch_size
+        dev = self.device
+        z_probs = torch.zeros((Nt, F, Q, 1 + self.S), dtype=self.dtype, device=dev)
+        theta_probs = torch.zeros((self.K, Nt, F, Q), dtype=self.dtype, device=dev)
+        with torch.no_grad():
+            pc = self.constrained()
+            for n0 in range(0, N, nb):
+                n1 = min(n0 + nb, N)
+                for f0 in range(0, F, fb):
+                    f1 = min(f0 + fb, F)
+                    z_p, th_p = self._probs_batch(
+                        pc, torch.arange(n0, n1, device=dev),
+                        torch.arange(f0, f1, device=dev), self._data_dev,
+                        num_particles, generator,
+                        None if blocks is None else next(blocks),
+                    )
+                    z_probs[n0:n1, f0:f1] = z_p.permute(1, 2, 3, 0)
+                    theta_probs[:, n0:n1, f0:f1] = th_p
+        return (z_probs.cpu().numpy().astype(np.float64),
+                theta_probs.cpu().numpy().astype(np.float64))
+
+    # -- posterior summaries ------------------------------------------------------
+    @property
+    def compute_probs(self):
+        if not hasattr(self, "_probs_cache"):
+            self._probs_cache = self.compute_probs_arrays()
+        return self._probs_cache
+
+    @property
+    def z_probs(self):
+        r"""Posterior marginal p(z), shape (Nt, F, Q, 1+S)."""
+        return self.compute_probs[0]
+
+    @property
+    def theta_probs(self):
+        r"""Posterior q(theta = k), shape (K, Nt, F, Q)."""
+        return self.compute_probs[1]
+
+    @property
+    def m_probs(self):
+        r"""Posterior spot presence q(m = 1), shape (K, Nt, F, Q)."""
+        return self.param("m_probs")
+
+    @property
+    def pspecific(self):
+        return self.z_probs
+
+    @property
+    def z_map(self):
+        return np.argmax(self.z_probs, axis=-1)
+
+    def z_sample(self, num_samples, generator=None):
+        """z trajectories (num_samples, N, F, Q) drawn from the saved
+        posterior marginals ``params_stats["z_probs"]``; without
+        ``generator``, from one seeded with 11 (the JAX package's
+        ``PRNGKey(11)``)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(11)
+        probs = torch.as_tensor(
+            np.asarray(self.params_stats["z_probs"][: self.data.N]), device=self.device
+        )
+        z = categorical_sample(probs.clamp_min(1e-30),
+                               (num_samples,) + probs.shape[:-1], generator)
+        return z.cpu().numpy()
+
+    def compute_params(self, CI):
+        """Credible intervals of ``ci_params`` from the fitted guide, with the
+        posterior probability arrays and ``p_specific`` = theta_probs summed
+        over spots."""
+        from tapqir_tpu_torch.utils.stats import ci_from_scipy
+
+        P = self.data.P
+        lim = (P + 1) / 2
+        wmin, wmax = self.priors["width_min"], self.priors["width_max"]
+        p = self.param
+        families = {
+            "gain": lambda: ci_from_scipy(
+                "gamma", CI, concentration=p("gain_loc") * p("gain_beta"),
+                rate=p("gain_beta")),
+            "pi": lambda: ci_from_scipy(
+                "dirichlet", CI, concentration=p("pi_mean") * p("pi_size")),
+            "lamda": lambda: ci_from_scipy(
+                "gamma", CI, concentration=p("lamda_loc") * p("lamda_beta"),
+                rate=p("lamda_beta")),
+            "proximity": lambda: ci_from_scipy(
+                "affine_beta", CI, mean=p("proximity_loc"),
+                sample_size=p("proximity_size"), low=0.0, high=(P + 1) / math.sqrt(12)),
+            "background": lambda: ci_from_scipy(
+                "gamma", CI, concentration=p("b_loc") * p("b_beta"), rate=p("b_beta")),
+            "height": lambda: ci_from_scipy(
+                "gamma", CI, concentration=p("h_loc") * p("h_beta"), rate=p("h_beta")),
+            "width": lambda: ci_from_scipy(
+                "affine_beta", CI, mean=p("w_mean"), sample_size=p("w_size"),
+                low=wmin, high=wmax),
+            "x": lambda: ci_from_scipy(
+                "affine_beta", CI, mean=p("x_mean"), sample_size=p("size"),
+                low=-lim, high=lim),
+            "y": lambda: ci_from_scipy(
+                "affine_beta", CI, mean=p("y_mean"), sample_size=p("size"),
+                low=-lim, high=lim),
+        }
+        params = {param: families[param]() for param in self.ci_params}
+        params["m_probs"] = self.m_probs
+        params["z_probs"] = self.z_probs
+        params["theta_probs"] = self.theta_probs
+        params["z_map"] = self.z_map
+        params["p_specific"] = params["theta_probs"].sum(0)
+        return params

@@ -35,6 +35,7 @@ from tapqir_tpu_torch import __version__ as tapqir_version
 from tapqir_tpu_torch.device import resolve_device, resolve_dtype
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
 from tapqir_tpu_torch.utils.dataset import load as load_dataset
+from tapqir_tpu_torch.utils.stats import read_summary, save_stats
 
 logger = logging.getLogger(__name__)
 
@@ -92,12 +93,24 @@ class Model:
     def Q(self):
         return self._Q or self.data.C
 
-    def load(self, path: Union[str, Path]) -> None:
-        """Load data from an analysis folder."""
+    def load(self, path: Union[str, Path], data_only: bool = True) -> None:
+        """Load data (and, unless ``data_only``, the saved fit results
+        ``<model>_params.tpqr`` and ``<model>_summary.csv``) from an analysis
+        folder."""
         self.path = Path(path)
         self.run_path = self.path / ".tapqir"
         self.data = load_dataset(self.path)
         logger.debug(f"Loaded data from {self.path / 'data.tpqr'}")
+        if not data_only:
+            params_path = self.path / f"{self.name}_params.tpqr"
+            if not params_path.exists():
+                raise TapqirFileNotFoundError("parameter", params_path)
+            with np.load(params_path, allow_pickle=False) as z:
+                self.params_stats = {k: z[k] for k in z.files}
+            summary_path = self.path / f"{self.name}_summary.csv"
+            if not summary_path.exists():
+                raise TapqirFileNotFoundError("summary", summary_path)
+            self.summary = read_summary(summary_path)
 
     def _device_image_stack(self):
         """Flat device stack (Nt, F, C, EVP = ceil(P*P/128)*128). Padded
@@ -515,9 +528,14 @@ class Model:
                 f.write(",".join(scalars.keys()) + "\n")
             f.write(",".join(str(v) for v in scalars.values()) + "\n")
 
-    def load_checkpoint(self):
-        """Load a checkpoint written by either package; returns its seed."""
-        model_path = self._checkpoint_path
+    def load_checkpoint(self, path=None, param_only=False, warnings=False):
+        """Load a checkpoint written by either package from ``path`` (default:
+        the workspace's ``.tapqir``): the parameters and, unless
+        ``param_only``, the optimizer and convergence state. ``warnings``
+        logs a warning for a fit that has not converged. Returns the
+        checkpoint's seed."""
+        path = Path(path) if path else self.run_path
+        model_path = path / f"{self.name}_model.tpqr"
         if not model_path.exists():
             raise TapqirFileNotFoundError("model", model_path)
         with np.load(model_path, allow_pickle=False) as z:
@@ -534,18 +552,29 @@ class Model:
             }
 
         self.params = tree("p::", self.dtype)
-        counts = tree("count::", torch.int32)
-        if not counts:  # a dense-Adam checkpoint: one scalar count
-            fresh = self._init_opt_state()["count"]
-            c = int(flat["count"])
-            counts = {k: torch.full_like(v, c) for k, v in fresh.items()}
-        self.opt_state = {
-            "mu": tree("mu::", self.dtype),
-            "nu": tree("nu::", self.dtype),
-            "count": counts,
-        }
-        self.converged = meta["convergence_status"]
-        self._rolling = meta["rolling"]
-        self.iter = meta["iter"]
-        logger.info(f"Iteration #{self.iter}. Loaded a model checkpoint from {model_path}")
+        if not param_only:
+            counts = tree("count::", torch.int32)
+            if not counts:  # a dense-Adam checkpoint: one scalar count
+                fresh = self._init_opt_state()["count"]
+                c = int(flat["count"])
+                counts = {k: torch.full_like(v, c) for k, v in fresh.items()}
+            self.opt_state = {
+                "mu": tree("mu::", self.dtype),
+                "nu": tree("nu::", self.dtype),
+                "count": counts,
+            }
+            self.converged = meta["convergence_status"]
+            self._rolling = meta["rolling"]
+            self.iter = meta["iter"]
+            logger.info(f"Iteration #{self.iter}. Loaded a model checkpoint from {model_path}")
+        if warnings and not meta["convergence_status"]:
+            logger.warning(f"Model at {path} has not been fully trained")
         return None if key is None else key_to_seed(key)
+
+    # -- stats -------------------------------------------------------------------
+    def compute_stats(self, CI: float = 0.95, save_matlab: bool = False):
+        """Credible intervals and summary statistics, written into the
+        analysis folder (see :func:`tapqir_tpu_torch.utils.stats.save_stats`)."""
+        summary = save_stats(self, self.path, CI=CI, save_matlab=save_matlab)
+        logger.debug("Computing stats: Successful.")
+        return summary

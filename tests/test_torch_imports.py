@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-its entry points default to the CUDA card and never fall back to the CPU
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
+(nor click, PyYAML, pandas, scikit-learn or tqdm, which the card's machine
+may lack), its entry points default to the CUDA card and never fall back to the CPU
 unasked, and its kernel wrapper takes the plain path only for CPU tensors."""
 
 import pkgutil
@@ -31,11 +32,13 @@ def test_port_imports_without_jax_or_the_jax_package():
     mods = _port_modules()
     assert "tapqir_tpu_torch.models.cosmos" in mods
     assert "tapqir_tpu_torch.ops.offset_gamma" in mods
+    assert "tapqir_tpu_torch.main" in mods and "tapqir_tpu_torch.utils.stats" in mods
     code = textwrap.dedent(
         f"""
         import importlib, sys
-        sys.modules["jax"] = None
-        sys.modules["tapqir_tpu"] = None
+        for blocked in ("jax", "tapqir_tpu", "click", "yaml", "pandas", "sklearn",
+                        "tqdm"):
+            sys.modules[blocked] = None  # importing it raises ImportError
         for name in {mods!r}:
             importlib.import_module(name)
         loaded = [

@@ -4,6 +4,7 @@ series, NaN recovery, out-of-memory mapping, and chip_smoke.py's main path
 at a tiny size on the CPU."""
 
 import importlib.util
+import json
 from pathlib import Path
 
 import jax
@@ -159,11 +160,15 @@ def test_out_of_memory_maps_to_typed_exception(workspace, monkeypatch):
         tm.run(2)
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+def _script(name, path):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _chip_smoke():
+    return _script("chip_smoke", ROOT / "chip_smoke.py")
 
 
 def test_chip_smoke_main_path_tiny_on_cpu(tmp_path):
@@ -182,6 +187,34 @@ def test_chip_smoke_main_path_tiny_on_cpu(tmp_path):
     assert tm.iter == 10
 
 
+def test_chip_smoke_cli_fit_and_stats_tiny_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phases 10-11 at a tiny size on the CPU: the command
+    line's fit resumes the dense fit's checkpoint and ends in the stats,
+    stats repeats them bitwise, and the stats' arithmetic in float32 agrees
+    with float64."""
+    monkeypatch.setenv("CI", "true")  # no rastergram
+    cs = _chip_smoke()
+    res = cs.run_main_path(tmp_path, Nt=8, F=12, P=14, J=7, nbatch=4, fbatch=8,
+                           num_iter=6, device="cpu", n_chunk=2)
+    cs.check_main_path(res, 6)
+    fit = cs.run_cli_fit(tmp_path, nbatch=4, fbatch=8, num_iter=4, device="cpu")
+    cs.check_cli_fit(fit, 4, device="cpu")
+    assert fit["iter_before"] == 6 and fit["model"].iter == 10
+    assert fit["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert set(fit["model"].stats_seconds) == {
+        "probabilities", "credible_intervals", "snr_chi2", "files"}
+    stats = cs.run_cli_stats(tmp_path, device="cpu")
+    checks = cs.check_cli_stats(stats, fit)
+    assert checks["z_probs_bitwise_equal_to_fit"]
+    model = stats["model"]
+    assert model.data.N == 4 and model.data.labels.shape == (4, 12, 1)
+    np.testing.assert_array_equal(model.data.is_ontarget, [1, 1, 1, 1, 0, 0, 0, 0])
+    # here the model's float32 on the CPU against float64
+    assert model.dtype == torch.float32
+    card = cs.check_card_vs_cpu(model, nbatch=4, fbatch=8, num_particles=5, n_aoi=3)
+    assert card["block"] == [4, 8] and card["snr_aois"] == 3
+
+
 def test_chip_smoke_factored_and_pixel_paths_tiny_on_cpu(tmp_path):
     """chip_smoke.py's factored fit (on the dataset the dense path saved,
     linked) and its per-pixel path, at a tiny size on the CPU."""
@@ -195,3 +228,18 @@ def test_chip_smoke_factored_and_pixel_paths_tiny_on_cpu(tmp_path):
     pixel = cs.run_pixel_path(model.data, n_aoi=2, n_frames=5, device="cpu")
     assert pixel["shape"] == [2, 5, 1, 14, 14]
     assert pixel["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+
+
+def test_recovery_script_rehearsal_on_cpu(capsys):
+    """scripts/recovery_torch.py for 3 steps on the CPU: the whole script
+    runs and prints its JSON line; 3 steps recover nothing, so it exits 1."""
+    rec = _script("recovery_torch", ROOT / "scripts" / "recovery_torch.py")
+    assert rec.ITERS == 8000 and rec.SEED == 0
+    rc = rec.main(iters=3, device="cpu")
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == (0 if out["ok"] else 1)
+    assert out["iters"] == 3 and out["device"] == "cpu"
+    assert set(out["values"]) == {"gain", "proximity", "lamda", "pi_1", "mcc"}
+    assert len(out["bounds"]) == 5
+    assert all(np.isfinite(v) for v in out["values"].values())
+    assert out["fit_seconds"] > 0 and out["steps_per_s"] > 0
