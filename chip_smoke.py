@@ -53,16 +53,31 @@ one. Phases, each printing its findings; any failure is an exception:
 11. the command line's stats on the same workspace, with the checks of
     :func:`check_cli_stats` (z_probs bitwise equal to phase 10's), then the
     stats' arithmetic that runs no kernel on the card against float64 on
-    the CPU (:func:`check_card_vs_cpu`).
-The kernels' launch counts are set to 0 just before each of the paths 7-11
-and read just after it. Phases 10-11 print their stats' seconds by stage
-and their peak device memory; every phase prints its wall time at the end.
+    the CPU (:func:`check_card_vs_cpu`);
+12. the command line's hmm fit on the same workspace: ``fit --model
+    cosmos+hmm -n 10 -it 200 --no-input``, in process; the workspace holds
+    the cosmos fit and its ``cosmos_params.tpqr``, so the command
+    warm-starts hmm from them, takes 200 steps of 10 AOIs x all 790 frames
+    (nb = 7900 images per summed-kernel launch) and ends in the stats, with
+    the checks of :func:`check_cli_hmm_fit`; then a ``torch.profiler`` count
+    of the device launches per hmm step;
+13. the hmm model on the card against the CPU (:func:`check_hmm_card_vs_cpu`):
+    the ELBO of one batch in float32 against float64 with the same draws,
+    the factored likelihood against the dense one, and one
+    ``_compute_theta_probs`` block.
+Phase 3 also checks the summed kernel at nb = 7900 and phase 6 times it
+there. The kernels' launch counts are set to 0 just before each of the
+paths 7-12 and read just after it. Phases 10-12 print their stats' seconds
+by stage and their peak device memory; every phase prints its wall time at
+the end.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The second-to-last line is a JSON object with one entry per kernel, its
+launches summed over the paths 7-12; the last line is {"ok": true,
+"device": {...}}.
 """
 
 import gc
+import importlib
 import json
 import logging
 import math
@@ -343,12 +358,13 @@ def _checkpoint_iter(workdir):
         return json.loads(bytes(z["meta"]).decode())["iter"]
 
 
-def run_cli(workdir, argv, device="cuda"):
+def run_cli(workdir, argv, device="cuda", setup=None):
     """``python -m tapqir_tpu_torch --cd workdir <argv>`` in process, through
     the module's ``main(argv)`` (with ``--cpu`` when ``device`` is the CPU),
     the kernels' launch counts set to 0 just before and read just after.
-    Returns the exit code, the model the command built, the launches, the
-    wall seconds and the peak device memory."""
+    ``setup(model)``, if given, is called on the model the command builds
+    before the command uses it. Returns the exit code, that model, the
+    launches, the wall seconds and the peak device memory."""
     from tapqir_tpu_torch import main as cli
 
     built = []
@@ -356,6 +372,8 @@ def run_cli(workdir, argv, device="cuda"):
 
     def record(*args, **kwargs):  # keeps the model the command builds
         built.append(make(*args, **kwargs))
+        if setup is not None:
+            setup(built[-1])
         return built[-1]
 
     cuda = torch.device(device).type == "cuda"
@@ -423,6 +441,25 @@ def run_cli_stats(workdir, device="cuda"):
     return res
 
 
+def _check_intervals_and_snr(m, ps):
+    """Raise unless every credible interval of ``m.ci_params`` in the stats
+    ``ps`` is finite with LL <= Mean <= UL, and SNR and chi2 are finite on
+    the on-target rows."""
+    from tapqir_tpu_torch.utils.stats import _compute_snr_chi2
+
+    for name in m.ci_params:
+        ll, mean, ul = (np.asarray(ps[name][k]) for k in ("LL", "Mean", "UL"))
+        bad = ~(np.isfinite(ll) & np.isfinite(mean) & np.isfinite(ul)
+                & (ll <= mean) & (mean <= ul))
+        if bad.any():
+            raise RuntimeError(f"{m.name} {name}: {int(bad.sum())} of {bad.size} "
+                               "intervals are not finite with LL <= Mean <= UL")
+    N = m.data.N
+    snr, chi2 = _compute_snr_chi2(m, ps)
+    if not (np.isfinite(snr[:, :N]).all() and np.isfinite(chi2[:N]).all()):
+        raise RuntimeError(f"{m.name}: non-finite SNR or chi2 on on-target rows")
+
+
 def check_cli_stats(res, fit_res):
     """Raise unless phase 11's stats hold: z_probs normalised on on-target
     rows and 0 on off-target ones, theta_probs summing to at most 1,
@@ -431,8 +468,6 @@ def check_cli_stats(res, fit_res):
     precision present and in range, no kernel launched, and z_probs
     bitwise equal to those phase 10 wrote (both use the default seed).
     Returns the numbers checked."""
-    from tapqir_tpu_torch.utils.stats import _compute_snr_chi2
-
     m = res["model"]
     if res["code"] != 0 or m is None:
         raise RuntimeError(f"CLI stats exited with {res['code']}")
@@ -449,16 +484,7 @@ def check_cli_stats(res, fit_res):
     p_spec = ps["p_specific"]
     if not ((p_spec >= 0).all() and (p_spec <= 1).all()):
         raise RuntimeError("p_specific outside [0, 1]")
-    for name in m.ci_params:
-        ll, mean, ul = (np.asarray(ps[name][k]) for k in ("LL", "Mean", "UL"))
-        bad = ~(np.isfinite(ll) & np.isfinite(mean) & np.isfinite(ul)
-                & (ll <= mean) & (mean <= ul))
-        if bad.any():
-            raise RuntimeError(f"{name}: {int(bad.sum())} of {bad.size} intervals are "
-                               "not finite with LL <= Mean <= UL")
-    snr, chi2 = _compute_snr_chi2(m, ps)
-    if not (np.isfinite(snr[:, :N]).all() and np.isfinite(chi2[:N]).all()):
-        raise RuntimeError("non-finite SNR or chi2 on on-target rows")
+    _check_intervals_and_snr(m, ps)
     summary = m.summary
     metrics = {k: summary[k]["Mean"] for k in ("MCC", "Recall", "Precision")}
     if not (-1 <= metrics["MCC"] <= 1 and 0 <= metrics["Recall"] <= 1
@@ -547,6 +573,263 @@ def check_card_vs_cpu(model, nbatch=10, fbatch=512, num_particles=50, n_aoi=64):
         "chi2_max_rel_err": float((np.abs(chi2_d - chi2_h.numpy()) / chi2_h.numpy()).max()),
         "block": [int(ndx.numel()), int(fdx.numel())],
         "snr_aois": int(snr_h.shape[0]),
+    }
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: the cosmos+hmm model
+# ---------------------------------------------------------------------------
+
+# the warm start clips the cosmos marginals at 1e-5 and renormalises them;
+# float32 adds round-off through the log, the softmax and the scan's 10
+# levels at F=790 (each well below 1e-6 here)
+WARM_TOL = 1e-5 + 1e-5
+# the hmm ELBO (a sum of ~1e5 float32 terms of up to ~1e3, the image terms
+# within the summed kernel's rtol 3e-5) on the card against float64 on the
+# CPU, and the factored kernel against the dense one on the card: relative
+HMM_ELBO_RTOL = 1e-4
+
+
+def _held_out_hmm(model):
+    """-ELBO of one fixed batch and fixed draws, without gradient."""
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(12345)
+    with torch.no_grad():
+        return -float(model.elbo(model.params, gen, model._data_dev))
+
+
+def run_cli_hmm_fit(workdir, nbatch=10, num_iter=200, device="cuda"):
+    """Phase 12: ``fit --model cosmos+hmm -n nbatch -it num_iter --no-input``
+    on a workspace that holds a cosmos fit and its ``cosmos_params.tpqr``,
+    so the command warm-starts hmm from that fit, runs ``num_iter`` steps
+    and ends in ``compute_stats``. Adds to :func:`run_cli`'s result the
+    chain marginals right after the warm start (before any step) beside
+    the cosmos z_probs they start from, a held-out -ELBO after the warm
+    start and after the fit, the fit's seconds, and the image count of every
+    summed-kernel launch (``(statistics?, nb)``)."""
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    workdir = Path(workdir)
+    with np.load(workdir / "cosmos_params.tpqr") as z:
+        cosmos_z = z["z_probs"]
+    seen = {"nb": set()}
+
+    def setup(model):
+        warm, run = model.warm_start_from_cosmos, model.run
+
+        def warm_start(*args, **kwargs):
+            out = warm(*args, **kwargs)
+            seen["warm_z"] = model.z_probs
+            del model._z_probs_cache
+            seen["held_out_before"] = _held_out_hmm(model)
+            return out
+
+        def timed_run(num_iter, progress_bar=None):
+            seen["iter_before"] = model.iter
+            _sync(device)
+            t0 = time.perf_counter()
+            run(num_iter, progress_bar)
+            _sync(device)
+            seen["run_seconds"] = time.perf_counter() - t0
+            seen["held_out_after"] = _held_out_hmm(model)
+
+        model.warm_start_from_cosmos, model.run = warm_start, timed_run
+
+    call = og._SummedLauncher.__call__
+
+    def recording(self, x2, *args):
+        seen["nb"].add((self.stats, int(x2.shape[0])))
+        return call(self, x2, *args)
+
+    og._SummedLauncher.__call__ = recording
+    try:
+        res = run_cli(workdir, ["fit", "--model", "cosmos+hmm", "-n", str(nbatch), "-it",
+                                str(num_iter), "--no-input"], device, setup)
+    finally:
+        og._SummedLauncher.__call__ = call
+    res.update(seen, cosmos_z=cosmos_z)
+    return res
+
+
+def check_cli_hmm_fit(res, num_iter, device="cuda"):
+    """Raise unless phase 12 exited 0 on ``device`` with a warm start,
+    stepped 0 -> ``num_iter`` with one summed-statistics launch per step at
+    nb = n·F (and the two held-out losses' forward launches, nothing else),
+    its chain marginals right after the warm start equal the cosmos z_probs
+    on the on-target AOIs within WARM_TOL, and its stats hold: z_probs
+    normalised, init / trans on the simplex, every LL <= Mean <= UL and
+    finite (init and trans included), theta_probs summing to at most 1 and
+    0 off target, finite SNR / chi2 on target. Returns the numbers
+    checked."""
+    m = res["model"]
+    if res["code"] != 0 or m is None or m.name != "cosmos+hmm":
+        raise RuntimeError(f"CLI hmm fit exited with {res['code']}")
+    if m.device.type != torch.device(device).type:
+        raise RuntimeError(f"CLI hmm fit ran on {m.device}, not on {device}")
+    if "warm_z" not in res:
+        raise RuntimeError("CLI hmm fit did not warm-start from the cosmos fit")
+    if res["iter_before"] != 0 or m.iter != num_iter:
+        raise RuntimeError(f"CLI hmm fit: iteration {res['iter_before']} -> {m.iter}")
+    N, F, n = m.data.N, m.data.F, m.nbatch_size
+    want = dict.fromkeys(res["launches"], 0)
+    if m.device.type == "cuda":
+        want.update(summed_stats=num_iter, summed_fwd=2)
+        if res["nb"] != {(True, n * F), (False, n * F)}:
+            raise RuntimeError(f"CLI hmm fit: summed launches at (stats, nb) {res['nb']}")
+    if res["launches"] != want:
+        raise RuntimeError(f"CLI hmm fit: kernel launches {res['launches']}, expected {want}")
+    warm_err = float(np.abs(res["warm_z"][:N] - res["cosmos_z"][:N]).max())
+    if not warm_err <= WARM_TOL:
+        raise RuntimeError(f"warm start: chain marginals {warm_err} from the cosmos "
+                           f"z_probs > {WARM_TOL}")
+    for k in ("held_out_before", "held_out_after"):
+        if not math.isfinite(res[k]):
+            raise RuntimeError(f"CLI hmm fit: non-finite {k}")
+    for f in ("cosmos+hmm_params.tpqr", "cosmos+hmm_summary.csv"):
+        if not (m.path / f).exists():
+            raise RuntimeError(f"CLI hmm fit did not write {f}")
+
+    ps = m.params_stats
+    z, th = ps["z_probs"], ps["theta_probs"]
+    z_sum_err = float(np.abs(z.sum(-1) - 1.0).max())
+    if z_sum_err > 1e-5:
+        raise RuntimeError(f"hmm z_probs: sum error {z_sum_err}")
+    th_max = float(th.sum(0).max())
+    if th_max > 1.0 + 1e-5 or th[:, N:].any():
+        raise RuntimeError(f"hmm theta_probs sum up to {th_max} or nonzero off target")
+    simplex_err = 0.0
+    for name in ("init_mean", "trans_mean"):
+        v = m.param(name)
+        simplex_err = max(simplex_err, float(np.abs(v.sum(-1) - 1.0).max()))
+        if not ((v >= 0).all() and (v <= 1).all()):
+            raise RuntimeError(f"{name} outside [0, 1]")
+    if simplex_err > 1e-5:
+        raise RuntimeError(f"init / trans rows sum to 1 within {simplex_err}")
+    if not {"init", "trans"} <= set(m.ci_params):
+        raise RuntimeError(f"hmm ci_params {m.ci_params}")
+    _check_intervals_and_snr(m, ps)
+    summary = m.summary
+    return {
+        "warm_start_max_abs_err": warm_err,
+        "z_sum_max_abs_err": z_sum_err,
+        "init_trans_simplex_max_abs_err": simplex_err,
+        "theta_sum_max": th_max,
+        "held_out_before": res["held_out_before"],
+        "held_out_after": res["held_out_after"],
+        "trans": summary["trans"]["Mean"],
+        "gain": summary["gain"]["Mean"],
+        "proximity": summary["proximity"]["Mean"],
+        "MCC": summary["MCC"]["Mean"] if "MCC" in summary else None,
+    }
+
+
+def profile_hmm_steps(model, n_prof=3):
+    """Device launches per hmm step and the device's busy share, from a
+    ``torch.profiler`` trace of ``n_prof`` steps (as
+    ``scripts/profile_torch_step.py`` counts them); the steps move the
+    model's parameters."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    model._run_chunk(1)  # warm-up outside the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        model._run_chunk(n_prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    return {
+        "launches_per_step": len(kernels) / n_prof,
+        "device_busy_share": sum(e.device_time_total for e in kernels) * 1e-6 / wall,
+        "profiled_ms_per_step": 1e3 * wall / n_prof,
+    }
+
+
+def check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=10, num_particles=50):
+    """Phase 13, on one hmm batch of the model's AOIs 0..n_elbo-1 over every
+    frame with the same draws (recorded through the ELBO's draw seam): the
+    hmm ELBO on the model's device in its dtype against float64 on the CPU,
+    and the factored likelihood (``use_factored = True``) against the dense
+    one on the model's device (both within HMM_ELBO_RTOL); then one
+    ``_compute_theta_probs`` block (AOIs 0..nbatch-1, ``num_particles``
+    particles) on the device against float64 on the CPU with the same
+    draws (PROB_TOL). Returns the relative and absolute differences and the
+    launches of the card-side evaluations."""
+    from tapqir_tpu_torch.models import models
+
+    # the module (the package binds the class to the same name)
+    hmm_module = importlib.import_module("tapqir_tpu_torch.models.hmm")
+
+    dev, F = model.device, model.data.F
+    ndx = torch.arange(n_elbo, device=dev)
+    win = {k: v.detach() for k, v in model.gather_windows(model.params, ndx, None).items()}
+    recorded = []
+    packed = hmm_module.std_gamma_sample_packed
+
+    def recording(concs, generator=None, draws=None):
+        out = packed(concs, generator, draws)
+        recorded.append(torch.cat([g.reshape(-1) for g in out]))
+        return out
+
+    _reset_launches()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    hmm_module.std_gamma_sample_packed = recording
+    try:
+        with torch.no_grad():
+            elbo_dense = float(model.elbo_from_windows(win, gen, ndx, None, F,
+                                                       model._data_dev))
+    finally:
+        hmm_module.std_gamma_sample_packed = packed
+    draws = recorded[0]
+    model.use_factored = True
+    try:
+        with torch.no_grad():
+            elbo_fact = float(model.elbo_from_windows(win, None, ndx, None, F,
+                                                      model._data_dev, draws=draws))
+    finally:
+        model.use_factored = False
+    _sync(dev)
+    launches = _read_launches()
+
+    def cpu64(t):
+        return t.detach().to("cpu", torch.float64)
+
+    cpu = models["cosmos+hmm"](S=model.S, K=model.K, device="cpu", dtype="double",
+                               priors=model.priors)
+    cpu.data, cpu._transforms = model.data, model._transforms
+    cpu._build_constants()
+    per_aoi = ("images", "xy", "is_ontarget", "mask")
+    data = {k: (v[:n_elbo] if k in per_aoi else v).cpu() for k, v in model._data_dev.items()}
+    data = {k: v if k == "is_ontarget" else v.double() for k, v in data.items()}
+    with torch.no_grad():
+        elbo_cpu = float(cpu.elbo_from_windows(
+            {k: cpu64(v) for k, v in win.items()}, None, torch.arange(n_elbo), None, F,
+            data, draws=cpu64(draws)))
+    err_card = abs(elbo_dense - elbo_cpu) / abs(elbo_cpu)
+    err_fact = abs(elbo_fact - elbo_dense) / abs(elbo_dense)
+    if not (err_card <= HMM_ELBO_RTOL and err_fact <= HMM_ELBO_RTOL):
+        raise RuntimeError(f"hmm ELBO: card vs CPU {err_card}, factored vs dense "
+                           f"{err_fact} (relative) > {HMM_ELBO_RTOL}")
+
+    bdx = torch.arange(min(nbatch, model.data.N), device=dev)
+    z_map = torch.as_tensor(model.z_map, device=dev)[bdx]
+    with torch.no_grad():
+        pc = model.constrained()
+        gen.manual_seed(0)
+        tdraws = model._theta_draws(pc, bdx, num_particles, gen)
+        th_d = model._theta_block(pc, bdx, z_map, num_particles, draws=tdraws)
+        th_h = model._theta_block({k: cpu64(v) for k, v in pc.items()}, bdx.cpu(),
+                                  z_map.cpu(), num_particles,
+                                  draws={k: cpu64(v) for k, v in tdraws.items()})
+    err_theta = float((cpu64(th_d) - th_h).abs().max())
+    if not err_theta <= PROB_TOL:
+        raise RuntimeError(f"hmm theta block: card vs CPU float64 {err_theta} > {PROB_TOL}")
+    return {
+        "elbo_card": elbo_dense, "elbo_cpu_f64": elbo_cpu, "elbo_factored": elbo_fact,
+        "elbo_card_vs_cpu_rel_err": err_card, "elbo_factored_vs_dense_rel_err": err_fact,
+        "theta_block_max_abs_err": err_theta, "elbo_images": n_elbo * F,
+        "theta_block": [int(bdx.numel()), F], "launches": launches,
     }
 
 
@@ -1025,6 +1308,7 @@ def main():
         ("below-every-bin", dict(M=4, nb=64, EVP=256, ev=196, J=61, dtype=f32, below=True)),
         ("ev-masked lanes", dict(M=4, nb=64, EVP=256, ev=130, J=61, dtype=f32)),
         ("ragged nb", dict(M=4, nb=37, EVP=256, ev=196, J=61, dtype=f32)),
+        ("nb=7900 (hmm step)", dict(M=4, nb=7900, EVP=256, ev=196, J=61, dtype=f32)),
         ("M=16", dict(M=16, nb=300, EVP=256, ev=196, J=61, dtype=f32)),
         ("float64", dict(M=4, nb=12, EVP=256, ev=196, J=7, dtype=f64)),
         *((f"J={Jc}", dict(M=4, nb=64 if Jc < 1024 else 8, EVP=256, ev=196, J=Jc,
@@ -1125,6 +1409,19 @@ def main():
     floor = dict.fromkeys(("summed_fwd", "summed_stats", "factored_stats"),
                           mufu_floor_ms(x[:, :ev], g, M))
     del x, a
+    nb_hmm = 10 * 790  # a dense hmm step: 10 AOIs x every frame
+    x, a, _, _, _ = kernel_inputs(M, nb_hmm, EVP, ev, J, f32, 1, "cuda")
+    x[:, ev:] = 91.0
+    a[..., ev:] = 1.0
+    _, p_grad = plain_pair(
+        lambda a_, r_: og.offset_gamma_summed_plain(x, a_, r_, g, w, ev), [a, rate],
+        torch.ones((M, nb_hmm), device="cuda"))
+    hmm_row = f"summed_stats nb={nb_hmm}"
+    timing[hmm_row] = [time_ms(lambda: og.summed_stats(x, a, r1, g, w, ev), 50), p_grad,
+                       *bound_ms(x, a, g, ev, stats=True)]
+    floor[hmm_row] = mufu_floor_ms(x[:, :ev], g, M)
+    del x, a
+    torch.cuda.empty_cache()
 
     # per-pixel at M=4 (the kernels' JSON entries) and at M=1 (KSMOGN.log_prob)
     xp, ap, _, _, _ = pixel_inputs(M, n_px, J, f32, 0, "cuda")
@@ -1184,7 +1481,18 @@ def main():
         stats_checks = check_cli_stats(cli_stats, cli_fit)
         card_cpu = check_card_vs_cpu(cli_stats["model"])
         stats_stage_seconds = cli_stats.pop("model").stats_seconds
+        gc.collect()
         lap("11 CLI stats")
+        cli_hmm = run_cli_hmm_fit(tmp, num_iter=cli_iter, device="cuda")
+        hmm_checks = check_cli_hmm_fit(cli_hmm, cli_iter, device="cuda")
+        hmm_model = cli_hmm.pop("model")
+        hmm_stage_seconds = hmm_model.stats_seconds
+        hmm_profile = profile_hmm_steps(hmm_model)
+        lap("12 CLI hmm fit")
+        hmm_card_cpu = check_hmm_card_vs_cpu(hmm_model)
+        del hmm_model
+        gc.collect()
+        lap("13 hmm card vs CPU")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -1208,6 +1516,18 @@ def main():
     print(f"[cli-stats] checks {json.dumps(stats_checks)}", flush=True)
     print(f"[card-vs-cpu] {json.dumps(card_cpu)} (tolerances: probabilities absolute "
           f"{PROB_TOL}, SNR {SNR_TOL}, chi2 {CHI2_TOL})", flush=True)
+    print(f"[cli-hmm] fit --model cosmos+hmm (warm start from the cosmos fit) exit "
+          f"{cli_hmm['code']} in {cli_hmm['seconds']:.3f} s on {name} ({smi}): "
+          f"{cli_iter} steps in {cli_hmm['run_seconds']:.3f} s = "
+          f"{cli_iter / cli_hmm['run_seconds']:.3f} steps/s; peak memory "
+          f"{cli_hmm['peak_bytes'] / 2**30:.3f} GiB; launches {cli_hmm['launches']} at "
+          f"(stats, nb) {sorted(cli_hmm['nb'])}; stats seconds by stage "
+          f"{json.dumps(hmm_stage_seconds)}", flush=True)
+    print(f"[cli-hmm] profiled steps {json.dumps(hmm_profile)}", flush=True)
+    print(f"[cli-hmm] checks {json.dumps(hmm_checks)} (warm-start tolerance {WARM_TOL})",
+          flush=True)
+    print(f"[hmm-card-vs-cpu] {json.dumps(hmm_card_cpu)} (tolerances: ELBO relative "
+          f"{HMM_ELBO_RTOL}, theta probabilities absolute {PROB_TOL})", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -1226,14 +1546,18 @@ def main():
                     bound_by=by, library_ms=None)
 
     perr = pixel_errs[M]
+    # launches over every path driven: phases 7, 8, 9, 10 and 12 (phase 11
+    # launches none; phase 13 compares the card with the CPU)
+    paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"])
+    total = {k: sum(r[k] for r in paths) for k in dl}
     kernels = [
-        entry("summed_fwd", 365, dl["summed_fwd"], errs["forward_nograd"]),
-        entry("summed_stats", 384, dl["summed_stats"],
+        entry("summed_fwd", 365, total["summed_fwd"], errs["forward_nograd"]),
+        entry("summed_stats", 384, total["summed_stats"],
               max(errs["forward"], errs["grad_concentration"])),
-        entry("pixel_fwd", 137, pl["pixel_fwd"], perr["forward_nograd"]),
-        entry("pixel_stats", 151, pl["pixel_stats"],
+        entry("pixel_fwd", 137, total["pixel_fwd"], perr["forward_nograd"]),
+        entry("pixel_stats", 151, total["pixel_stats"],
               max(perr["forward"], perr["grad_concentration"])),
-        entry("factored_stats", 520, fl["factored_stats"],
+        entry("factored_stats", 520, total["factored_stats"],
               max(fact_errs[k] for k in ("forward", "grad_base", "grad_deltas"))),
     ]
     print(smi)

@@ -36,8 +36,6 @@ AVAIL_MODELS = ["cosmos", "crosstalk", "cosmos+hmm"]
 # with the ROADMAP Queue A item that ports it
 NOT_PORTED = {
     "crosstalk": "the crosstalk model is not ported yet (ROADMAP Queue A item 5)",
-    "cosmos+hmm": "the cosmos+hmm model is not ported yet (ROADMAP Queue A item 4)",
-    "warm_start": "--warm-start/--no-warm-start is not ported yet (ROADMAP Queue A item 4)",
     "num_restarts": "--num-restarts is not ported yet (ROADMAP Queue A item 7)",
     "restart_iter": "--restart-iter is not ported yet (ROADMAP Queue A item 7)",
     "mesh": "--mesh is not ported yet (ROADMAP Queue A item 8)",
@@ -174,7 +172,7 @@ def _defaults(command, config):
             "learning_rate": config.get("learning-rate", 0.005),
             "frame_sampling": "random", "num_iter": 0, "k_max": 2,
             "matlab": bool(config.get("matlab", False)), "dtype": "float32",
-            "overwrite": True, "no_input": False,
+            "warm_start": None, "overwrite": True, "no_input": False,
         }
     return {
         "model": config.get("model", "cosmos"), "S": config.get("S", 1), "cpu": False,
@@ -227,7 +225,7 @@ def _make_prompter(given):
 def _refuse_unported(opts, given):
     if opts["model"] in NOT_PORTED:
         raise CliError(NOT_PORTED[opts["model"]])
-    for name in ("warm_start", "num_restarts", "restart_iter", "mesh", "profile"):
+    for name in ("num_restarts", "restart_iter", "mesh", "profile"):
         if name in given:
             raise CliError(NOT_PORTED[name])
 
@@ -245,6 +243,24 @@ def _make_model(model, S, k_max, cpu, dtype, priors):
 # ---------------------------------------------------------------------------
 # commands
 # ---------------------------------------------------------------------------
+
+
+def _warm_start(cd, model, asked):
+    """cosmos -> cosmos+hmm warm start: by default for a fresh hmm fit when
+    the workspace holds a cosmos fit; ``asked`` (``--warm-start``) requires
+    that fit and warm-starts a resumed hmm fit too."""
+    cosmos_ckpt = Path(cd) / ".tapqir" / "cosmos_model.tpqr"
+    if not cosmos_ckpt.exists():
+        if asked:
+            raise CliError(
+                f"--warm-start requires a cosmos fit in this workspace ({cosmos_ckpt} "
+                "not found); run `fit --model cosmos` first"
+            )
+        return
+    if model.iter == 0 or asked:
+        logger.info("Warm-starting cosmos+hmm from the cosmos fit (--no-warm-start "
+                    "to disable)")
+        model.warm_start_from_cosmos()
 
 
 def fit(cd, config, opts, given):
@@ -288,6 +304,8 @@ def fit(cd, config, opts, given):
     m.frame_sampling = opts["frame_sampling"]
     m.load(cd)
     m.init(opts["learning_rate"], opts["nbatch_size"], opts["fbatch_size"])
+    if opts["model"] == "cosmos+hmm" and opts["warm_start"] is not False:
+        _warm_start(cd, m, opts["warm_start"])
     m.run(opts["num_iter"])
     logger.info("Fitting the data: Done")
 

@@ -479,32 +479,20 @@ class cosmos(Model):
                                      lim, generator, p + size.shape),
         }
 
-    def _probs_batch(self, pc, ndx, fdx, data, num_particles, generator=None,
-                     draws=None):
-        """z and theta posterior marginals, (1+S, n, f, Q) and (K, n, f, Q),
-        for one block of AOIs ``ndx`` x frames ``fdx``, averaged over
-        ``num_particles`` guide samples (:meth:`_probs_draws`, from
-        ``generator``). The particles are one batched computation on a
-        leading particle axis. ``draws`` replaces the samples. Works on the
-        device and in the dtype of ``pc``."""
+    def _particle_tables(self, lamda, prox, xs, ys):
+        """The discrete tables of the posteriors for guide samples with a
+        leading particle axis p, on the device and in the dtype of ``xs``:
+        the config table (M, K), log p(theta | z) (1+S, 1+K), log p(m |
+        theta) summed over spots (p, M, 1+K, Q) and the spots' position
+        terms (p, M, 1+K, n, f, Q). ``lamda`` (p, Q), ``prox`` (p,), ``xs``
+        and ``ys`` (p, n, f, Q, K)."""
         K, P = self.K, self.data.P
         lim = (P + 1) / 2
-        dt, dev = pc["x_mean"].dtype, pc["x_mean"].device
+        dt, dev = xs.dtype, xs.device
         mtab = torch.as_tensor(m_configs(K), dtype=dt, device=dev)  # (M, K)
         lpt = log_probs_theta(K, self.S, dt, dev)  # (1+S, 1+K)
         spec_tk = torch.as_tensor(np.arange(1 + K)[:, None] == 1 + np.arange(K),
                                   device=dev)  # (1+K, K)
-        ont = data["is_ontarget"].index_select(0, ndx)
-        qm = self._block(pc["m_probs"], ndx, fdx)
-        if draws is None:
-            draws = self._probs_draws(pc, ndx, fdx, num_particles, generator)
-        pi, lamda, prox, xs, ys = (
-            torch.as_tensor(draws[k]).to(dtype=dt, device=dev)
-            for k in ("pi", "lamda", "proximity", "xs", "ys")
-        )
-
-        # log p(z): (p, n, Q, 1+S), off-target AOIs forced into z = 0
-        lpz = torch.movedim(safe_log(expand_offtarget(pi))[..., ont], -1, 1)
         lpm1, lpm0 = log_probs_m(lamda, K)  # (p, Q, 1+K, K)
         log_pm_sum = torch.einsum("mk,pqtk->pmtq", mtab, lpm1) + torch.einsum(
             "mk,pqtk->pmtq", 1.0 - mtab, lpm0
@@ -520,6 +508,29 @@ class cosmos(Model):
             spec_tk[:, None, None, None, :], lpxy_sp[:, None], lpxy_ns[:, None]
         )  # (p, 1+K, n, f, Q, K)
         term_xy = torch.einsum("mk,ptnfqk->pmtnfq", mtab, lpxy_t)
+        return mtab, lpt, log_pm_sum, term_xy
+
+    def _probs_batch(self, pc, ndx, fdx, data, num_particles, generator=None,
+                     draws=None):
+        """z and theta posterior marginals, (1+S, n, f, Q) and (K, n, f, Q),
+        for one block of AOIs ``ndx`` x frames ``fdx``, averaged over
+        ``num_particles`` guide samples (:meth:`_probs_draws`, from
+        ``generator``). The particles are one batched computation on a
+        leading particle axis. ``draws`` replaces the samples. Works on the
+        device and in the dtype of ``pc``."""
+        dt, dev = pc["x_mean"].dtype, pc["x_mean"].device
+        ont = data["is_ontarget"].index_select(0, ndx)
+        qm = self._block(pc["m_probs"], ndx, fdx)
+        if draws is None:
+            draws = self._probs_draws(pc, ndx, fdx, num_particles, generator)
+        pi, lamda, prox, xs, ys = (
+            torch.as_tensor(draws[k]).to(dtype=dt, device=dev)
+            for k in ("pi", "lamda", "proximity", "xs", "ys")
+        )
+        mtab, lpt, log_pm_sum, term_xy = self._particle_tables(lamda, prox, xs, ys)
+
+        # log p(z): (p, n, Q, 1+S), off-target AOIs forced into z = 0
+        lpz = torch.movedim(safe_log(expand_offtarget(pi))[..., ont], -1, 1)
         T_full = (
             lpz.permute(0, 3, 1, 2)[:, None, :, None, :, None, :]  # (p, 1, Z, 1, n, 1, Q)
             + lpt[None, None, :, :, None, None, None]  # (1, 1, Z, T, 1, 1, 1)
@@ -640,6 +651,10 @@ class cosmos(Model):
                 rate=p("gain_beta")),
             "pi": lambda: ci_from_scipy(
                 "dirichlet", CI, concentration=p("pi_mean") * p("pi_size")),
+            "init": lambda: ci_from_scipy(
+                "dirichlet", CI, concentration=p("init_mean") * p("init_size")),
+            "trans": lambda: ci_from_scipy(
+                "dirichlet", CI, concentration=p("trans_mean") * p("trans_size")),
             "lamda": lambda: ci_from_scipy(
                 "gamma", CI, concentration=p("lamda_loc") * p("lamda_beta"),
                 rate=p("lamda_beta")),

@@ -5,14 +5,17 @@ Parameters are a dict of unconstrained tensors; the optimizer is the JAX
 package's minibatch-sparse Adam in window space: only the subsampled AOI
 rows (and frames) of each parameter are read, stepped and written back,
 with per-row bias-correction step counts. The train loop is a plain Python
-loop over 200-step checkpoint chunks; losses stay on the device during a
-chunk and are checked once per chunk, so the host never waits on the card
-inside a chunk.
+loop over checkpoint chunks of ``checkpoint_interval`` steps (default 200);
+losses stay on the device during a chunk and are checked once per chunk, so
+the host never waits on the card inside a chunk.
 
 Retained reference behaviors:
 
-* checkpoint every 200 iterations with the rolling-window convergence test
+* a checkpoint after every chunk with the rolling-window convergence test
   std(last 100 ckpts) / std(last 50 ckpts) < 1.05 on -ELBO and conv_params;
+  with ``full_checkpoint_every = k`` only every k-th one (and the last, and
+  the one that converges) writes the full state, the others only check,
+  extend the rolling series and log the metrics;
 * non-finite loss or parameters -> reload the last checkpoint, reseed,
   continue, at most MAX_CONSECUTIVE_RESTARTS times in a row;
 * device out-of-memory -> CudaOutOfMemoryError with batch-size advice.
@@ -64,6 +67,10 @@ class Model:
     """
 
     name = "base"
+    # steps per chunk (one checkpoint each), and every how many checkpoints
+    # the full state is written; set on an instance to change them
+    checkpoint_interval = CHECKPOINT_INTERVAL
+    full_checkpoint_every = 1
 
     def __init__(
         self,
@@ -376,8 +383,13 @@ class Model:
             losses[i] = self._sparse_step(gen)
         return losses
 
-    def run(self, num_iter: int = 0) -> None:
-        """Run SVI until ``num_iter`` or convergence."""
+    def run(self, num_iter: int = 0, progress_bar=None) -> None:
+        """Run SVI until ``num_iter`` or convergence.
+
+        ``progress_bar`` is called once with ``range(num_iter)`` and the
+        iterable it returns is advanced chunk by chunk (a ``set_postfix``
+        method, as tqdm's, gets the -ELBO); without one, each checkpoint
+        logs its iteration and -ELBO at INFO."""
         use_crit = num_iter == 0
         if use_crit:
             num_iter = 100000
@@ -390,9 +402,13 @@ class Model:
         logger.debug(f"Frame batch size - {self.fbatch_size}")
 
         remaining = num_iter
+        pbar = progress_bar(range(num_iter)) if progress_bar is not None else None
+        pbar_iter = iter(pbar) if pbar is not None else None
         consecutive_failures = 0
+        full_every = max(1, int(self.full_checkpoint_every))
+        n_ckpts = 0
         while remaining > 0:
-            chunk = min(CHECKPOINT_INTERVAL, remaining)
+            chunk = min(self.checkpoint_interval, remaining)
             try:
                 try:
                     losses = self._run_chunk(chunk).cpu().numpy()  # one sync
@@ -405,9 +421,20 @@ class Model:
                 self.iter += chunk
                 remaining -= chunk
                 self.iter_loss = float(losses[-1])
-                self.save_checkpoint()
+                if pbar is None:
+                    logger.info(f"Iteration #{self.iter}: -ELBO {self.iter_loss:.1f}")
+                else:
+                    for _ in range(chunk):
+                        next(pbar_iter, None)
+                    if hasattr(pbar, "set_postfix"):
+                        pbar.set_postfix({"-ELBO": f"{self.iter_loss:.1f}"})
+                n_ckpts += 1
+                save_full = n_ckpts % full_every == 0 or remaining == 0
+                self.save_checkpoint(save_full=save_full)
                 consecutive_failures = 0
                 if use_crit and self.converged:
+                    if not save_full:
+                        self._write_checkpoint()
                     logger.info(f"Iteration #{self.iter} model converged.")
                     break
             except ValueError as err:
@@ -448,9 +475,12 @@ class Model:
                 names.append(name)
         return names
 
-    def save_checkpoint(self):
+    def save_checkpoint(self, save_full=True):
         """Checkpoint params + optimizer + convergence state; one device to
-        host transfer per array."""
+        host transfer per array. ``save_full=False`` runs only the finite
+        check, the rolling convergence series and the metrics log, and
+        writes no file (``Model.run`` passes it per
+        ``full_checkpoint_every``)."""
         with torch.no_grad():
             finite = torch.stack(
                 [torch.isfinite(v).all() for v in self.params.values()]
@@ -487,6 +517,14 @@ class Model:
             if crit:
                 self.converged = True
 
+        if save_full:
+            self._write_checkpoint()
+        self._log_metrics(small_h)
+        logger.debug(f"Iteration #{self.iter}: Successful.")
+
+    def _write_checkpoint(self):
+        """Write the parameters, the optimizer state, the seed and the
+        convergence state to ``.tapqir/<model>_model.tpqr``."""
         self.run_path.mkdir(parents=True, exist_ok=True)
         opt = self.opt_state
         flat = {}
@@ -506,8 +544,6 @@ class Model:
         with open(tmp, "wb") as f:
             np.savez(f, **flat)
         tmp.replace(self._checkpoint_path)
-        self._log_metrics(small_h)
-        logger.debug(f"Iteration #{self.iter}: Successful.")
 
     def _log_metrics(self, small_h):
         """Append scalar metrics to ``.tapqir/logs/<model>/metrics.csv``."""

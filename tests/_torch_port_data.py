@@ -1,6 +1,6 @@
-"""Shared inputs for the tests of the PyTorch port (tests/test_torch_*.py):
-small datasets and parameter points made with numpy from a seed, handed to
-both packages as numpy arrays."""
+"""Shared inputs and checks for the tests of the PyTorch port
+(tests/test_torch_*.py): small datasets and parameter points made with
+numpy from a seed, handed to both packages as numpy arrays."""
 
 import numpy as np
 
@@ -49,3 +49,21 @@ def perturbed_params(params_np, seed=1, scale=0.2):
         k: np.asarray(v, np.float64) + scale * rng.standard_normal(np.shape(v))
         for k, v in params_np.items()
     }
+
+
+def assert_close_scaled(got, want, what, rtol=1e-6):
+    """rtol, plus an absolute floor of rtol times the largest magnitude of
+    ``want``, for entries that are zero up to round-off."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    atol = rtol * max(np.abs(want).max(), 1e-300)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
+
+
+def counted(calls, side, fn):
+    """``fn`` that adds one to ``calls[side]`` per call."""
+
+    def wrapped(*args, **kwargs):
+        calls[side] += 1
+        return fn(*args, **kwargs)
+
+    return wrapped

@@ -202,14 +202,10 @@ def test_fit_prompts_for_options_not_given(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("command, extra, item", [
     ("fit", ["--model", "crosstalk"], 5),
-    ("fit", ["--model", "cosmos+hmm"], 4),
-    ("fit", ["--warm-start"], 4),
-    ("fit", ["--no-warm-start"], 4),
     ("fit", ["--num-restarts", "2"], 7),
     ("fit", ["--restart-iter", "100"], 7),
     ("fit", ["--mesh", "4x2"], 8),
     ("fit", ["--profile", "3"], 9),
-    ("stats", ["--model", "cosmos+hmm"], 4),
     ("stats", ["--mesh", "auto"], 8),
 ])
 def test_unported_models_and_options_exit_nonzero(tmp_path, caplog, command, extra, item):

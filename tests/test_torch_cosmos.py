@@ -17,7 +17,12 @@ import optax
 import pytest
 import torch
 
-from _torch_port_data import numpy_dataset, perturbed_params
+from _torch_port_data import (
+    assert_close_scaled,
+    counted,
+    numpy_dataset,
+    perturbed_params,
+)
 from tapqir_tpu.models import models as jax_models
 from tapqir_tpu.utils.dataset import CosmosDataset as JaxDataset
 from tapqir_tpu.utils.dataset import OffsetData as JaxOffset
@@ -31,20 +36,6 @@ WINDOW_SEED = 2  # a JAX key whose frame window wraps past the last frame
 # the module, not the class the package's __init__ binds to the same name
 jax_cosmos_module = importlib.import_module("tapqir_tpu.models.cosmos")
 port_cosmos_module = importlib.import_module("tapqir_tpu_torch.models.cosmos")
-
-
-def _counted(calls, side, fn):
-    def wrapped(*args, **kwargs):
-        calls[side] += 1
-        return fn(*args, **kwargs)
-
-    return wrapped
-
-
-def _close(got, want, what):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    atol = 1e-6 * max(np.abs(want).max(), 1e-300)
-    np.testing.assert_allclose(got, want, rtol=RTOL, atol=atol, err_msg=what)
 
 
 def _models(nbatch, fbatch, Nt=4, F=6, sampling="random"):
@@ -130,7 +121,7 @@ def test_elbo_and_window_gradients_match_jax(nbatch, fbatch, seed, sampling,
         jm.use_factored = tm.use_factored = True
         for side, mod in (("jax", jax_cosmos_module), ("port", port_cosmos_module)):
             monkeypatch.setattr(mod, "offset_gamma_factored_summed",
-                                _counted(calls, side, mod.offset_gamma_factored_summed))
+                                counted(calls, side, mod.offset_gamma_factored_summed))
     ndx_np, fidx_np, f, j_loss, draws, j_grads = _jax_loss_draws(
         jm, jax.random.PRNGKey(seed), monkeypatch, grad=True
     )
@@ -156,7 +147,7 @@ def test_elbo_and_window_gradients_match_jax(nbatch, fbatch, seed, sampling,
     assert calls == {"jax": int(factored), "port": int(factored)}
     assert set(t_win) == set(j_grads)
     for name, g in zip(t_win, t_grads):
-        _close(g.numpy(), j_grads[name], name)
+        assert_close_scaled(g.numpy(), j_grads[name], name)
 
 
 def test_sparse_adam_step_matches_jax(monkeypatch):
@@ -199,8 +190,8 @@ def test_sparse_adam_step_matches_jax(monkeypatch):
     np.testing.assert_allclose(float(t_loss), float(j_losses[0]), rtol=RTOL)
     j_adam = j_opt[0]
     for name in tm.params:
-        _close(tm.params[name].numpy(), j_params[name], f"param {name}")
-        _close(tm.opt_state["mu"][name].numpy(), j_adam.mu[name], f"mu {name}")
-        _close(tm.opt_state["nu"][name].numpy(), j_adam.nu[name], f"nu {name}")
+        assert_close_scaled(tm.params[name].numpy(), j_params[name], f"param {name}")
+        assert_close_scaled(tm.opt_state["mu"][name].numpy(), j_adam.mu[name], f"mu {name}")
+        assert_close_scaled(tm.opt_state["nu"][name].numpy(), j_adam.nu[name], f"nu {name}")
     for k, v in tm.opt_state["count"].items():
         np.testing.assert_array_equal(v.numpy(), np.asarray(j_adam.count[k]), err_msg=k)

@@ -32,6 +32,7 @@ def test_port_imports_without_jax_or_the_jax_package():
     mods = _port_modules()
     assert "tapqir_tpu_torch.models.cosmos" in mods
     assert "tapqir_tpu_torch.ops.offset_gamma" in mods
+    assert "tapqir_tpu_torch.ops.scan" in mods and "tapqir_tpu_torch.models.hmm" in mods
     assert "tapqir_tpu_torch.main" in mods and "tapqir_tpu_torch.utils.stats" in mods
     code = textwrap.dedent(
         f"""
@@ -64,12 +65,15 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     from tapqir_tpu_torch.utils.simulate import simulate
 
     assert resolve_device("cpu").type == "cpu"
-    assert models["cosmos"](device="cpu").device.type == "cpu"
+    for name in ("cosmos", "cosmos+hmm"):
+        assert models[name](device="cpu").device.type == "cpu"
+        if torch.cuda.is_available():
+            assert models[name]().device == torch.device("cuda:0")
+            continue
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            models[name]()
     if torch.cuda.is_available():
-        assert models["cosmos"]().device == torch.device("cuda:0")
         return
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        models["cosmos"]()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         simulate("cosmos", N=2, F=2, params={"pi": 0.1})
 

@@ -243,3 +243,47 @@ def test_recovery_script_rehearsal_on_cpu(capsys):
     assert len(out["bounds"]) == 5
     assert all(np.isfinite(v) for v in out["values"].values())
     assert out["fit_seconds"] > 0 and out["steps_per_s"] > 0
+
+
+def test_chip_smoke_hmm_phases_tiny_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phases 12-13 at a tiny size on the CPU: after the
+    cosmos fit, the command line's fit and its stats (phases 7, 10, 11),
+    the command line's hmm fit warm-starts from them and ends in the stats,
+    and the hmm ELBO and a theta block in float32 agree with float64."""
+    monkeypatch.setenv("CI", "true")  # no rastergram
+    cs = _chip_smoke()
+    res = cs.run_main_path(tmp_path, Nt=8, F=12, P=14, J=7, nbatch=4, fbatch=8,
+                           num_iter=6, device="cpu", n_chunk=2)
+    cs.check_main_path(res, 6)
+    fit = cs.run_cli_fit(tmp_path, nbatch=4, fbatch=8, num_iter=2, device="cpu")
+    cs.check_cli_fit(fit, 2, device="cpu")
+    cs.check_cli_stats(cs.run_cli_stats(tmp_path, device="cpu"), fit)
+
+    hmm = cs.run_cli_hmm_fit(tmp_path, nbatch=4, num_iter=4, device="cpu")
+    checks = cs.check_cli_hmm_fit(hmm, 4, device="cpu")
+    assert hmm["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert hmm["nb"] == set() and hmm["run_seconds"] > 0
+    assert checks["warm_start_max_abs_err"] <= cs.WARM_TOL
+    model = hmm["model"]
+    assert model.iter == 4 and model.dtype == torch.float32
+    assert set(model.stats_seconds) == {
+        "probabilities", "credible_intervals", "snr_chi2", "files"}
+    assert (tmp_path / "cosmos+hmm_params.tpqr").exists()
+    card = cs.check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=4, num_particles=5)
+    assert card["elbo_images"] == 2 * 12 and card["theta_block"] == [4, 12]
+    assert card["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert card["elbo_card_vs_cpu_rel_err"] <= cs.HMM_ELBO_RTOL
+
+
+def test_recovery_script_hmm_rehearsal_on_cpu(capsys):
+    """scripts/recovery_torch.py --model cosmos+hmm for 3 steps on the CPU:
+    the bounds of check_hmm (kon, koff in place of pi) on N=12, F=80."""
+    rec = _script("recovery_torch", ROOT / "scripts" / "recovery_torch.py")
+    assert rec.CONFIGS["cosmos+hmm"][1:] == (12, 80, 16000)
+    rc = rec.main("cosmos+hmm", iters=3, device="cpu")
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == (0 if out["ok"] else 1)
+    assert out["model"] == "cosmos+hmm" and out["iters"] == 3
+    assert set(out["values"]) == {"gain", "proximity", "lamda", "kon", "koff", "mcc"}
+    assert len(out["bounds"]) == 6
+    assert all(np.isfinite(v) for v in out["values"].values())
