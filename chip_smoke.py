@@ -64,15 +64,36 @@ one. Phases, each printing its findings; any failure is an exception:
 13. the hmm model on the card against the CPU (:func:`check_hmm_card_vs_cpu`):
     the ELBO of one batch in float32 against float64 with the same draws,
     the factored likelihood against the dense one, and one
-    ``_compute_theta_probs`` block.
-Phase 3 also checks the summed kernel at nb = 7900 and phase 6 times it
-there. The kernels' launch counts are set to 0 just before each of the
-paths 7-12 and read just after it. Phases 10-12 print their stats' seconds
-by stage and their peak device memory; every phase prints its wall time at
-the end.
+    ``_compute_theta_probs`` block;
+14. crosstalk through the command line: an eLife-scale two-dye dataset
+    (Nt=856, F=790, C=2, the JAX package's crosstalk truth alpha = [[0.85,
+    0.15], [0.1, 0.9]]) simulated and saved in a workspace of its own, then
+    ``fit --model crosstalk -n 10 -f 512 -it 200 --no-input`` in process
+    (200 `summed_stats` launches at M=16 over nb = 10x512x2 = 10240 images,
+    two held-out `summed_fwd` there, then the stats, with the checks of
+    :func:`check_cli_crosstalk_fit`), then 200 ``use_factored`` steps
+    through ``Model.run`` (200 `factored_stats` launches at Kf=4), and a
+    ``torch.profiler`` count of launches per step for both routes;
+15. the crosstalk model on the card against the CPU
+    (:func:`check_crosstalk_card_vs_cpu`): the ELBO of 2 AOIs x 128 frames
+    in float32 against float64 with the same draws and the factored route
+    against the dense one, then ``_probs_batch`` and ``snr_and_chi2`` as in
+    phase 11;
+16. the kinetics commands in process: ``ttfb --model cosmos`` on phases
+    10-11's fit and ``dwelltime --model cosmos+hmm -K 1`` on phase 12's, at
+    their default samples and iterations, each MLE fit's first rows (16, or
+    as many as hold 32768 values) fitted again in float64 on the CPU
+    (:func:`run_kinetics`, :func:`check_kinetics`).
+Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
+phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
+there, with the special-function floor of the exact evaluation beside that
+of the logs the kernels issue at M=16 (one per chunk of 4 configs). The
+kernels' launch counts are set to 0 just before each of the paths 7-16 and
+read just after it. Phases 10-16 print their seconds (stats: by stage) and
+their peak device memory; every phase prints its wall time at the end.
 
 The second-to-last line is a JSON object with one entry per kernel, its
-launches summed over the paths 7-12; the last line is {"ok": true,
+launches summed over the paths 7-16; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -81,6 +102,7 @@ import importlib
 import json
 import logging
 import math
+import resource
 import subprocess
 import sys
 import tempfile
@@ -98,6 +120,9 @@ SIM_PARAMS = {
     "pi": 0.15, "width": 1.4, "gain": 7.0, "lamda": 0.15,
     "proximity": 0.2, "offset": 90.0, "height": 3000, "background": 150,
 }
+# the truth of the JAX package's eLife-scale crosstalk run
+# (docs/elife_scale_run_multimodel.md): two dyes bleeding into two channels
+XTALK_PARAMS = {**SIM_PARAMS, "alpha": [[0.85, 0.15], [0.1, 0.9]]}
 # H100 SXM published peaks: HBM3 bandwidth and dense FP32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
@@ -106,6 +131,7 @@ PEAK_FP32_PER_S = 67e12
 # card's maximum SM clock of 1980 MHz (nvidia-smi clocks.max.sm)
 PEAK_MUFU_PER_S = 16 * 132 * 1.98e9
 KERNEL_SOURCE = "tapqir_tpu_torch/csrc/offset_gamma.cu"
+KERNEL_CHUNK = 4  # configs per register chunk of the summed-template kernels (kChunk)
 PALLAS_SOURCE = "tapqir_tpu/ops/offset_gamma.py"
 # tolerances of tests/test_pallas.py, float32 kernel against the plain
 # version in float64 on the same inputs
@@ -117,6 +143,10 @@ PIXEL_GRAD_TOL = dict(rtol=2e-3, atol=1e-3)  # per-pixel gradient
 FACT_FWD_TOL = dict(rtol=3e-5, atol=1e-2)  # factored forward
 FACT_GRAD_TOL = dict(rtol=2e-3, atol=2e-3)  # factored base, delta, rate gradients
 F64_TOL = dict(rtol=1e-9, atol=1e-9)
+# the crosstalk step's kernel shapes: K = 2 spots of Q = 2 dyes give
+# 2^(K*Q) = 16 configs (Kf = Q*K = 4 factors) over 10 AOIs x 512 frames x
+# C = 2 channels
+XT_M, XT_KF, XT_NB = 16, 4, 10 * 512 * 2
 F64_GRAD_TOL = dict(rtol=1e-6, atol=1e-6)  # Stirling digamma: < 7e-8 absolute
 
 
@@ -164,9 +194,10 @@ def _apply_variant(variant, rng, x, g, w, ev):
     return g, w
 
 
-def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8):
-    """Simulated cosmos dataset in AOI chunks (each half on-target), with a
-    J-bin offset histogram. The on-target AOIs of every chunk come first, as
+def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8, params=SIM_PARAMS):
+    """Simulated dataset in AOI chunks (each half on-target), with a J-bin
+    offset histogram: cosmos, or crosstalk where ``params`` holds ``alpha``
+    (C dyes in C channels). The on-target AOIs of every chunk come first, as
     the dataset layout requires (the posteriors evaluate the first N AOIs),
     and the chunks' ground-truth labels are carried along with their AOI
     indices offset per chunk."""
@@ -174,9 +205,9 @@ def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8):
     from tapqir_tpu_torch.utils.simulate import simulate
 
     per = Nt // n_chunk
+    kind = "crosstalk" if "alpha" in params else "cosmos"
     chunks = [
-        simulate("cosmos", N=per, F=F, C=C, P=P, seed=i, params=SIM_PARAMS,
-                 device=device)
+        simulate(kind, N=per, F=F, C=C, P=P, seed=i, params=params, device=device)
         for i in range(n_chunk)
     ]
 
@@ -198,7 +229,7 @@ def make_dataset(Nt, F, C=1, P=14, J=61, device="cuda", n_chunk=8):
         is_ontarget=cat("is_ontarget"),
         labels=np.concatenate(labels),
         offset=OffsetData(centers, w),
-        name="chip-smoke-elife-scale",
+        name=f"chip-smoke-elife-scale-{kind}",
     )
 
 
@@ -220,13 +251,14 @@ def _read_launches():
     return {name: launcher.launches for name, launcher in og.LAUNCHERS.items()}
 
 
-def prepare_dataset(workdir, Nt=856, F=790, P=14, J=61, device="cuda", n_chunk=8):
-    """Simulate the cosmos dataset and save it as ``workdir/data.tpqr``;
-    returns the seconds each took."""
+def prepare_dataset(workdir, Nt=856, F=790, P=14, J=61, device="cuda", n_chunk=8, C=1,
+                    params=SIM_PARAMS):
+    """Simulate the dataset of :func:`make_dataset` and save it as
+    ``workdir/data.tpqr``; returns the seconds each took."""
     from tapqir_tpu_torch.utils.dataset import save
 
     t0 = time.perf_counter()
-    data = make_dataset(Nt, F, P=P, J=J, device=device, n_chunk=n_chunk)
+    data = make_dataset(Nt, F, C=C, P=P, J=J, device=device, n_chunk=n_chunk, params=params)
     t1 = time.perf_counter()
     save(data, workdir)
     return {"simulate_seconds": t1 - t0, "save_seconds": time.perf_counter() - t1}
@@ -590,7 +622,7 @@ WARM_TOL = 1e-5 + 1e-5
 HMM_ELBO_RTOL = 1e-4
 
 
-def _held_out_hmm(model):
+def held_out_loss(model):
     """-ELBO of one fixed batch and fixed draws, without gradient."""
     gen = torch.Generator(device=model.device)
     gen.manual_seed(12345)
@@ -605,14 +637,12 @@ def run_cli_hmm_fit(workdir, nbatch=10, num_iter=200, device="cuda"):
     and ends in ``compute_stats``. Adds to :func:`run_cli`'s result the
     chain marginals right after the warm start (before any step) beside
     the cosmos z_probs they start from, a held-out -ELBO after the warm
-    start and after the fit, the fit's seconds, and the image count of every
-    summed-kernel launch (``(statistics?, nb)``)."""
-    from tapqir_tpu_torch.ops import offset_gamma as og
-
+    start and after the fit, the fit's seconds, and the shapes of every
+    kernel launch."""
     workdir = Path(workdir)
     with np.load(workdir / "cosmos_params.tpqr") as z:
         cosmos_z = z["z_probs"]
-    seen = {"nb": set()}
+    seen = {}
 
     def setup(model):
         warm, run = model.warm_start_from_cosmos, model.run
@@ -621,7 +651,7 @@ def run_cli_hmm_fit(workdir, nbatch=10, num_iter=200, device="cuda"):
             out = warm(*args, **kwargs)
             seen["warm_z"] = model.z_probs
             del model._z_probs_cache
-            seen["held_out_before"] = _held_out_hmm(model)
+            seen["held_out_before"] = held_out_loss(model)
             return out
 
         def timed_run(num_iter, progress_bar=None):
@@ -631,23 +661,14 @@ def run_cli_hmm_fit(workdir, nbatch=10, num_iter=200, device="cuda"):
             run(num_iter, progress_bar)
             _sync(device)
             seen["run_seconds"] = time.perf_counter() - t0
-            seen["held_out_after"] = _held_out_hmm(model)
+            seen["held_out_after"] = held_out_loss(model)
 
         model.warm_start_from_cosmos, model.run = warm_start, timed_run
 
-    call = og._SummedLauncher.__call__
-
-    def recording(self, x2, *args):
-        seen["nb"].add((self.stats, int(x2.shape[0])))
-        return call(self, x2, *args)
-
-    og._SummedLauncher.__call__ = recording
-    try:
+    with record_kernel_shapes() as rec:
         res = run_cli(workdir, ["fit", "--model", "cosmos+hmm", "-n", str(nbatch), "-it",
                                 str(num_iter), "--no-input"], device, setup)
-    finally:
-        og._SummedLauncher.__call__ = call
-    res.update(seen, cosmos_z=cosmos_z)
+    res.update(seen, cosmos_z=cosmos_z, shapes=rec.shapes)
     return res
 
 
@@ -671,11 +692,12 @@ def check_cli_hmm_fit(res, num_iter, device="cuda"):
     if res["iter_before"] != 0 or m.iter != num_iter:
         raise RuntimeError(f"CLI hmm fit: iteration {res['iter_before']} -> {m.iter}")
     N, F, n = m.data.N, m.data.F, m.nbatch_size
+    M = 1 << m.K
     want = dict.fromkeys(res["launches"], 0)
     if m.device.type == "cuda":
         want.update(summed_stats=num_iter, summed_fwd=2)
-        if res["nb"] != {(True, n * F), (False, n * F)}:
-            raise RuntimeError(f"CLI hmm fit: summed launches at (stats, nb) {res['nb']}")
+        if res["shapes"] != {("summed_stats", M, n * F), ("summed_fwd", M, n * F)}:
+            raise RuntimeError(f"CLI hmm fit: launches at {res['shapes']}")
     if res["launches"] != want:
         raise RuntimeError(f"CLI hmm fit: kernel launches {res['launches']}, expected {want}")
     warm_err = float(np.abs(res["warm_z"][:N] - res["cosmos_z"][:N]).max())
@@ -723,8 +745,8 @@ def check_cli_hmm_fit(res, num_iter, device="cuda"):
     }
 
 
-def profile_hmm_steps(model, n_prof=3):
-    """Device launches per hmm step and the device's busy share, from a
+def profile_steps(model, n_prof=3):
+    """Device launches per step and the device's busy share, from a
     ``torch.profiler`` trace of ``n_prof`` steps (as
     ``scripts/profile_torch_step.py`` counts them); the steps move the
     model's parameters."""
@@ -831,6 +853,365 @@ def check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=10, num_particles=50):
         "theta_block_max_abs_err": err_theta, "elbo_images": n_elbo * F,
         "theta_block": [int(bdx.numel()), F], "launches": launches,
     }
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the crosstalk model and the kinetics commands
+# ---------------------------------------------------------------------------
+
+# the crosstalk ELBO (float32 sums of ~1e5 terms, the image terms within the
+# summed kernel's rtol 3e-5) on the card against float64 on the CPU, and
+# the factored kernel against the dense one: relative
+XTALK_ELBO_RTOL = 1e-4
+# the kinetics fits (float64 Adam) on the card against the CPU: relative
+MLE_RTOL = 1e-4
+
+
+class record_kernel_shapes:
+    """Within the block, the set ``shapes`` of (kernel, configs, images)
+    of every summed and factored launch, the factored ones as
+    ("factored_stats", Kf, configs, images)."""
+
+    def __enter__(self):
+        from tapqir_tpu_torch.ops import offset_gamma as og
+
+        self.shapes = set()
+        self._calls = (og._SummedLauncher.__call__, og._FactoredLauncher.__call__)
+        summed, factored = self._calls
+        shapes = self.shapes
+
+        def summed_rec(launcher, x2, a3, *args):
+            kind = "summed_stats" if launcher.stats else "summed_fwd"
+            shapes.add((kind, int(a3.shape[0]), int(x2.shape[0])))
+            return summed(launcher, x2, a3, *args)
+
+        def factored_rec(launcher, x2, base, deltas, masks, *args):
+            shapes.add(("factored_stats", int(deltas.shape[0]), len(masks), int(x2.shape[0])))
+            return factored(launcher, x2, base, deltas, masks, *args)
+
+        og._SummedLauncher.__call__ = summed_rec
+        og._FactoredLauncher.__call__ = factored_rec
+        return self
+
+    def __exit__(self, *exc):
+        from tapqir_tpu_torch.ops import offset_gamma as og
+
+        og._SummedLauncher.__call__, og._FactoredLauncher.__call__ = self._calls
+
+
+def run_cli_crosstalk_fit(workdir, nbatch=10, fbatch=512, num_iter=200, device="cuda"):
+    """Phase 14's command: ``fit --model crosstalk -n nbatch -f fbatch -it
+    num_iter --no-input`` on a fresh crosstalk workspace; the command fits
+    and ends in ``compute_stats``. Adds to :func:`run_cli`'s result the
+    fit's seconds, a held-out -ELBO before and after the steps (one fixed
+    batch and fixed draws, without gradient) and the shapes of every kernel
+    launch."""
+    seen = {}
+
+    def setup(model):
+        run = model.run
+
+        def timed_run(num_iter, progress_bar=None):
+            del model.run  # the command's run only: later runs are the class's
+            seen["iter_before"] = model.iter
+            seen["held_out_before"] = held_out_loss(model)
+            _sync(device)
+            t0 = time.perf_counter()
+            run(num_iter, progress_bar)
+            _sync(device)
+            seen["run_seconds"] = time.perf_counter() - t0
+            seen["held_out_after"] = held_out_loss(model)
+
+        model.run = timed_run
+
+    with record_kernel_shapes() as rec:
+        res = run_cli(workdir, ["fit", "--model", "crosstalk", "-n", str(nbatch), "-f",
+                                str(fbatch), "-it", str(num_iter), "--no-input"], device,
+                      setup)
+    res.update(seen, shapes=rec.shapes)
+    return res
+
+
+def check_cli_crosstalk_fit(res, num_iter, device="cuda"):
+    """Raise unless phase 14's command exited 0 on ``device``, stepped 0 ->
+    ``num_iter`` with one summed-statistics launch per step at M = 16 over
+    nb = n·f·C images (and the two held-out losses' forward launches there,
+    nothing else), and its stats hold: z_probs normalised for both dyes and
+    0 off target, theta_probs summing to at most 1, alpha on the simplex,
+    every LL <= Mean <= UL and finite (alpha's included), SNR and chi2
+    finite for both channels, a summary with alpha, SNR_0 and SNR_1. Returns
+    the numbers checked."""
+    m = res["model"]
+    if res["code"] != 0 or m is None or m.name != "crosstalk":
+        raise RuntimeError(f"CLI crosstalk fit exited with {res['code']}")
+    if m.device.type != torch.device(device).type:
+        raise RuntimeError(f"CLI crosstalk fit ran on {m.device}, not on {device}")
+    if res["iter_before"] != 0 or m.iter != num_iter:
+        raise RuntimeError(f"CLI crosstalk fit: iteration {res['iter_before']} -> {m.iter}")
+    N, C = m.data.N, m.data.C
+    M, nb = 1 << (m.K * m.Q), m.nbatch_size * m.fbatch_size * C
+    want = dict.fromkeys(res["launches"], 0)
+    if m.device.type == "cuda":
+        want.update(summed_stats=num_iter, summed_fwd=2)
+        if res["shapes"] != {("summed_stats", M, nb), ("summed_fwd", M, nb)}:
+            raise RuntimeError(f"CLI crosstalk fit: launches at {res['shapes']}")
+    if res["launches"] != want:
+        raise RuntimeError(f"CLI crosstalk fit: launches {res['launches']}, expected {want}")
+    for k in ("held_out_before", "held_out_after"):
+        if not math.isfinite(res[k]):
+            raise RuntimeError(f"CLI crosstalk fit: non-finite {k}")
+    for f in ("crosstalk_params.tpqr", "crosstalk_summary.csv"):
+        if not (m.path / f).exists():
+            raise RuntimeError(f"CLI crosstalk fit did not write {f}")
+    ps = m.params_stats
+    z, th = ps["z_probs"], ps["theta_probs"]
+    if z.shape[-2:] != (m.Q, 1 + m.S) or m.Q != C:
+        raise RuntimeError(f"crosstalk z_probs of shape {z.shape}")
+    z_sum_err = float(np.abs(z[:N].sum(-1) - 1.0).max())
+    if z_sum_err > 1e-5 or z[N:].any() or th[:, N:].any():
+        raise RuntimeError(f"crosstalk z_probs: sum error {z_sum_err} or nonzero off target")
+    th_max = float(th.sum(0).max())
+    if th_max > 1.0 + 1e-5:
+        raise RuntimeError(f"crosstalk theta_probs sum over spots up to {th_max}")
+    alpha = m.param("alpha_mean")
+    simplex_err = float(np.abs(alpha.sum(-1) - 1.0).max())
+    if simplex_err > 1e-5 or not ((alpha >= 0) & (alpha <= 1)).all():
+        raise RuntimeError(f"alpha_mean {alpha.tolist()} off the simplex")
+    if m.ci_params[0] != "alpha" or ps["alpha"]["Mean"].shape != (m.Q, C):
+        raise RuntimeError("crosstalk stats lack the alpha intervals")
+    _check_intervals_and_snr(m, ps)
+    summary = m.summary
+    for row in ("alpha", "SNR_0", "SNR_1", "MCC"):
+        if row not in summary:
+            raise RuntimeError(f"crosstalk summary lacks {row}")
+    return {
+        "z_sum_max_abs_err": z_sum_err,
+        "theta_sum_max": th_max,
+        "alpha_simplex_max_abs_err": simplex_err,
+        "held_out_before": res["held_out_before"],
+        "held_out_after": res["held_out_after"],
+        "alpha": summary["alpha"]["Mean"],
+        "alpha_95_LL": summary["alpha"]["95% LL"],
+        "alpha_95_UL": summary["alpha"]["95% UL"],
+        "gain": summary["gain"]["Mean"],
+        "proximity": summary["proximity"]["Mean"],
+        "SNR": [summary["SNR_0"]["Mean"], summary["SNR_1"]["Mean"]],
+        "MCC": summary["MCC"]["Mean"],
+    }
+
+
+def run_crosstalk_factored(model, num_iter=200):
+    """Phase 14's second route: ``num_iter`` more steps of the command's
+    model through ``Model.run`` with ``use_factored = True``, the launch
+    counts set to 0 just before and read just after. Returns the seconds,
+    steps/s, launches, their shapes and the peak device memory."""
+    device = model.device
+    cuda = device.type == "cuda"
+    model.use_factored = True
+    try:
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        with record_kernel_shapes() as rec:
+            _reset_launches()
+            _sync(device)
+            t0 = time.perf_counter()
+            model.run(num_iter)
+            _sync(device)
+            seconds = time.perf_counter() - t0
+            launches = _read_launches()
+    finally:
+        model.use_factored = False
+    return {"seconds": seconds, "steps_per_s": num_iter / seconds, "launches": launches,
+            "shapes": rec.shapes, "iter": model.iter,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}
+
+
+def check_crosstalk_factored(res, model, num_iter):
+    """Raise unless the factored route took its steps with exactly one
+    factored launch each at Kf = Q·K, M = 2^Kf over n·f·C images."""
+    Kf = model.K * model.Q
+    nb = model.nbatch_size * model.fbatch_size * model.data.C
+    want = dict.fromkeys(res["launches"], 0)
+    if model.device.type == "cuda":
+        want["factored_stats"] = num_iter
+        if res["shapes"] != {("factored_stats", Kf, 1 << Kf, nb)}:
+            raise RuntimeError(f"crosstalk factored: launches at {res['shapes']}")
+    if res["launches"] != want:
+        raise RuntimeError(f"crosstalk factored: launches {res['launches']}, expected {want}")
+
+
+def check_crosstalk_card_vs_cpu(model, n_aoi=2, n_frames=128):
+    """Phase 15, on AOIs 0..n_aoi-1 x frames 0..n_frames-1 with the same
+    draws (recorded through the ELBO's draw seam): the crosstalk ELBO on the
+    model's device in its dtype against float64 on the CPU, and the factored
+    likelihood against the dense one on the device (both within
+    XTALK_ELBO_RTOL). The batch is smaller than a step's because the CPU's
+    plain version holds (16 configs, images, 256 lanes, 61 bins) float64
+    intermediates. Returns the differences and the launches of the
+    device-side evaluations."""
+    from tapqir_tpu_torch.models import models
+
+    # the module (the package binds the class to the same name)
+    cosmos_module = importlib.import_module("tapqir_tpu_torch.models.cosmos")
+
+    dev = model.device
+    ndx = torch.arange(n_aoi, device=dev)
+    fidx = torch.arange(n_frames, device=dev)
+    win = {k: v.detach() for k, v in model.gather_windows(model.params, ndx, fidx).items()}
+    recorded = []
+    packed = cosmos_module.std_gamma_sample_packed
+
+    def recording(concs, generator=None, draws=None):
+        out = packed(concs, generator, draws)
+        recorded.append(torch.cat([g.reshape(-1) for g in out]))
+        return out
+
+    _reset_launches()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    cosmos_module.std_gamma_sample_packed = recording
+    try:
+        with torch.no_grad():
+            elbo_dense = float(model.elbo_from_windows(win, gen, ndx, fidx, n_frames,
+                                                       model._data_dev))
+    finally:
+        cosmos_module.std_gamma_sample_packed = packed
+    draws = recorded[0]
+    model.use_factored = True
+    try:
+        with torch.no_grad():
+            elbo_fact = float(model.elbo_from_windows(win, None, ndx, fidx, n_frames,
+                                                      model._data_dev, draws=draws))
+    finally:
+        model.use_factored = False
+    _sync(dev)
+    launches = _read_launches()
+
+    def cpu64(t):
+        return t.detach().to("cpu", torch.float64)
+
+    cpu = models["crosstalk"](S=model.S, K=model.K, device="cpu", dtype="double",
+                              priors=model.priors)
+    cpu.data, cpu._transforms = model.data, model._transforms
+    cpu._build_constants()
+    per_aoi = ("images", "xy", "is_ontarget", "mask")
+    data = {k: (v[:n_aoi] if k in per_aoi else v).cpu() for k, v in model._data_dev.items()}
+    data = {k: v if k == "is_ontarget" else v.double() for k, v in data.items()}
+    with torch.no_grad():
+        elbo_cpu = float(cpu.elbo_from_windows(
+            {k: cpu64(v) for k, v in win.items()}, None, torch.arange(n_aoi),
+            torch.arange(n_frames), n_frames, data, draws=cpu64(draws)))
+    err_card = abs(elbo_dense - elbo_cpu) / abs(elbo_cpu)
+    err_fact = abs(elbo_fact - elbo_dense) / abs(elbo_dense)
+    if not (err_card <= XTALK_ELBO_RTOL and err_fact <= XTALK_ELBO_RTOL):
+        raise RuntimeError(f"crosstalk ELBO: card vs CPU {err_card}, factored vs dense "
+                           f"{err_fact} (relative) > {XTALK_ELBO_RTOL}")
+    return {
+        "elbo_card": elbo_dense, "elbo_cpu_f64": elbo_cpu, "elbo_factored": elbo_fact,
+        "elbo_card_vs_cpu_rel_err": err_card, "elbo_factored_vs_dense_rel_err": err_fact,
+        "elbo_images": n_aoi * n_frames * model.data.C, "launches": launches,
+    }
+
+
+def run_kinetics(workdir, argv, device="cuda", cpu_rows=16, cpu_elems=1 << 15):
+    """Phase 16: the kinetics command ``argv`` (``ttfb ...`` or ``dwelltime
+    ...``) in process on ``workdir`` through :func:`run_cli`, recording its
+    MLE fits, then each fit's first posterior samples fitted again in
+    float64 on the CPU with the same data and steps (rows are independent
+    fits): ``cpu_rows`` rows, fewer where a row holds more than
+    ``cpu_elems`` / ``cpu_rows`` values (a dwell-time row of an early fit
+    holds ~66,000 intervals), at least one. Adds the seconds of the z draws
+    and of the fits, the largest relative difference card vs CPU, and the
+    files written."""
+    from tapqir_tpu_torch.utils import mle_analysis
+
+    fits, times = [], {"z_sample": 0.0, "mle": 0.0}
+    mle_fns = {name: getattr(mle_analysis, name) for name in ("ttfb_mle", "exp_mle")}
+
+    def recorded(name):
+        def fit(data, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = mle_fns[name](data, *args, **kwargs)
+            times["mle"] += time.perf_counter() - t0
+            fits.append((name, np.asarray(data), args, kwargs, out))
+            return out
+
+        return fit
+
+    def setup(model):
+        draw = model.z_sample
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = draw(*args, **kwargs)
+            times["z_sample"] += time.perf_counter() - t0
+            times["z_samples_shape"] = list(out.shape)
+            return out
+
+        model.z_sample = timed
+
+    for name in mle_fns:
+        setattr(mle_analysis, name, recorded(name))
+    try:
+        res = run_cli(workdir, argv, device, setup)
+    finally:
+        for name, fn in mle_fns.items():
+            setattr(mle_analysis, name, fn)
+
+    t0 = time.perf_counter()
+    rel = 0.0
+    refit_rows = []
+    for name, data, args, kwargs, out in fits:
+        rows = max(1, min(cpu_rows, cpu_elems // data.shape[1]))
+        refit_rows.append(rows)
+        cpu = mle_fns[name](data[:rows], *args, **{**kwargs, "device": "cpu"})
+        for k, v in out.items():
+            if k == "losses":
+                continue
+            got, want = np.asarray(v)[:rows], np.asarray(cpu[k])
+            if not np.isfinite(got).all():
+                raise RuntimeError(f"{argv[0]}: non-finite {k}")
+            rel = max(rel, float((np.abs(got - want) / np.abs(want)).max()))
+    res.update(times, fits=[(f[0], list(f[1].shape)) for f in fits], mle_rel_err=rel,
+               cpu_refit_rows=refit_rows,
+               host_max_rss_gib=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20,
+               cpu_refit_seconds=time.perf_counter() - t0, files=sorted(
+                   p.name for p in Path(workdir).iterdir() if argv[0] in p.name))
+    return res
+
+
+def check_kinetics(res, name, C, n_fits, device="cuda"):
+    """Raise unless the kinetics command exited 0 on ``device``, ran
+    ``n_fits`` fits, launched no kernel, its fits on the device agree with
+    float64 on the CPU within MLE_RTOL, and its parameter tables hold finite
+    numbers with LL <= Mean <= UL for each of the C channels."""
+    from tapqir_tpu_torch.utils.stats import read_summary
+
+    m = res["model"]
+    if res["code"] != 0 or m is None:
+        raise RuntimeError(f"{name} exited with {res['code']}")
+    if m.device.type != torch.device(device).type:
+        raise RuntimeError(f"{name} ran on {m.device}, not on {device}")
+    if any(res["launches"].values()):
+        raise RuntimeError(f"{name} launched kernels: {res['launches']}")
+    if len(res["fits"]) != n_fits:
+        raise RuntimeError(f"{name}: {len(res['fits'])} fits, expected {n_fits}")
+    if not res["mle_rel_err"] <= MLE_RTOL:
+        raise RuntimeError(f"{name}: card vs CPU fits differ by {res['mle_rel_err']} "
+                           f"(relative) > {MLE_RTOL}")
+    tables = {}
+    kinds = (("params",) if name == "ttfb" else ("kon", "koff"))
+    for c in range(C):
+        for kind in kinds:
+            path = m.path / f"{m.name}_{name}-{kind}-channel{c}.csv"
+            rows = read_summary(path)
+            for row, cells in rows.items():
+                mean, ll, ul = (cells[k] for k in ("Mean", "95% LL", "95% UL"))
+                if not (all(map(math.isfinite, (mean, ll, ul))) and ll <= mean <= ul):
+                    raise RuntimeError(f"{path.name} {row}: {cells}")
+            tables[f"{kind}-channel{c}"] = {r: v["Mean"] for r, v in rows.items()}
+    return tables
+
 
 
 def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
@@ -966,6 +1347,20 @@ def _check_repeat(label, launcher, *args):
         raise RuntimeError(f"{label}: two launches on the same inputs differ")
 
 
+# elements (configs x images x pixels x bins) of one piece of the plain
+# version: its float64 intermediates at M=16, nb=10240, J=61 would take
+# tens of GB at once, so the comparisons run it over pieces of images
+PLAIN_ELEMS = 1 << 27
+
+
+def _plain_chunks(keep, per_image):
+    """The indices of the images ``keep`` selects, in pieces of at most
+    PLAIN_ELEMS / ``per_image`` images."""
+    idx = keep.nonzero().flatten()
+    step = max(1, PLAIN_ELEMS // per_image)
+    return [idx[i:i + step] for i in range(0, idx.numel(), step)]
+
+
 def _check_below(outs, sel):
     for o in outs:
         v = o[sel]
@@ -1007,13 +1402,18 @@ def compare(M, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol, below=False,
     # itself is of the order of the gradient tolerance. Images left out of
     # the comparison (below every bin) are left out of the plain version.
     def plain(dt):
-        a_p = a[:, keep, :ev].to(dt).requires_grad_(True)
         r_p = rate.to(dt).requires_grad_(True)
-        out_p = og.offset_gamma_summed_plain(
-            x[keep, :ev].to(dt), a_p, r_p, g.to(dt), w.to(dt), ev
-        )
-        ga, gr = torch.autograd.grad((out_p * cot[:, keep].to(dt)).sum(), (a_p, r_p))
-        return out_p.detach(), ga, gr
+        outs, grads, gr = [], [], 0.0
+        for sel in _plain_chunks(keep, M * ev * J):
+            a_p = a[:, sel, :ev].to(dt).requires_grad_(True)
+            out_p = og.offset_gamma_summed_plain(
+                x[sel, :ev].to(dt), a_p, r_p, g.to(dt), w.to(dt), ev
+            )
+            ga, g_r = torch.autograd.grad((out_p * cot[:, sel].to(dt)).sum(), (a_p, r_p))
+            outs.append(out_p.detach())
+            grads.append(ga)
+            gr = gr + g_r
+        return torch.cat(outs, 1), torch.cat(grads, 1), gr
 
     out_p, ga_p, gr_p = plain(torch.float64)
     errs = {}
@@ -1167,14 +1567,19 @@ def compare_factored(Kf, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol,
     if (gd_k[..., ev:] != 0).any():
         raise RuntimeError("ev-masked lanes got a nonzero delta gradient")
 
-    leaves_p = [base[keep].double().requires_grad_(True),
-                deltas[:, keep, :ev].double().requires_grad_(True),
-                rate.double().requires_grad_(True)]
-    out_p = og.offset_gamma_factored_summed_plain(
-        x[keep, :ev].double(), leaves_p[0], leaves_p[1], mtab, leaves_p[2],
-        g.double(), w.double(), ev,
-    )
-    gb_p, gd_p, gr_p = torch.autograd.grad((out_p * cot[:, keep].double()).sum(), leaves_p)
+    r_p = rate.double().requires_grad_(True)
+    parts, gr_p = [], 0.0
+    for sel in _plain_chunks(keep, M * ev * J):
+        leaves_p = [base[sel].double().requires_grad_(True),
+                    deltas[:, sel, :ev].double().requires_grad_(True), r_p]
+        out = og.offset_gamma_factored_summed_plain(
+            x[sel, :ev].double(), leaves_p[0], leaves_p[1], mtab, r_p,
+            g.double(), w.double(), ev,
+        )
+        gb, gd, g_r = torch.autograd.grad((out * cot[:, sel].double()).sum(), leaves_p)
+        parts.append((out.detach(), gb, gd))
+        gr_p = gr_p + g_r
+    out_p, gb_p, gd_p = (torch.cat(t, dim) for t, dim in zip(zip(*parts), (1, 0, 1)))
     errs = {}
     _check_close(errs, "forward", out_k[:, keep], out_p, fwd_tol)
     _check_close(errs, "forward_nograd", out_k_nograd[:, keep], out_p, fwd_tol)
@@ -1203,12 +1608,14 @@ def _bound(nbytes, ops):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def mufu_floor_ms(x_real, g, M):
-    """Least time of the special-function unit for the exact evaluation: one
-    log per (pixel, bin) pair with x > g_j and one exp per config and such
-    pair, over PEAK_MUFU_PER_S (x_real: the real pixels' values)."""
+def mufu_floor_ms(x_real, g, M, logs=1):
+    """Least time of the special-function unit: ``logs`` logs per (pixel,
+    bin) pair with x > g_j and one exp per config and such pair, over
+    PEAK_MUFU_PER_S (x_real: the real pixels' values). ``logs=1`` is the
+    exact evaluation's floor; the summed-template kernels take the log once
+    per chunk of KERNEL_CHUNK configs, ceil(M / KERNEL_CHUNK) times."""
     pairs = float((x_real[..., None] > g).sum())
-    return 1e3 * pairs * (1 + M) / PEAK_MUFU_PER_S
+    return 1e3 * pairs * (logs + M) / PEAK_MUFU_PER_S
 
 
 def bound_ms(x, a, g, ev, stats):
@@ -1273,10 +1680,11 @@ def main():
     f32, f64 = torch.float32, torch.float64
     walls, last = {}, [t_start]
 
-    def lap(phase):  # wall seconds of each phase
+    def lap(phase):  # wall seconds of each phase, printed as it ends
         now = time.perf_counter()
         walls[phase] = round(now - last[0], 3)
         last[0] = now
+        print(f"[wall] phase {phase}: {walls[phase]} s (at {now - t_start:.1f} s)", flush=True)
 
     # phase 1: device
     name = torch.cuda.get_device_name(0)
@@ -1309,6 +1717,8 @@ def main():
         ("ev-masked lanes", dict(M=4, nb=64, EVP=256, ev=130, J=61, dtype=f32)),
         ("ragged nb", dict(M=4, nb=37, EVP=256, ev=196, J=61, dtype=f32)),
         ("nb=7900 (hmm step)", dict(M=4, nb=7900, EVP=256, ev=196, J=61, dtype=f32)),
+        (f"M={XT_M} nb={XT_NB} (crosstalk step)",
+         dict(M=XT_M, nb=XT_NB, EVP=256, ev=196, J=61, dtype=f32)),
         ("M=16", dict(M=16, nb=300, EVP=256, ev=196, J=61, dtype=f32)),
         ("float64", dict(M=4, nb=12, EVP=256, ev=196, J=7, dtype=f64)),
         *((f"J={Jc}", dict(M=4, nb=64 if Jc < 1024 else 8, EVP=256, ev=196, J=Jc,
@@ -1365,6 +1775,8 @@ def main():
         ("below-every-bin", dict(Kf=2, nb=64, ev=196, J=61, dtype=f32, below=True)),
         ("ragged nb", dict(Kf=2, nb=37, ev=196, J=61, dtype=f32)),
         ("Kf=4 (M=16)", dict(Kf=4, nb=300, ev=196, J=61, dtype=f32)),
+        (f"Kf={XT_KF} nb={XT_NB} (crosstalk factored step)",
+         dict(Kf=XT_KF, nb=XT_NB, ev=196, J=61, dtype=f32)),
         ("float64", dict(Kf=2, nb=12, ev=196, J=7, dtype=f64)),
         ("ev-masked lanes, J=65", dict(Kf=2, nb=64, ev=130, J=65, dtype=f32)),
         *((v, dict(Kf=2, nb=64, ev=196, J=61, dtype=f32, variant=v)) for v in VARIANTS),
@@ -1388,22 +1800,38 @@ def main():
     a[..., ev:] = 1.0
     r1 = rate.reshape(1)
 
-    def plain_pair(fn, leaves, go):
+    def plain_pair(fn, leaves, axes, go, chunks=1):
+        """ms of the plain version ``fn(images, *leaves)`` without and with
+        its gradient (forward + autograd backward against ``go``, whose
+        last axis is the image axis), over ``chunks`` pieces of the images
+        (``axes``: each leaf's image axis, None for a shared leaf)."""
+        n = go.shape[-1]
+        step = -(-n // chunks)
+        pieces = [slice(i, min(i + step, n)) for i in range(0, n, step)]
+
+        def part(sl, ts):
+            return [t if ax is None else t.narrow(ax, sl.start, sl.stop - sl.start)
+                    for t, ax in zip(ts, axes)]
+
         def fwd():
             with torch.no_grad():
-                fn(*leaves)
+                for sl in pieces:
+                    fn(sl, *part(sl, leaves))
 
         def grad():
-            ls = [t.detach().requires_grad_(True) for t in leaves]
-            torch.autograd.grad(fn(*ls), ls, go)
+            for sl in pieces:
+                ls = [t.detach().requires_grad_(True) for t in part(sl, leaves)]
+                torch.autograd.grad(fn(sl, *ls), ls, go[..., sl])
 
         return time_ms(fwd, 5), time_ms(grad, 5)
 
+    def summed_plain(x_):
+        return lambda sl, a_, r_: og.offset_gamma_summed_plain(x_[sl], a_, r_, g, w, ev)
+
     timing["summed_fwd"] = [time_ms(lambda: og.summed_fwd(x, a, r1, g, w, ev), 50)]
     timing["summed_stats"] = [time_ms(lambda: og.summed_stats(x, a, r1, g, w, ev), 50)]
-    p_fwd, p_grad = plain_pair(
-        lambda a_, r_: og.offset_gamma_summed_plain(x, a_, r_, g, w, ev), [a, rate],
-        torch.ones((M, nb), device="cuda"))
+    p_fwd, p_grad = plain_pair(summed_plain(x), [a, rate], [1, None],
+                               torch.ones((M, nb), device="cuda"))
     timing["summed_fwd"] += [p_fwd, *bound_ms(x, a, g, ev, stats=False)]
     timing["summed_stats"] += [p_grad, *bound_ms(x, a, g, ev, stats=True)]
     floor = dict.fromkeys(("summed_fwd", "summed_stats", "factored_stats"),
@@ -1413,13 +1841,32 @@ def main():
     x, a, _, _, _ = kernel_inputs(M, nb_hmm, EVP, ev, J, f32, 1, "cuda")
     x[:, ev:] = 91.0
     a[..., ev:] = 1.0
-    _, p_grad = plain_pair(
-        lambda a_, r_: og.offset_gamma_summed_plain(x, a_, r_, g, w, ev), [a, rate],
-        torch.ones((M, nb_hmm), device="cuda"))
+    _, p_grad = plain_pair(summed_plain(x), [a, rate], [1, None],
+                           torch.ones((M, nb_hmm), device="cuda"))
     hmm_row = f"summed_stats nb={nb_hmm}"
     timing[hmm_row] = [time_ms(lambda: og.summed_stats(x, a, r1, g, w, ev), 50), p_grad,
                        *bound_ms(x, a, g, ev, stats=True)]
     floor[hmm_row] = mufu_floor_ms(x[:, :ev], g, M)
+    del x, a
+    torch.cuda.empty_cache()
+
+    # the crosstalk step: 16 configs over nb = 10 AOIs x 512 frames x 2
+    # channels, dense (the summed pair) and factored (Kf = 4); the plain
+    # version in 4 pieces of images (its float32 intermediates at this size
+    # would take tens of GB at once)
+    floor_issued = {}
+    x, a, _, _, _ = kernel_inputs(XT_M, XT_NB, EVP, ev, J, f32, 2, "cuda")
+    x[:, ev:] = 91.0
+    a[..., ev:] = 1.0
+    p_fwd, p_grad = plain_pair(summed_plain(x), [a, rate], [1, None],
+                               torch.ones((XT_M, XT_NB), device="cuda"), chunks=4)
+    for kname, launcher, p_ms, stats in (("summed_fwd", og.summed_fwd, p_fwd, False),
+                                         ("summed_stats", og.summed_stats, p_grad, True)):
+        row = f"{kname} M={XT_M} nb={XT_NB}"
+        timing[row] = [time_ms(lambda: launcher(x, a, r1, g, w, ev), 20), p_ms,
+                       *bound_ms(x, a, g, ev, stats=stats)]
+        floor[row] = mufu_floor_ms(x[:, :ev], g, XT_M)
+        floor_issued[row] = mufu_floor_ms(x[:, :ev], g, XT_M, -(-XT_M // KERNEL_CHUNK))
     del x, a
     torch.cuda.empty_cache()
 
@@ -1430,30 +1877,41 @@ def main():
         ms_f = time_ms(lambda: og.pixel_fwd(xp, a2, r1, g, w), 50)
         ms_s = time_ms(lambda: og.pixel_stats(xp, a2, r1, g, w), 50)
         p_fwd, p_grad = plain_pair(
-            lambda a_, r_: og.offset_gamma_log_prob_plain(xp, a_, r_, g, w), [a2, rate],
-            torch.ones_like(a2))
+            lambda sl, a_, r_: og.offset_gamma_log_prob_plain(xp[sl], a_, r_, g, w),
+            [a2, rate], [1, None], torch.ones_like(a2))
         timing["pixel_fwd" + tag] = [ms_f, p_fwd, *bound_pixel_ms(xp, a2, g, False)]
         timing["pixel_stats" + tag] = [ms_s, p_grad, *bound_pixel_ms(xp, a2, g, True)]
         floor["pixel_fwd" + tag] = floor["pixel_stats" + tag] = mufu_floor_ms(xp, g, Mp)
     del xp, ap, a2
 
-    xf, base, deltas, mtab, _, _, _ = factored_inputs(Kf, nb, EVP, ev, J, f32, 0, "cuda")
-    xf[:, ev:] = 91.0
-    deltas[..., ev:] = 0.0
-    masks = og.config_masks(mtab, Kf)
-    ms_fact = time_ms(lambda: og.factored_stats(xf, base, deltas, masks, r1, g, w, ev), 50)
-    _, p_grad = plain_pair(
-        lambda b_, d_, r_: og.offset_gamma_factored_summed_plain(xf, b_, d_, mtab, r_, g,
-                                                                 w, ev),
-        [base, deltas, rate], torch.ones((len(masks), nb), device="cuda"))
-    timing["factored_stats"] = [ms_fact, p_grad,
-                                *bound_factored_ms(xf, deltas, g, len(masks), ev)]
-    del xf, base, deltas
-    torch.cuda.empty_cache()
+    for Kf_t, nb_t, row, chunks in ((Kf, nb, "factored_stats", 1),
+                                    (XT_KF, XT_NB, f"factored_stats Kf={XT_KF} nb={XT_NB}", 4)):
+        xf, base, deltas, mtab, _, _, _ = factored_inputs(Kf_t, nb_t, EVP, ev, J, f32, 0,
+                                                          "cuda")
+        xf[:, ev:] = 91.0
+        deltas[..., ev:] = 0.0
+        masks = og.config_masks(mtab, Kf_t)
+        ms_fact = time_ms(lambda: og.factored_stats(xf, base, deltas, masks, r1, g, w, ev),
+                          50 if chunks == 1 else 20)
+        _, p_grad = plain_pair(
+            lambda sl, b_, d_, r_: og.offset_gamma_factored_summed_plain(
+                xf[sl], b_, d_, mtab, r_, g, w, ev),
+            [base, deltas, rate], [0, 1, None], torch.ones((len(masks), nb_t), device="cuda"),
+            chunks=chunks)
+        timing[row] = [ms_fact, p_grad, *bound_factored_ms(xf, deltas, g, len(masks), ev)]
+        if chunks > 1:
+            floor[row] = mufu_floor_ms(xf[:, :ev], g, len(masks))
+            floor_issued[row] = mufu_floor_ms(xf[:, :ev], g, len(masks),
+                                              -(-len(masks) // KERNEL_CHUNK))
+        del xf, base, deltas
+        torch.cuda.empty_cache()
     for k, (ms, plain_ms, b, by) in timing.items():
+        issued = (f", special-function floor of the logs the kernel issues "
+                  f"{floor_issued[k]:.6f} ms" if k in floor_issued else "")
         print(f"[timing] {k} on {name} ({smi}): kernel {ms:.6f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {b:.6f} ms ({by}), special-function floor {floor[k]:.6f} ms; "
-              "library: none (no single PyTorch call computes this function)", flush=True)
+              f"ms, bound {b:.6f} ms ({by}), special-function floor {floor[k]:.6f} ms"
+              f"{issued}; library: none (no single PyTorch call computes this function)",
+              flush=True)
     print(f"[timing] kernel phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     lap("6 timing")
 
@@ -1487,12 +1945,47 @@ def main():
         hmm_checks = check_cli_hmm_fit(cli_hmm, cli_iter, device="cuda")
         hmm_model = cli_hmm.pop("model")
         hmm_stage_seconds = hmm_model.stats_seconds
-        hmm_profile = profile_hmm_steps(hmm_model)
+        hmm_profile = profile_steps(hmm_model)
         lap("12 CLI hmm fit")
         hmm_card_cpu = check_hmm_card_vs_cpu(hmm_model)
         del hmm_model
         gc.collect()
         lap("13 hmm card vs CPU")
+
+        # phases 14-15: crosstalk in a workspace of its own
+        xws = Path(tmp) / "crosstalk"
+        xws.mkdir()
+        xt_setup = prepare_dataset(xws, C=2, params=XTALK_PARAMS, device="cuda")
+        xt_fit = run_cli_crosstalk_fit(xws, num_iter=cli_iter, device="cuda")
+        xt_checks = check_cli_crosstalk_fit(xt_fit, cli_iter, device="cuda")
+        xt_model = xt_fit.pop("model")
+        xt_stage_seconds = xt_model.stats_seconds
+        xt_fact = run_crosstalk_factored(xt_model, num_iter=cli_iter)
+        check_crosstalk_factored(xt_fact, xt_model, cli_iter)
+        xt_profile = {"dense": profile_steps(xt_model)}
+        xt_model.use_factored = True
+        try:
+            xt_profile["factored"] = profile_steps(xt_model)
+        finally:
+            xt_model.use_factored = False
+        lap("14 CLI crosstalk fit")
+        xt_card_cpu = check_crosstalk_card_vs_cpu(xt_model)
+        xt_card_cpu.update(check_card_vs_cpu(xt_model))
+        del xt_model
+        gc.collect()
+        lap("15 crosstalk card vs CPU")
+
+        # phase 16: the kinetics commands on the cosmos and hmm fits above
+        ttfb = run_kinetics(tmp, ["ttfb", "--model", "cosmos"], device="cuda")
+        ttfb_tables = check_kinetics(ttfb, "ttfb", 1, 1, device="cuda")
+        ttfb.pop("model")
+        gc.collect()
+        dwell = run_kinetics(tmp, ["dwelltime", "--model", "cosmos+hmm", "-K", "1"],
+                             device="cuda")
+        dwell_tables = check_kinetics(dwell, "dwelltime", 1, 2, device="cuda")
+        dwell.pop("model")
+        gc.collect()
+        lap("16 kinetics")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -1521,13 +2014,40 @@ def main():
           f"{cli_iter} steps in {cli_hmm['run_seconds']:.3f} s = "
           f"{cli_iter / cli_hmm['run_seconds']:.3f} steps/s; peak memory "
           f"{cli_hmm['peak_bytes'] / 2**30:.3f} GiB; launches {cli_hmm['launches']} at "
-          f"(stats, nb) {sorted(cli_hmm['nb'])}; stats seconds by stage "
+          f"(kernel, M, nb) {sorted(cli_hmm['shapes'])}; stats seconds by stage "
           f"{json.dumps(hmm_stage_seconds)}", flush=True)
     print(f"[cli-hmm] profiled steps {json.dumps(hmm_profile)}", flush=True)
     print(f"[cli-hmm] checks {json.dumps(hmm_checks)} (warm-start tolerance {WARM_TOL})",
           flush=True)
     print(f"[hmm-card-vs-cpu] {json.dumps(hmm_card_cpu)} (tolerances: ELBO relative "
           f"{HMM_ELBO_RTOL}, theta probabilities absolute {PROB_TOL})", flush=True)
+    print(f"[setup-crosstalk] Nt=856 F=790 C=2: simulate {xt_setup['simulate_seconds']:.1f} s, "
+          f"save {xt_setup['save_seconds']:.1f} s", flush=True)
+    print(f"[cli-crosstalk] fit --model crosstalk exit {xt_fit['code']} in "
+          f"{xt_fit['seconds']:.3f} s on {name} ({smi}): {cli_iter} dense steps in "
+          f"{xt_fit['run_seconds']:.3f} s = {cli_iter / xt_fit['run_seconds']:.3f} steps/s; "
+          f"peak memory {xt_fit['peak_bytes'] / 2**30:.3f} GiB; launches {xt_fit['launches']} "
+          f"at (kernel, M, nb) {sorted(xt_fit['shapes'])}; stats seconds by stage "
+          f"{json.dumps(xt_stage_seconds)}", flush=True)
+    print(f"[cli-crosstalk] factored: {cli_iter} steps of Model.run in "
+          f"{xt_fact['seconds']:.3f} s = {xt_fact['steps_per_s']:.3f} steps/s; peak memory "
+          f"{xt_fact['peak_bytes'] / 2**30:.3f} GiB; launches {xt_fact['launches']} at "
+          f"(kernel, Kf, M, nb) {sorted(xt_fact['shapes'])}", flush=True)
+    print(f"[cli-crosstalk] profiled steps {json.dumps(xt_profile)}", flush=True)
+    print(f"[cli-crosstalk] checks {json.dumps(xt_checks)}", flush=True)
+    print(f"[crosstalk-card-vs-cpu] {json.dumps(xt_card_cpu)} (tolerances: ELBO relative "
+          f"{XTALK_ELBO_RTOL}, probabilities absolute {PROB_TOL}, SNR {SNR_TOL}, "
+          f"chi2 {CHI2_TOL})", flush=True)
+    for label, res, tables in (("ttfb", ttfb, ttfb_tables), ("dwelltime", dwell, dwell_tables)):
+        print(f"[kinetics] {label} exit {res['code']} in {res['seconds']:.3f} s on {name} "
+              f"({smi}): z samples {res['z_samples_shape']} in {res['z_sample']:.3f} s, "
+              f"fits {res['fits']} in {res['mle']:.3f} s; peak memory "
+              f"{res['peak_bytes'] / 2**30:.3f} GiB (host: the process's largest "
+              f"resident set so far {res['host_max_rss_gib']:.3f} GiB); card vs CPU float64 "
+              f"{res['mle_rel_err']:.3g} relative (tolerance {MLE_RTOL}; CPU refit of rows "
+              f"{res['cpu_refit_rows']} in {res['cpu_refit_seconds']:.1f} s); files "
+              f"{res['files']}; {json.dumps(tables)}",
+              flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -1546,9 +2066,10 @@ def main():
                     bound_by=by, library_ms=None)
 
     perr = pixel_errs[M]
-    # launches over every path driven: phases 7, 8, 9, 10 and 12 (phase 11
-    # launches none; phase 13 compares the card with the CPU)
-    paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"])
+    # launches over every path driven: phases 7, 8, 9, 10, 12 and 14 (phases
+    # 11 and 16 launch none; 13 and 15 compare the card with the CPU)
+    paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"], xt_fit["launches"],
+             xt_fact["launches"])
     total = {k: sum(r[k] for r in paths) for k in dl}
     kernels = [
         entry("summed_fwd", 365, total["summed_fwd"], errs["forward_nograd"]),

@@ -1,6 +1,6 @@
-"""Command-line interface: ``python -m tapqir_tpu_torch [--cd DIR] fit|stats``
-(counterpart of the workspace and the ``fit`` / ``stats`` commands of
-tapqir_tpu/main.py).
+"""Command-line interface: ``python -m tapqir_tpu_torch [--cd DIR]
+fit|stats|ttfb|dwelltime`` (counterpart of the workspace and of the ``fit``,
+``stats``, ``ttfb`` and ``dwelltime`` commands of tapqir_tpu/main.py).
 
 Every command runs inside an analysis folder (``--cd``, default: the
 working directory) that holds ``.tapqir/`` (config.yaml, loginfo, model
@@ -11,31 +11,40 @@ files, so either package's CLI continues a workspace the other wrote.
 * ``fit`` fits the model by SVI (``Model.run``), then computes the stats;
 * ``stats`` loads the checkpoint's parameters and computes the stats:
   p(specific), credible intervals, SNR / chi2 and, with ground-truth
-  labels, MCC, recall and precision.
+  labels, MCC, recall and precision;
+* ``ttfb`` fits the time-to-first-binding model (ka, kns, Af) to z samples
+  of a fit's posterior, per channel;
+* ``dwelltime`` fits K-exponential mixtures to the bound and unbound dwell
+  times of those samples (koff, kon), per channel.
 
-Options not given on the command line are asked for on the terminal unless
-``--no-input``. Commands run on the CUDA card; ``--cpu`` asks for the CPU,
-and without a card and without ``--cpu`` a command exits non-zero. Models
-and options that are not ported yet exit non-zero with a message naming the
-ROADMAP item that ports them.
+Options of ``fit`` and ``stats`` not given on the command line are asked for
+on the terminal unless ``--no-input``. Commands run on the CUDA card;
+``--cpu`` asks for the CPU, and without a card and without ``--cpu`` a
+command exits non-zero. Options that are not ported yet exit non-zero with a
+message naming the ROADMAP item that ports them. Plots need matplotlib;
+without it (or with the ``CI`` environment variable set) they are skipped
+with a logged warning, as in the JAX package.
 """
 
 import argparse
 import copy
 import logging
+import os
 from pathlib import Path
+
+import numpy as np
 
 from tapqir_tpu_torch.device import resolve_device
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
 from tapqir_tpu_torch.logger import init_logger
 from tapqir_tpu_torch.utils.config import dump_config, load_config
+from tapqir_tpu_torch.utils.stats import hpdi, write_summary
 
 AVAIL_MODELS = ["cosmos", "crosstalk", "cosmos+hmm"]
 
 # what the JAX package's fit / stats accept that the port does not run yet,
 # with the ROADMAP Queue A item that ports it
 NOT_PORTED = {
-    "crosstalk": "the crosstalk model is not ported yet (ROADMAP Queue A item 5)",
     "num_restarts": "--num-restarts is not ported yet (ROADMAP Queue A item 7)",
     "restart_iter": "--restart-iter is not ported yet (ROADMAP Queue A item 7)",
     "mesh": "--mesh is not ported yet (ROADMAP Queue A item 8)",
@@ -160,6 +169,32 @@ def _parser():
                      help="Persist these values to config.yaml")
     sub.add_parser("stats", help="Compute credible intervals and other statistics")
     common(sub.choices["stats"])
+
+    def kinetics(p, num_samples, num_iter):
+        p.add_argument("--model", choices=AVAIL_MODELS, default=S, help="Tapqir model")
+        p.add_argument("-S", "--num-states", dest="S", type=int, default=S,
+                       help="Number of spot states")
+        p.add_argument("--k-max", "-k", type=int, default=S,
+                       help="Maximum number of spots per image")
+        p.add_argument("--cpu", dest="cpu", action="store_true", default=S,
+                       help="Run on the CPU instead of the CUDA card")
+        p.add_argument("--cuda", dest="cpu", action="store_false", default=S,
+                       help="Run on the CUDA card (the default)")
+        p.add_argument("--num-samples", "-n", type=int, default=S,
+                       help=f"Number of posterior samples (default {num_samples})")
+        p.add_argument("--num-iter", "-it", type=int, default=S,
+                       help=f"Number of MLE iterations (default {num_iter})")
+
+    ttfb_p = sub.add_parser("ttfb", help="Time-to-first-binding analysis")
+    kinetics(ttfb_p, 2000, 15000)
+    ttfb_p.add_argument("--binary", dest="binary", action="store_true", default=S,
+                        help="Plot a binary rastergram")
+    ttfb_p.add_argument("--probabilistic", dest="binary", action="store_false",
+                        default=S, help="Plot a probabilistic rastergram (the default)")
+    dwell_p = sub.add_parser("dwelltime", help="Dwell-time analysis: kon and koff")
+    kinetics(dwell_p, 500, 10000)
+    dwell_p.add_argument("-K", "--num-exponentials", dest="K", type=int, default=S,
+                         help="Number of exponentials (default 3)")
     return parser
 
 
@@ -174,6 +209,12 @@ def _defaults(command, config):
             "matlab": bool(config.get("matlab", False)), "dtype": "float32",
             "warm_start": None, "overwrite": True, "no_input": False,
         }
+    fitted = {"model": config.get("model", "cosmos"), "S": config.get("S", 1),
+              "k_max": config.get("k-max", 2), "cpu": False}
+    if command == "ttfb":
+        return {**fitted, "binary": False, "num_samples": 2000, "num_iter": 15000}
+    if command == "dwelltime":
+        return {**fitted, "K": 3, "num_samples": 500, "num_iter": 10000}
     return {
         "model": config.get("model", "cosmos"), "S": config.get("S", 1), "cpu": False,
         "nbatch_size": config.get("nbatch-size", 10),
@@ -222,9 +263,7 @@ def _make_prompter(given):
     return ask
 
 
-def _refuse_unported(opts, given):
-    if opts["model"] in NOT_PORTED:
-        raise CliError(NOT_PORTED[opts["model"]])
+def _refuse_unported(given):
     for name in ("num_restarts", "restart_iter", "mesh", "profile"):
         if name in given:
             raise CliError(NOT_PORTED[name])
@@ -282,7 +321,7 @@ def fit(cd, config, opts, given):
                              "Save parameters in matlab format?", is_bool=True)
         opts["overwrite"] = ask("overwrite", opts["overwrite"],
                                 "Overwrite default values?", is_bool=True)
-    _refuse_unported(opts, given)
+    _refuse_unported(given)
 
     if opts["overwrite"]:
         config.update({
@@ -324,7 +363,7 @@ def stats(cd, config, opts, given):
                               "Run computations on the accelerator?", is_bool=True)
         opts["matlab"] = ask("matlab", opts["matlab"],
                              "Save parameters in matlab format?", is_bool=True)
-    _refuse_unported(opts, given)
+    _refuse_unported(given)
 
     logger.info("Computing stats ...")
     m = _make_model(opts["model"], opts["S"], opts["k_max"], opts["cpu"], opts["dtype"],
@@ -336,7 +375,211 @@ def stats(cd, config, opts, given):
     logger.info("Computing stats: Done")
 
 
-COMMANDS = {"fit": fit, "stats": stats}
+def _load_fit(cd, config, opts):
+    """The workspace's fitted model (float32, as the JAX package's kinetics
+    commands build it) with its checkpoint's parameters and its saved
+    stats."""
+    m = _make_model(opts["model"], opts["S"], opts["k_max"], opts["cpu"], "float32",
+                    config.get("priors"))
+    m.load(cd, data_only=False)
+    m.init(config.get("learning-rate", 0.005), config.get("nbatch-size", 10),
+           config.get("fbatch-size", 512))
+    m.load_checkpoint(param_only=True)
+    return m
+
+
+def _write_table(path, index, columns, rows):
+    """A table as ``pandas.DataFrame(...).to_csv(path)`` writes it: an
+    unnamed index column, then ``columns``; ``rows`` align with ``index``."""
+    write_summary({i: dict(zip(columns, row)) for i, row in zip(index, rows)}, path)
+
+
+def _write_intervals(path, rows):
+    """``rows`` {name: (Mean, LL, UL)} as the JAX package's kinetics
+    parameter tables."""
+    _write_table(path, list(rows), ["Mean", "95% LL", "95% UL"], rows.values())
+
+
+def _hpdi_row(vals):
+    ll, ul = hpdi(vals, 0.95)
+    return float(vals.mean()), float(ll), float(ul)
+
+
+def _plot(out_path, draw):
+    """Draw one figure with ``draw(ax)`` into ``out_path``; skipped under
+    the ``CI`` environment variable, and a failure (matplotlib missing
+    included) is a logged warning, as in the JAX package."""
+    if os.environ.get("CI"):
+        return
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        fig, ax = plt.subplots()
+        draw(ax)
+        fig.savefig(out_path, dpi=300)
+        plt.close(fig)
+    except Exception as err:  # plotting must never fail the pipeline
+        logger.warning(f"plotting failed: {err}")
+
+
+def _draw_rastergram(z_sorted, title):
+    def draw(ax):
+        ax.imshow(z_sorted, vmin=0, vmax=1, aspect="auto", interpolation="none")
+        ax.set_xlabel("Time (frame)")
+        ax.set_ylabel("AOI")
+        ax.set_title(title)
+
+    return draw
+
+
+def _draw_fraction_bound(t, fb_mean, fb_ll, fb_ul, best_fit, title):
+    def draw(ax):
+        ax.fill_between(t, fb_ll, fb_ul, alpha=0.3, color="C2")
+        ax.plot(t, fb_mean, color="C2", label="fraction bound")
+        ax.plot(t, best_fit, color="k", label="best fit")
+        ax.set_xlabel("Time (frame)")
+        ax.set_ylabel("Cumulative fraction")
+        ax.set_ylim(-0.05, 1.05)
+        ax.set_title(title)
+        ax.legend()
+
+    return draw
+
+
+def _draw_dwelltime_hist(dwell_times, fit, K, title):
+    def draw(ax):
+        dt = dwell_times()
+        vals = dt[dt > 0]
+        if vals.size:
+            ax.hist(vals, bins=min(100, max(10, int(vals.max()))), density=True)
+        t = np.arange(max(2, int(dt.max())))
+        y = 0
+        for i in range(K):
+            A_i, k_i = float(fit["A"][:, i].mean()), float(fit["k"][:, i].mean())
+            y = y + A_i * k_i * np.exp(-k_i * t)
+            ax.plot(A_i * k_i * np.exp(-k_i * t), "k--")
+        ax.plot(y, "k-")
+        ax.set_xlabel("Time interval (frame)")
+        ax.set_ylabel("Density")
+        ax.set_title(title)
+
+    return draw
+
+
+def ttfb(cd, config, opts, given):
+    """Time-to-first-binding analysis: per channel, the ttfb of every
+    posterior z sample and AOI, the MLE of ka, kns and Af per sample, their
+    means and 95% HPD intervals, and the fraction bound against the best
+    fit."""
+    from tapqir_tpu_torch.utils.imscroll import time_to_first_binding
+    from tapqir_tpu_torch.utils.mle_analysis import ttfb_mle
+
+    cd = Path(cd)
+    m = _load_fit(cd, config, opts)
+    p_specific = np.asarray(m.params_stats["p_specific"])
+    z = (p_specific > 0.5) if opts["binary"] else p_specific
+    r_type = "binary" if opts["binary"] else "probabilistic"
+    z_samples = m.z_sample(num_samples=opts["num_samples"])
+    mask = m.data.mask[: m.data.N]
+    z_samples_masked = z_samples[:, mask]
+    Tmax = m.data.F
+    for c in range(m.data.C):
+        logger.info(f"Channel #{c} ({m.data.channels[c]})")
+        z_masked = z[: m.data.N, :, c][mask]
+        sdx = np.argsort(-time_to_first_binding(z_masked))
+        png = f"{m.name}_ttfb-rastergram-channel{c}.png"
+        _plot(cd / png, _draw_rastergram(z_masked[sdx], f"Channel {c}"))
+        logger.info(f"Saved a {r_type} rastergram in {png}")
+
+        data = time_to_first_binding(z_samples_masked[..., c])  # (samples, AOIs)
+        _write_table(cd / f"{m.name}_ttfb-data-points-channel{c}.csv",
+                     range(data.shape[0]), range(data.shape[1]), data)
+
+        fit = ttfb_mle(data, None, Tmax, lr=5e-3, n_steps=opts["num_iter"],
+                       device=m.device)
+        rows = {par: _hpdi_row(fit[par].squeeze(-1)) for par in ("ka", "kns", "Af")}
+        _write_intervals(cd / f"{m.name}_ttfb-params-channel{c}.csv", rows)
+        logger.info(f"Saved fit parameters in {m.name}_ttfb-params-channel{c}.csv")
+
+        # the fraction bound against the best fit
+        nz = (data == 0).sum(1, keepdims=True)
+        N = data.shape[1]
+        t = np.arange(Tmax)
+        fraction_bound = (data[..., None] < t).mean(1)
+        fb_ll, fb_ul = np.quantile(fraction_bound, [0.025, 0.975], axis=0)
+        fb_mean = fraction_bound.mean(0)
+        ka_m, kns_m, Af_m = (rows[par][0] for par in ("ka", "kns", "Af"))
+        best_fit = (
+            nz / N
+            + (1 - nz / N)
+            * (Af_m * (1 - np.exp(-(ka_m + kns_m) * t))
+               + (1 - Af_m) * (1 - np.exp(-kns_m * t)))
+        ).mean(0)
+        _write_table(cd / f"{m.name}_ttfb-fraction-bound-channel{c}.csv", range(Tmax),
+                     ["time", "best fit", "fraction bound mean", "fraction bound 95% ll",
+                      "fraction bound 95% ul"],
+                     zip(t, best_fit, fb_mean, fb_ll, fb_ul))
+        _plot(cd / f"{m.name}_ttfb-plot-channel{c}.png",
+              _draw_fraction_bound(t, fb_mean, fb_ll, fb_ul, best_fit, f"Channel {c}"))
+        logger.info(f"Saved data plots in {m.name}_ttfb-plot-channel{c}.png")
+
+
+def dwelltime(cd, config, opts, given):
+    """Dwell-time analysis: per channel, the intervals of every posterior z
+    sample (``.mat``), and K-exponential MLE fits of the bound (koff) and
+    unbound (kon) dwell times per sample, with their means and 95% HPD
+    intervals."""
+    from scipy.io import savemat
+
+    from tapqir_tpu_torch.utils.imscroll import (
+        bound_dwell_times,
+        count_intervals,
+        unbound_dwell_times,
+    )
+    from tapqir_tpu_torch.utils.mle_analysis import exp_mle
+
+    cd = Path(cd)
+    K = opts["K"]
+    m = _load_fit(cd, config, opts)
+    z_samples = m.z_sample(num_samples=opts["num_samples"])
+    mask = m.data.mask[: m.data.N]
+    z_samples_masked = z_samples[:, mask]
+    z_map = np.asarray(m.params_stats["z_map"])
+    for c in range(m.data.C):
+        logger.info(f"Channel #{c} ({m.data.channels[c]})")
+        intervals = count_intervals(z_samples_masked[..., c])
+        # the JAX package also pickles its DataFrame (.pkl); the port writes
+        # the .mat file only (ROADMAP Queue C). Integer columns as int64, as
+        # savemat stores the JAX package's lists of Python ints.
+        savemat(cd / f"{m.name}_dwelltime-intervals-channel{c}.mat",
+                {k: np.asarray(v, np.int64) for k, v in intervals.items()})
+        logger.info(f"Saved time intervals in {m.name}_dwelltime-intervals-channel{c}")
+
+        z_map_intervals = count_intervals(z_map[: m.data.N][None, mask, :, c])
+        for state, tag, rate_name in ((1, "bound", "koff"), (0, "unbound", "kon")):
+            logger.info(f"{rate_name} calculation ...")
+            dwell = bound_dwell_times if state else unbound_dwell_times
+            fit = exp_mle(dwell(intervals), K, lr=5e-3, n_steps=opts["num_iter"],
+                          device=m.device)
+            rows = {}
+            for i in range(K):
+                rows[f"A{i}"] = _hpdi_row(fit["A"][:, i])
+                rows[f"{rate_name}{i}"] = _hpdi_row(fit["k"][:, i])
+            csv_name = f"{m.name}_dwelltime-{rate_name}-channel{c}.csv"
+            _write_intervals(cd / csv_name, rows)
+            logger.info(f"Saved {rate_name} parameters in {csv_name}")
+            # the histogram's dwell times of z_map are made only to be drawn:
+            # the JAX package makes them first and fails the command when
+            # z_map has no complete interval (ROADMAP Queue C)
+            _plot(cd / f"{m.name}_dwelltime-{tag}-histogram-channel{c}.png",
+                  _draw_dwelltime_hist(lambda: dwell(z_map_intervals)[0], fit, K,
+                                       f"{tag.capitalize()} dwell times channel {c}"))
+
+
+COMMANDS = {"fit": fit, "stats": stats, "ttfb": ttfb, "dwelltime": dwelltime}
 
 
 def main(argv=None) -> int:

@@ -11,8 +11,9 @@ per-AOI terms.
 
 Draw seams: :meth:`cosmos.elbo_from_windows` takes ``draws``, the packed
 flat vector of standard-Gamma draws, in the JAX package's packing order
-(gain, lamda, pi, proximity c1, proximity c0, background, height, width c1,
-x c1, y c1, width c0, x c0, y c0); :meth:`cosmos._probs_batch` takes the
+(gain, lamda, pi, proximity c1, proximity c0, a subclass's extra global
+sites such as crosstalk's alpha, background, height, width c1, x c1, y c1,
+width c0, x c0, y c0); :meth:`cosmos._probs_batch` takes the
 sampled pi, lamda, proximity, x and y with a leading particle axis. Tests
 feed the JAX package's draws through both.
 
@@ -66,6 +67,11 @@ DEFAULT_PRIORS = {
     "proximity_rate": 1.0,
     "gain_std": 50.0,
 }
+
+
+# the device bytes of one chunk of z_sample's Gumbel noise: 2000 samples at
+# 856 AOIs x 790 frames x 2 channels would take ~21.6 GB in float64 at once
+Z_SAMPLE_CHUNK_BYTES = 1 << 28
 
 
 class cosmos(Model):
@@ -245,7 +251,7 @@ class cosmos(Model):
         size = gk("size")
         qm = gk("m_probs")
 
-        gain, pi, lamda, prox, b, h, w, xs, ys = self._sample_sites(
+        gain, pi, lamda, prox, b, h, w, xs, ys, extras = self._sample_sites(
             generator, pc, b_loc, b_beta, h_loc, h_beta,
             w_mean, w_size, x_mean, y_mean, size, draws,
         )
@@ -269,6 +275,7 @@ class cosmos(Model):
                 prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
             )
         )
+        global_term = self._extra_global_terms(pc, extras, global_term)
 
         # per-AOI Delta sites (MAP background hyper-parameters)
         bm = pc("background_mean_loc")[:, 0, :]  # (n, C)
@@ -291,10 +298,23 @@ class cosmos(Model):
         local_sum = ((local + lp_b - lq_b) * mask[:, None, None]).sum()
         return local_sum, aoi_term, global_term
 
+    def _extra_global_concs(self, pc):
+        """Extra global Dirichlet sites of a subclass (crosstalk's alpha),
+        folded into the packed draw: (names, concentrations with the event
+        axis last). cosmos has none."""
+        return [], []
+
+    def _extra_global_terms(self, pc, extras, global_term):
+        """The global term with a subclass's extra sites added; ``extras``
+        maps each name of :meth:`_extra_global_concs` to its sample."""
+        return global_term
+
     def _sample_sites(self, generator, pc, b_loc, b_beta, h_loc, h_beta,
                       w_mean, w_size, x_mean, y_mean, size, draws=None):
         """All guide-site draws in ONE packed standard-Gamma draw, in the
-        JAX package's packing order; ``draws`` replaces the random vector."""
+        JAX package's packing order, the extra global sites after the
+        proximity pair; ``draws`` replaces the random vector. Returns the
+        samples and ``extras`` (name -> sample of each extra site)."""
         P = self.data.P
         lim = (P + 1) / 2
         wmin, wmax = self.priors["width_min"], self.priors["width_max"]
@@ -306,6 +326,7 @@ class cosmos(Model):
         pg1, pg0 = affine_beta_concentrations(
             pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
         )
+        extra_names, extra_concs = self._extra_global_concs(pc)
         wc1, wc0 = affine_beta_concentrations(w_mean, w_size, wmin, wmax)
         xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
         yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
@@ -316,6 +337,7 @@ class cosmos(Model):
                 pi_conc.reshape(-1),
                 pg1.reshape(1),
                 pg0.reshape(1),
+                *extra_concs,
                 b_loc * b_beta, h_loc * h_beta, wc1, xc1, yc1, wc0, xc0, yc0,
             ],
             generator, draws,
@@ -324,13 +346,16 @@ class cosmos(Model):
         lamda = g[1] / pc("lamda_beta")
         pi = dirichlet_from_gammas(g[2].reshape(pi_conc.shape))
         prox = prox_high * beta_from_gamma_pair(g[3][0], g[4][0])
-        gb, gh, gw1, gx1, gy1, gw0, gx0, gy0 = g[5:]
+        n_extra = len(extra_names)
+        extras = {nm: dirichlet_from_gammas(gg)
+                  for nm, gg in zip(extra_names, g[5:5 + n_extra])}
+        gb, gh, gw1, gx1, gy1, gw0, gx0, gy0 = g[5 + n_extra:]
         b = gb / b_beta
         h = gh / h_beta
         w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
         xs = -lim + 2 * lim * beta_from_gamma_pair(gx1, gx0)
         ys = -lim + 2 * lim * beta_from_gamma_pair(gy1, gy0)
-        return gain, pi, lamda, prox, b, h, w, xs, ys
+        return gain, pi, lamda, prox, b, h, w, xs, ys, extras
 
     def _dye_tables(self, ont, pi, lamda, prox, h, w, xs, ys, qm,
                     h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size):
@@ -621,19 +646,26 @@ class cosmos(Model):
         return np.argmax(self.z_probs, axis=-1)
 
     def z_sample(self, num_samples, generator=None):
-        """z trajectories (num_samples, N, F, Q) drawn from the saved
-        posterior marginals ``params_stats["z_probs"]``; without
-        ``generator``, from one seeded with 11 (the JAX package's
-        ``PRNGKey(11)``)."""
+        """z trajectories (num_samples, N, F, Q), int32 as the JAX package's,
+        drawn from the saved posterior marginals ``params_stats["z_probs"]``;
+        without ``generator``, from one seeded with 11 (the JAX package's
+        ``PRNGKey(11)``). The samples are drawn in chunks whose Gumbel noise
+        takes at most Z_SAMPLE_CHUNK_BYTES on the device, so the device
+        holds a few times that at most, whatever ``num_samples``."""
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(11)
         probs = torch.as_tensor(
             np.asarray(self.params_stats["z_probs"][: self.data.N]), device=self.device
-        )
-        z = categorical_sample(probs.clamp_min(1e-30),
-                               (num_samples,) + probs.shape[:-1], generator)
-        return z.cpu().numpy()
+        ).clamp_min(1e-30)
+        per = max(1, Z_SAMPLE_CHUNK_BYTES // (probs.numel() * probs.element_size()))
+        z = np.empty((num_samples,) + tuple(probs.shape[:-1]), np.int32)
+        for s0 in range(0, num_samples, per):
+            s1 = min(s0 + per, num_samples)
+            z[s0:s1] = categorical_sample(
+                probs, (s1 - s0,) + tuple(probs.shape[:-1]), generator
+            ).to(torch.int32).cpu().numpy()
+        return z
 
     def compute_params(self, CI):
         """Credible intervals of ``ci_params`` from the fitted guide, with the
@@ -655,6 +687,8 @@ class cosmos(Model):
                 "dirichlet", CI, concentration=p("init_mean") * p("init_size")),
             "trans": lambda: ci_from_scipy(
                 "dirichlet", CI, concentration=p("trans_mean") * p("trans_size")),
+            "alpha": lambda: ci_from_scipy(
+                "dirichlet", CI, concentration=p("alpha_mean") * p("alpha_size")),
             "lamda": lambda: ci_from_scipy(
                 "gamma", CI, concentration=p("lamda_loc") * p("lamda_beta"),
                 rate=p("lamda_beta")),

@@ -1,0 +1,175 @@
+"""crosstalk: multi-color time-independent model with spectral bleed-through
+(counterpart of tapqir_tpu/models/crosstalk.py).
+
+Q dyes bleed into C channels through a crosstalk matrix alpha (Q, C) with a
+Dirichlet(1 + 9I) prior per dye. Each dye has its own discrete latents (z_q,
+theta_q, m_kq), so cosmos's per-dye tables are reused; only the image
+likelihood couples the dyes: the expectation over m runs over all 2^(K*Q)
+global spot configurations (16 at K = Q = 2), each image the background plus
+every present spot of every dye rendered at the channel's target and scaled
+by alpha[q, c].
+
+alpha joins cosmos's packed standard-Gamma draw through the hooks
+:meth:`_extra_global_concs` / :meth:`_extra_global_terms`, right after the
+proximity pair, so the draw seam takes the JAX package's packing order. The
+likelihood is dense by default (the (16, n*f*C, EVP) concentrations by one
+einsum, then the summed kernel) or, with ``use_factored = True``, the
+factored kernel over Q*K spot-major deltas with alpha folded into them.
+"""
+
+import numpy as np
+import torch
+
+from tapqir_tpu_torch import constraints
+from tapqir_tpu_torch.distributions.core import dirichlet_log_prob
+from tapqir_tpu_torch.distributions.ksmogn import (
+    offset_gamma_factored_summed,
+    offset_gamma_log_prob_summed,
+)
+from tapqir_tpu_torch.distributions.util import gaussian_spots_flat
+from tapqir_tpu_torch.infer.discrete import m_configs
+from tapqir_tpu_torch.models.cosmos import cosmos
+
+__all__ = ["crosstalk"]
+
+
+def _global_m_configs(K, Q):
+    """(2^(K*Q), Q, K) table of the global spot-presence configurations and
+    its (2^(K*Q), Q, 2^K) one-hot map onto each dye's config index; config g
+    has dye q in config (g // (2^K)^q) % 2^K."""
+    Mq = 1 << K
+    g = np.arange(Mq**Q)
+    cfg_idx = (g[:, None] // Mq ** np.arange(Q)) % Mq  # (Mf, Q)
+    full = m_configs(K)[cfg_idx]  # (Mf, Q, K)
+    onehot = (cfg_idx[..., None] == np.arange(Mq)).astype(np.float64)
+    return full, onehot
+
+
+class crosstalk(cosmos):
+    r"""Multi-Color Time-Independent Colocalization Model with Cross-Talk."""
+
+    name = "crosstalk"
+
+    def __init__(self, S=1, K=2, Q=None, device=None, dtype="float32",
+                 priors=None):
+        super().__init__(S=S, K=K, Q=Q, device=device, dtype=dtype, priors=priors)
+        self._global_params = ["gain", "proximity", "lamda", "pi", "alpha"]
+        self.ci_params = [
+            "alpha", "gain", "pi", "lamda", "proximity",
+            "background", "height", "width", "x", "y",
+        ]
+
+    def _alpha_prior(self):
+        """The Dirichlet(1 + 9I) prior concentration of alpha, (Q, C)."""
+        Q, C = self.Q, self.data.C
+        return np.ones((Q, C)) + np.eye(Q, C) * 9.0
+
+    def param_spec(self):
+        spec = super().param_spec()
+        alpha_init = self._alpha_prior()
+        spec["alpha_mean"] = (alpha_init / alpha_init.sum(-1, keepdims=True),
+                              constraints.simplex())
+        spec["alpha_size"] = (np.full((self.Q, 1), 2.0), constraints.positive())
+        return spec
+
+    def _build_constants(self):
+        super()._build_constants()
+        dt, dev = self.dtype, self.device
+        full, onehot = _global_m_configs(self.K, self.Q)
+        self._const.update(
+            alpha_prior=torch.as_tensor(self._alpha_prior(), dtype=dt, device=dev),
+            mtab_global=torch.as_tensor(full, dtype=dt, device=dev),  # (Mf, Q, K)
+            mtab_global_np=full.reshape(full.shape[0], -1),  # (Mf, Q*K)
+            onehot=torch.as_tensor(onehot, dtype=dt, device=dev),  # (Mf, Q, Mq)
+        )
+
+    # -- the alpha site ----------------------------------------------------------
+    def _extra_global_concs(self, pc):
+        return ["alpha"], [pc("alpha_mean") * pc("alpha_size")]
+
+    def _extra_global_terms(self, pc, extras, global_term):
+        """alpha's prior minus its guide. The sample waits on the model for
+        :meth:`_local_marginalized` of the same ELBO evaluation, which takes
+        it off again, so no step's graph outlives the step."""
+        alpha = extras["alpha"]  # (Q, C)
+        self._alpha_sample = alpha
+        return global_term + (
+            dirichlet_log_prob(alpha, self._const["alpha_prior"])
+            - dirichlet_log_prob(alpha, pc("alpha_mean") * pc("alpha_size"))
+        ).sum()
+
+    # -- the likelihood over the global configs ---------------------------------
+    @staticmethod
+    def _mixed_images(b, h, w, xs, ys, target_locs, alpha, mtab, P, ev_pad):
+        """Expected images, (G, n*f, C, EVP), one per config of ``mtab`` (G,
+        Q, K): the background ``b`` (n, f, C) plus every present spot of
+        every dye (``h``, ``w``, ``xs``, ``ys`` (n, f, Q, K)) rendered at
+        each channel's target (``target_locs`` (n, f, C, 2)) and scaled by
+        ``alpha`` (Q, C), on the flat padded pixel axis."""
+        n_, f_, Q, K = h.shape
+        C = target_locs.shape[-2]
+        gauss = gaussian_spots_flat(
+            h[..., None, :], w[..., None, :], xs[..., None, :], ys[..., None, :],
+            target_locs[..., None, :, :], P, ev_pad,
+        )  # (n, f, Q, C, K, EVP)
+        return b.reshape(n_ * f_, C, 1) + torch.einsum(
+            "gqk,qc,xqckp->gxcp", mtab, alpha, gauss.reshape(n_ * f_, Q, C, K, ev_pad)
+        )
+
+    @staticmethod
+    def _mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad):
+        """The alpha-scaled spots in the factored kernel's spot-major layout,
+        (Q*K, n*f*C, EVP), spot q*K + k: made spot-major by moving the small
+        (n, f, Q, K) parameters before the render."""
+        n_, f_, Q, K = h.shape
+        C = target_locs.shape[-2]
+
+        def qk_major(a):  # (n, f, Q, K) -> (Q, K, n, f, 1, 1)
+            return torch.movedim(a, (2, 3), (0, 1))[..., None, None]
+
+        spots = gaussian_spots_flat(
+            qk_major(h) * alpha[:, None, None, None, :, None], qk_major(w),
+            qk_major(xs), qk_major(ys), target_locs[None, None], P, ev_pad,
+        )  # (Q, K, n, f, C, 1, EVP)
+        return spots.reshape(Q * K, n_ * f_ * C, ev_pad)
+
+    def _local_marginalized(self, obs, target_locs, ont, gain, pi, lamda, prox,
+                            b, h, w, xs, ys, qm, h_loc, h_beta, w_mean, w_size,
+                            x_mean, y_mean, size, data):
+        """The expectation over all 2^(K*Q) global configs, per (n, f),
+        spread evenly over the C channels (the caller adds per-channel
+        background terms and sums, so the sum stays exact): (n, f, 1)."""
+        alpha = self.__dict__.pop("_alpha_sample")  # (Q, C)
+        n_, f_, C, ev_pad = obs.shape
+        P = self.data.P
+        nfc = n_ * f_ * C
+        onehot = self._const["onehot"]
+        mtab_global = self._const["mtab_global"]
+        Mf = mtab_global.shape[0]
+
+        tables = self._dye_tables(
+            ont, pi, lamda, prox, h, w, xs, ys, qm,
+            h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
+        )  # each (Mq, n, f, Q)
+        inner, term_hw, log_qm, term_q = (
+            torch.einsum("gqm,mnfq->gnf", onehot, t) for t in tables
+        )  # each (Mf, n, f)
+
+        if getattr(self, "use_factored", False):
+            out = offset_gamma_factored_summed(
+                obs.reshape(nfc, ev_pad), b.reshape(-1) / gain,
+                self._mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad) / gain,
+                self._const["mtab_global_np"], 1.0 / gain,
+                data["offset_samples"], data["offset_logits"], ev=P * P,
+            )
+        else:
+            img = self._mixed_images(b, h, w, xs, ys, target_locs, alpha,
+                                     mtab_global, P, ev_pad)  # (Mf, n*f, C, EVP)
+            out = offset_gamma_log_prob_summed(
+                obs.reshape(nfc, ev_pad), img.reshape(Mf, nfc, ev_pad) / gain,
+                1.0 / gain, data["offset_samples"], data["offset_logits"],
+                event_ndims=1, ev=P * P,
+            )
+        loglik = out.reshape(Mf, n_, f_, C).sum(-1)  # event dims (C, P, P)
+        local = (torch.exp(log_qm) * (inner + term_hw + loglik - log_qm - term_q)).sum(0)
+        return local[..., None] / C

@@ -408,9 +408,10 @@ class hmm(cosmos):
         return theta_probs.cpu().numpy().astype(np.float64)
 
     def z_sample(self, num_samples, generator=None):
-        """z trajectories (num_samples, N, F, C) drawn ancestrally from the
-        guide's chain over the on-target AOIs; without ``generator``, from
-        one seeded with 11 (the JAX package's ``PRNGKey(11)``)."""
+        """z trajectories (num_samples, N, F, C), int32 as the JAX package's,
+        drawn ancestrally from the guide's chain over the on-target AOIs;
+        without ``generator``, from one seeded with 11 (the JAX package's
+        ``PRNGKey(11)``)."""
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(11)
@@ -419,11 +420,11 @@ class hmm(cosmos):
             A = self._transforms["z_trans"](self.params["z_trans"][:N]).clamp_min(1e-30)
             z = categorical_sample(A[:, 0, :, 0, :], (num_samples,) + A[:, 0, :, 0, 0].shape,
                                    generator)  # (num_samples, N, C)
-            out = [z]
+            out = [z.to(torch.int32)]
             for f in range(1, F):
                 rows = torch.take_along_dim(A[None, :, f], z[..., None, None], dim=-2)
                 z = categorical_sample(rows[..., 0, :], generator=generator)
-                out.append(z)
+                out.append(z.to(torch.int32))
         return torch.stack(out, 2).cpu().numpy()
 
     def compute_params(self, CI):

@@ -1,8 +1,8 @@
 """The port's command line, ``python -m tapqir_tpu_torch fit|stats``, on the
 CPU: fit then stats on a small workspace, workspaces handed between the
 JAX package's CLI and the port's in both directions, ``config.yaml``
-against PyYAML both ways, the prompts, and the non-zero exits for what is
-not ported and for a missing card."""
+against PyYAML both ways, the prompts, and the non-zero exits for the
+options not ported and for a missing card."""
 
 import builtins
 import shutil
@@ -121,11 +121,11 @@ def test_jax_stats_reads_a_port_workspace(port_ws, tmp_path):
 def test_python_dash_m_runs_the_cli(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "tapqir_tpu_torch", "--cd", str(tmp_path), "stats",
-         "--model", "crosstalk", "--no-input"],
+         "--mesh", "auto", "--no-input"],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 1, proc.stderr
-    assert "Queue A item 5" in proc.stdout
+    assert "Queue A item 8" in proc.stdout
     assert (tmp_path / ".tapqir" / "config.yaml").exists()
 
 
@@ -201,7 +201,7 @@ def test_fit_prompts_for_options_not_given(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("command, extra, item", [
-    ("fit", ["--model", "crosstalk"], 5),
+    ("fit", ["-R", "3"], 7),
     ("fit", ["--num-restarts", "2"], 7),
     ("fit", ["--restart-iter", "100"], 7),
     ("fit", ["--mesh", "4x2"], 8),

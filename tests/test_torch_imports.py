@@ -34,6 +34,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "tapqir_tpu_torch.ops.offset_gamma" in mods
     assert "tapqir_tpu_torch.ops.scan" in mods and "tapqir_tpu_torch.models.hmm" in mods
     assert "tapqir_tpu_torch.main" in mods and "tapqir_tpu_torch.utils.stats" in mods
+    assert {"tapqir_tpu_torch.models.crosstalk", "tapqir_tpu_torch.utils.imscroll",
+            "tapqir_tpu_torch.utils.mle_analysis"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
@@ -65,7 +67,7 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
     from tapqir_tpu_torch.utils.simulate import simulate
 
     assert resolve_device("cpu").type == "cpu"
-    for name in ("cosmos", "cosmos+hmm"):
+    for name in ("cosmos", "crosstalk", "cosmos+hmm"):
         assert models[name](device="cpu").device.type == "cpu"
         if torch.cuda.is_available():
             assert models[name]().device == torch.device("cuda:0")

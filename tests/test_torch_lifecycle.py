@@ -262,7 +262,7 @@ def test_chip_smoke_hmm_phases_tiny_on_cpu(tmp_path, monkeypatch):
     hmm = cs.run_cli_hmm_fit(tmp_path, nbatch=4, num_iter=4, device="cpu")
     checks = cs.check_cli_hmm_fit(hmm, 4, device="cpu")
     assert hmm["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
-    assert hmm["nb"] == set() and hmm["run_seconds"] > 0
+    assert hmm["shapes"] == set() and hmm["run_seconds"] > 0
     assert checks["warm_start_max_abs_err"] <= cs.WARM_TOL
     model = hmm["model"]
     assert model.iter == 4 and model.dtype == torch.float32
@@ -287,3 +287,63 @@ def test_recovery_script_hmm_rehearsal_on_cpu(capsys):
     assert set(out["values"]) == {"gain", "proximity", "lamda", "kon", "koff", "mcc"}
     assert len(out["bounds"]) == 6
     assert all(np.isfinite(v) for v in out["values"].values())
+
+
+def test_chip_smoke_crosstalk_phases_tiny_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phases 14-15 at a tiny size on the CPU: the command
+    line's crosstalk fit on a two-channel workspace ends in the stats, the
+    factored route continues it through Model.run, and the crosstalk ELBO
+    and the stats' arithmetic in float32 agree with float64."""
+    monkeypatch.setenv("CI", "true")  # no rastergram
+    cs = _chip_smoke()
+    cs.prepare_dataset(tmp_path, Nt=8, F=12, P=14, J=7, device="cpu", n_chunk=2, C=2,
+                       params=cs.XTALK_PARAMS)
+    fit = cs.run_cli_crosstalk_fit(tmp_path, nbatch=4, fbatch=8, num_iter=4, device="cpu")
+    checks = cs.check_cli_crosstalk_fit(fit, 4, device="cpu")
+    assert fit["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert fit["shapes"] == set() and fit["run_seconds"] > 0
+    assert np.array(checks["alpha"]).shape == (2, 2) and len(checks["SNR"]) == 2
+    model = fit["model"]
+    assert "run" not in vars(model)  # the timing wrapper went with the command's run
+    assert model.iter == 4 and model.Q == model.data.C == 2
+    assert model.data.labels.shape == (4, 12, 2)
+    fact = cs.run_crosstalk_factored(model, num_iter=3)
+    cs.check_crosstalk_factored(fact, model, 3)
+    assert model.iter == 7 and not model.use_factored and fact["shapes"] == set()
+    card = cs.check_crosstalk_card_vs_cpu(model, n_aoi=2, n_frames=5)
+    assert card["elbo_images"] == 2 * 5 * 2
+    assert card["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert card["elbo_card_vs_cpu_rel_err"] <= cs.XTALK_ELBO_RTOL
+    probs = cs.check_card_vs_cpu(model, nbatch=4, fbatch=8, num_particles=5, n_aoi=3)
+    assert probs["block"] == [4, 8] and probs["snr_aois"] == 3
+
+
+def test_chip_smoke_kinetics_phase_tiny_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 16 at a tiny size on the CPU: ``ttfb`` on the
+    cosmos fit and ``dwelltime`` on the hmm fit of the same workspace, each
+    fit refitted on the CPU in float64 for its first rows."""
+    monkeypatch.setenv("CI", "true")
+    cs = _chip_smoke()
+    cs.run_main_path(tmp_path, Nt=8, F=12, P=14, J=7, nbatch=4, fbatch=8, num_iter=2,
+                     device="cpu", n_chunk=2)
+    fit = cs.run_cli_fit(tmp_path, nbatch=4, fbatch=8, num_iter=2, device="cpu")
+    cs.check_cli_fit(fit, 2, device="cpu")
+    hmm = cs.run_cli_hmm_fit(tmp_path, nbatch=4, num_iter=2, device="cpu")
+    cs.check_cli_hmm_fit(hmm, 2, device="cpu")
+
+    ttfb = cs.run_kinetics(tmp_path, ["ttfb", "--model", "cosmos", "-n", "20", "-it", "30"],
+                           device="cpu", cpu_rows=5, cpu_elems=12)
+    tables = cs.check_kinetics(ttfb, "ttfb", 1, 1, device="cpu")
+    assert set(tables["params-channel0"]) == {"ka", "kns", "Af"}
+    assert ttfb["z_samples_shape"] == [20, 4, 12, 1] and ttfb["fits"] == [("ttfb_mle", [20, 4])]
+    assert ttfb["mle_rel_err"] == 0.0  # the same rows on the same device
+    assert ttfb["cpu_refit_rows"] == [3]  # 12 values of rows of 4 AOIs
+    assert {"cosmos_ttfb-data-points-channel0.csv", "cosmos_ttfb-params-channel0.csv",
+            "cosmos_ttfb-fraction-bound-channel0.csv"} <= set(ttfb["files"])
+    dwell = cs.run_kinetics(tmp_path, ["dwelltime", "--model", "cosmos+hmm", "-K", "1",
+                                       "-n", "10", "-it", "30"], device="cpu", cpu_rows=5)
+    tables = cs.check_kinetics(dwell, "dwelltime", 1, 2, device="cpu")
+    assert set(tables) == {"kon-channel0", "koff-channel0"}
+    assert set(tables["koff-channel0"]) == {"A0", "koff0"}
+    assert [f[0] for f in dwell["fits"]] == ["exp_mle", "exp_mle"]
+    assert "cosmos+hmm_dwelltime-intervals-channel0.mat" in dwell["files"]

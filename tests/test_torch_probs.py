@@ -6,7 +6,7 @@ distribution and ``categorical_sample`` with the JAX package's Gumbel
 noise, and the posteriors of a float32 fit whose q(m) sits at the bounds
 of its constraint."""
 
-import math
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +15,7 @@ import pytest
 import scipy.stats as st
 import torch
 
-from _torch_port_data import numpy_dataset, perturbed_params
+from _torch_port_data import jax_particle_draws, numpy_dataset, perturbed_params
 from tapqir_tpu.distributions.core import (
     affine_beta_sample as jax_affine_beta_sample,
     beta_sample as jax_beta_sample,
@@ -77,30 +77,6 @@ def fitted(tmp_path_factory):
     tm.params = params_from_jax(p_np, "cpu", torch.float64)
     assert tm.data.N == 3 and tm.data.Nt == NT
     return jm, tm
-
-
-def jax_particle_draws(jm, pc, key, ndx, fdx, num_particles):
-    """The draws of the JAX package's ``_probs_batch`` for ``key``: one key
-    per particle, split five ways (pi, lamda, proximity, x, y)."""
-    P = jm.data.P
-    lim = (P + 1) / 2
-
-    def gk(a):
-        return jnp.moveaxis(jnp.take(jnp.take(a, ndx, 1), fdx, 2), 0, -1)
-
-    size = gk(pc["size"])
-    out = {k: [] for k in ("pi", "lamda", "proximity", "xs", "ys")}
-    for k in jax.random.split(key, num_particles):
-        ks = jax.random.split(k, 5)
-        out["pi"].append(jax_dirichlet_sample(ks[0], pc["pi_mean"] * pc["pi_size"]))
-        out["lamda"].append(jax_gamma_sample(
-            ks[1], pc["lamda_loc"] * pc["lamda_beta"], pc["lamda_beta"]))
-        out["proximity"].append(jax_affine_beta_sample(
-            ks[2], pc["proximity_loc"], pc["proximity_size"], 0.0,
-            (P + 1) / math.sqrt(12)))
-        out["xs"].append(jax_affine_beta_sample(ks[3], gk(pc["x_mean"]), size, -lim, lim))
-        out["ys"].append(jax_affine_beta_sample(ks[4], gk(pc["y_mean"]), size, -lim, lim))
-    return {k: np.stack([np.asarray(a) for a in v]) for k, v in out.items()}
 
 
 @pytest.fixture(scope="module")
@@ -238,6 +214,37 @@ def test_z_sample_follows_the_marginals(fitted, probs):
     chi2 = (((k1 - n * p1) ** 2) / (n * p1 * (1 - p1))).sum()
     assert st.chi2.sf(chi2, p1.size) > 1e-3
     assert np.array_equal(tm.z_sample(5), tm.z_sample(5))  # default seed
+    assert z.dtype == np.int32  # as jax.random.categorical's
+
+
+def test_z_sample_in_chunks_follows_the_marginals(fitted, probs):
+    """Drawn in chunks of 7 samples (a noise budget of 7 samples' worth of
+    bytes): 4000 samples of the right shape whose counts pass the same
+    chi-square test."""
+    _, tm = fitted
+    tm.params_stats = {"z_probs": probs[1][0]}
+    N = tm.data.N
+    one = N * F * 1 * 2 * 8  # bytes of one sample's float64 noise
+    n = 4000
+    calls = []
+    orig = categorical_sample
+
+    def counted(*args, **kwargs):
+        calls.append(args[1][0])
+        return orig(*args, **kwargs)
+
+    # the module, not the class the package's __init__ binds to the same name
+    port_cosmos_module = importlib.import_module("tapqir_tpu_torch.models.cosmos")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_cosmos_module, "categorical_sample", counted)
+        mp.setattr(port_cosmos_module, "Z_SAMPLE_CHUNK_BYTES", 7 * one)
+        z = tm.z_sample(n, generator=torch.Generator().manual_seed(8))
+    assert z.shape == (n, N, F, 1) and z.dtype == np.int32
+    assert calls == [7] * (n // 7) + [n % 7]
+    p1 = probs[1][0][:N, ..., 1]
+    k1 = (z == 1).sum(0)
+    chi2 = (((k1 - n * p1) ** 2) / (n * p1 * (1 - p1))).sum()
+    assert st.chi2.sf(chi2, p1.size) > 1e-3
 
 
 def test_probs_at_the_bounds_of_q_m_stay_finite_in_float32(tmp_path):

@@ -1,10 +1,11 @@
 """The port's fit loop on the CPU: ``checkpoint_interval``,
 ``full_checkpoint_every`` and ``progress_bar`` of ``Model.run``, and the
 port's own fixed-seed trajectory goldens (``tests/golden/trajectory_torch_
-cosmos.npz`` and ``trajectory_torch_cosmos+hmm.npz``, checked through
-``tests/golden/trajectory.py``) from the fits of the JAX package's cosmos
-and hmm tests - 200 full-batch steps with a checkpoint every 50 - on
-numpy-seeded data.
+cosmos.npz``, ``trajectory_torch_cosmos+hmm.npz`` and
+``trajectory_torch_crosstalk.npz``, checked through
+``tests/golden/trajectory.py``) from the fits of the JAX package's cosmos,
+hmm and crosstalk tests - 200 full-batch steps with a checkpoint every 50 -
+on numpy-seeded data (two dyes in two channels for crosstalk).
 
 Regenerate the goldens deliberately after an intended change of the
 estimator or of the sampling:
@@ -17,16 +18,16 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_data import numpy_dataset
+from _torch_port_data import numpy_crosstalk_dataset, numpy_dataset
 from tapqir_tpu_torch.models import models
 from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData, save
 
 torch.set_num_threads(1)
 
 
-def _fit(tmp_path_factory, name, Nt, F, num_iter=200):
+def _fit(tmp_path_factory, name, Nt, F, num_iter=200, dataset=numpy_dataset):
     ws = tmp_path_factory.mktemp(name.replace("+", "_"))
-    save(numpy_dataset(CosmosDataset, OffsetData, Nt=Nt, F=F, seed=0), ws)
+    save(dataset(CosmosDataset, OffsetData, Nt=Nt, F=F, seed=0), ws)
     model = models[name](device="cpu")
     model.load(ws)
     model.init(lr=0.005, nbatch_size=Nt, fbatch_size=F)
@@ -45,6 +46,11 @@ def fitted_hmm(tmp_path_factory):
     return _fit(tmp_path_factory, "cosmos+hmm", Nt=4, F=30)
 
 
+@pytest.fixture(scope="module")
+def fitted_crosstalk(tmp_path_factory):
+    return _fit(tmp_path_factory, "crosstalk", Nt=4, F=20, dataset=numpy_crosstalk_dataset)
+
+
 def _metrics_iters(model):
     rows = (model.run_path / "logs" / model.name / "metrics.csv").read_text().splitlines()
     return [int(r.split(",")[0]) for r in rows[1:]]
@@ -55,7 +61,7 @@ def _checkpoint_iter(model):
         return json.loads(bytes(z["meta"]).decode())["iter"]
 
 
-@pytest.mark.parametrize("fixture", ["fitted_cosmos", "fitted_hmm"])
+@pytest.mark.parametrize("fixture", ["fitted_cosmos", "fitted_hmm", "fitted_crosstalk"])
 def test_checkpoint_interval_sets_the_rolling_points(fixture, request):
     model = request.getfixturevalue(fixture)
     assert model.iter == 200
@@ -66,7 +72,7 @@ def test_checkpoint_interval_sets_the_rolling_points(fixture, request):
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("fixture", ["fitted_cosmos", "fitted_hmm"])
+@pytest.mark.parametrize("fixture", ["fitted_cosmos", "fitted_hmm", "fitted_crosstalk"])
 def test_trajectory_golden(fixture, request, trajectory_golden_check):
     model = request.getfixturevalue(fixture)
     trajectory_golden_check(model, f"torch_{model.name}")
