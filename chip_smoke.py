@@ -37,17 +37,18 @@ one. Phases, each printing its findings; any failure is an exception:
 7. the dense main path: simulate an eLife-scale cosmos dataset (Nt=856
    AOIs, F=790 frames, P=14, 61 offset bins) with the port's simulator,
    save it, then models["cosmos"]() -> load -> init(lr=0.005,
-   nbatch_size=10, fbatch_size=512) -> run(400), and a held-out loss
-   without gradient before and after;
+   nbatch_size=10, fbatch_size=512) -> run(200), and a held-out loss
+   without gradient before and after (200 steps, cut from 400 to keep the
+   script within its time limit with phases 17-19);
 8. the factored main path: the same saved dataset, the same entry points
-   with ``use_factored = True``, run(400);
+   with ``use_factored = True``, run(200);
 9. the per-pixel path: KSMOGN(...).log_prob on 10 AOIs x 512 frames of that
    dataset (M=1) and the non-ev summed likelihood over the 4 spot configs
    (event_ndims=2), with gradients on height and background;
 10. the command line's fit on phase 7's workspace: ``python -m
     tapqir_tpu_torch --cd <workspace> fit --model cosmos -n 10 -f 512 -it
     200 --no-input``, in process through ``main(argv)``: it resumes phase
-    7's checkpoint (iteration 400 -> 600) and ends in ``compute_stats``
+    7's checkpoint (iteration 200 -> 400) and ends in ``compute_stats``
     (p(specific), credible intervals, SNR / chi2, MCC against the
     simulator's labels), on the card;
 11. the command line's stats on the same workspace, with the checks of
@@ -79,21 +80,44 @@ one. Phases, each printing its findings; any failure is an exception:
     in float32 against float64 with the same draws and the factored route
     against the dense one, then ``_probs_batch`` and ``snr_and_chi2`` as in
     phase 11;
-16. the kinetics commands in process: ``ttfb --model cosmos`` on phases
-    10-11's fit and ``dwelltime --model cosmos+hmm -K 1`` on phase 12's, at
-    their default samples and iterations, each MLE fit's first rows (16, or
+16. the kinetics commands in process: ``ttfb --model cosmos -it 5000`` on
+    phases 10-11's fit and ``dwelltime --model cosmos+hmm -K 1 -it 2500`` on
+    phase 12's, at their default samples and a third and a quarter of their
+    default MLE steps (cut for time as phases 7-8), each MLE fit's first rows (16, or
     as many as hold 32768 values) fitted again in float64 on the CPU
     (:func:`run_kinetics`, :func:`check_kinetics`).
+17. the restart step's chain-batched kernels (:func:`run_chain_kernels`):
+    summed statistics, summed forward and factored with a rate per chain at
+    R=4 chains x nb=5120 (M=4, Kf=2), then at crosstalk's M=16 / Kf=4 over
+    R=2 x 10240, each launch bitwise equal, image for image, to R
+    single-chain launches and within the float64 tolerances above, timed
+    beside the R single-chain launches, the plain version, the bound and
+    the special-function floor;
+18. batched random restarts through the command line, in a workspace of its
+    own on phase 7's saved data: ``fit --model cosmos -n 10 -f 512 -R 4
+    --restart-iter 200 -it 200 --no-input`` (200 `summed_stats` launches
+    at (4, 20480) - one per restart step for all 4 chains - then 200 at
+    (4, 5120); ``cosmos_restarts.json``, the best chain the argmin of the
+    trailing mean -ELBO, iteration 400), then ``stats``
+    (:func:`check_cli_restarts`), and a ``torch.profiler`` count of the
+    launches per restart step at R=4 beside a single-chain step's;
+19. ``fit_restarts`` through the Python API, 20 steps each: cosmos with
+    ``use_factored`` and cosmos+hmm (resuming phase 12's warm-started fit)
+    at R=4, crosstalk at R=2, each with one kernel launch per step
+    (:func:`check_api_restarts`), and one restart step of each on the card
+    in float32 against float64 on the CPU with the same batches and draws
+    (:func:`check_restart_card_vs_cpu`).
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
 of the logs the kernels issue at M=16 (one per chunk of 4 configs). The
 kernels' launch counts are set to 0 just before each of the paths 7-16 and
-read just after it. Phases 10-16 print their seconds (stats: by stage) and
-their peak device memory; every phase prints its wall time at the end.
+read just after it, and so before and after phases 18 and 19. Phases 10-19
+print their seconds (stats: by stage) and their peak device memory; every
+phase prints its wall time at the end.
 
 The second-to-last line is a JSON object with one entry per kernel, its
-launches summed over the paths 7-16; the last line is {"ok": true,
+launches summed over the paths 7-19; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -865,28 +889,35 @@ def check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=10, num_particles=50):
 XTALK_ELBO_RTOL = 1e-4
 # the kinetics fits (float64 Adam) on the card against the CPU: relative
 MLE_RTOL = 1e-4
+# phase 16's MLE steps, cut from the commands' defaults (15000, 10000) to
+# keep the script within its time limit with the restart phases
+TTFB_ITER, DWELL_ITER = 5000, 2500
 
 
 class record_kernel_shapes:
-    """Within the block, the set ``shapes`` of (kernel, configs, images)
-    of every summed and factored launch, the factored ones as
-    ("factored_stats", Kf, configs, images)."""
+    """Within the block, ``counts``: the launches of every summed and
+    factored kernel per (kernel, configs, images), in the order first
+    launched, the factored ones as ("factored_stats", Kf, configs, images);
+    ``shapes``: the set of those keys."""
 
     def __enter__(self):
         from tapqir_tpu_torch.ops import offset_gamma as og
 
-        self.shapes = set()
+        self.counts = {}
         self._calls = (og._SummedLauncher.__call__, og._FactoredLauncher.__call__)
         summed, factored = self._calls
-        shapes = self.shapes
+        counts = self.counts
+
+        def add(key):
+            counts[key] = counts.get(key, 0) + 1
 
         def summed_rec(launcher, x2, a3, *args):
             kind = "summed_stats" if launcher.stats else "summed_fwd"
-            shapes.add((kind, int(a3.shape[0]), int(x2.shape[0])))
+            add((kind, int(a3.shape[0]), int(x2.shape[0])))
             return summed(launcher, x2, a3, *args)
 
         def factored_rec(launcher, x2, base, deltas, masks, *args):
-            shapes.add(("factored_stats", int(deltas.shape[0]), len(masks), int(x2.shape[0])))
+            add(("factored_stats", int(deltas.shape[0]), len(masks), int(x2.shape[0])))
             return factored(launcher, x2, base, deltas, masks, *args)
 
         og._SummedLauncher.__call__ = summed_rec
@@ -897,6 +928,10 @@ class record_kernel_shapes:
         from tapqir_tpu_torch.ops import offset_gamma as og
 
         og._SummedLauncher.__call__, og._FactoredLauncher.__call__ = self._calls
+
+    @property
+    def shapes(self):
+        return set(self.counts)
 
 
 def run_cli_crosstalk_fit(workdir, nbatch=10, fbatch=512, num_iter=200, device="cuda"):
@@ -1212,6 +1247,489 @@ def check_kinetics(res, name, C, n_fits, device="cuda"):
             tables[f"{kind}-channel{c}"] = {r: v["Mean"] for r, v in rows.items()}
     return tables
 
+
+# ---------------------------------------------------------------------------
+# restart phases (17-19)
+# ---------------------------------------------------------------------------
+
+# phase 18's command and phase 19's API runs
+RESTARTS_R, RESTART_ITER, API_RESTART_ITER = 4, 200, 20
+# one restart step on the card (float32) against float64 on the CPU: relative,
+# per chain
+RESTART_RTOL = 1e-4
+# the chain-batched rate gradient against R single-chain launches: relative
+CHAIN_RATE_RTOL = 1e-6
+
+
+def chain_rates(R, seed):
+    """R per-chain rates 1/gain around the simulation's gain of 7."""
+    return 1.0 / np.random.default_rng(seed).uniform(6.0, 8.0, R)
+
+
+def compare_chains(form, R, nb, EVP, ev, J, seed, fwd_tol, grad_tol, M=4, Kf=2):
+    """Phase 17: one chain-batched launch of the summed (``form`` =
+    "summed", M configs) or factored ("factored", Kf spots) kernel over R
+    runs of nb images with a rate per run, against R single-chain launches
+    (out, spl and spd bitwise equal, and each chain's rate gradient through
+    the autograd wrapper within CHAIN_RATE_RTOL relative), and against the
+    float64 plain version chain by chain, over pieces of images: forward,
+    the concentration (or base and delta) gradients and each chain's rate
+    gradient under a random cotangent. Returns the max errors."""
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    n_all = R * nb
+    rates = torch.tensor(chain_rates(R, seed), device="cuda", dtype=torch.float32)
+    if form == "summed":
+        x, a, _, g, w = kernel_inputs(M, n_all, EVP, ev, J, torch.float32, seed, "cuda")
+        leaves, axes = [a], [1]
+        launchers = (og.summed_fwd, og.summed_stats)
+
+        def launch(launcher, sl, r):
+            return launcher(x[sl].contiguous(), a[:, sl].contiguous(), r, g, w, ev)
+
+        def wrapper(sl, ls, r):
+            return og.offset_gamma_summed(x[sl], ls[0], r, g, w, ev)
+
+        def plain(sl, ls, r):
+            return og.offset_gamma_summed_plain(x[sl, :ev].double(), ls[0], r,
+                                                g.double(), w.double(), ev)
+    else:
+        x, base, deltas, mtab, _, g, w = factored_inputs(Kf, n_all, EVP, ev, J,
+                                                         torch.float32, seed, "cuda")
+        masks = og.config_masks(mtab, Kf)
+        M = len(masks)
+        leaves, axes = [base, deltas], [0, 1]
+        launchers = (og.factored_stats,)
+
+        def launch(launcher, sl, r):
+            return launcher(x[sl].contiguous(), base[sl].contiguous(),
+                            deltas[:, sl].contiguous(), masks, r, g, w, ev)
+
+        def wrapper(sl, ls, r):
+            return og.offset_gamma_factored_summed(x[sl], ls[0], ls[1], mtab, r, g, w, ev)
+
+        def plain(sl, ls, r):
+            return og.offset_gamma_factored_summed_plain(x[sl, :ev].double(), ls[0], ls[1],
+                                                         mtab, r, g.double(), w.double(), ev)
+
+    def part(t, ax, sl, lanes=False):
+        p = t.narrow(ax, sl.start, sl.stop - sl.start)
+        return p[..., :ev] if lanes and t.dim() > 1 else p
+
+    runs = [slice(r * nb, (r + 1) * nb) for r in range(R)]
+    everything = slice(0, n_all)
+    for launcher in launchers:  # bitwise against R single-chain launches
+        batched = launch(launcher, everything, rates)
+        batched = batched if isinstance(batched, tuple) else (batched,)
+        for r, sl in enumerate(runs):
+            single = launch(launcher, sl, rates[r:r + 1])
+            single = single if isinstance(single, tuple) else (single,)
+            for name, u, v in zip(("out", "spl", "spd"), batched, single):
+                if not torch.equal(u[:, sl], v):
+                    raise RuntimeError(f"{form} {launcher.entry}: chain {r}'s {name} "
+                                       "differs from its single-chain launch")
+        del batched, single
+
+    cot = torch.tensor(np.random.default_rng(seed + 1).uniform(-1, 1, (M, n_all)),
+                       device="cuda", dtype=torch.float32)
+    ls = [t.clone().requires_grad_(True) for t in leaves]
+    rk = rates.clone().requires_grad_(True)
+    out_k = wrapper(everything, ls, rk)
+    grads_k = torch.autograd.grad((out_k * cot).sum(), ls + [rk])
+    errs = {"rate_vs_single_rel": 0.0}
+    for r, sl in enumerate(runs):
+        ls_r = [part(t, ax, sl).clone().requires_grad_(True) for t, ax in zip(leaves, axes)]
+        r1 = rates[r:r + 1].clone().requires_grad_(True)
+        out_r = wrapper(sl, ls_r, r1)
+        g_r = torch.autograd.grad((out_r * cot[:, sl]).sum(), [r1])[0]
+        rel = abs(float(g_r) - float(grads_k[-1][r])) / abs(float(g_r))
+        errs["rate_vs_single_rel"] = max(errs["rate_vs_single_rel"], rel)
+    if errs["rate_vs_single_rel"] > CHAIN_RATE_RTOL:
+        raise RuntimeError(f"{form}: chain-batched rate gradient {errs['rate_vs_single_rel']} "
+                           f"from the single-chain launches (relative) > {CHAIN_RATE_RTOL}")
+
+    # the float64 plain version, chain by chain over pieces of images
+    names = ["grad_concentration"] if form == "summed" else ["grad_base", "grad_deltas"]
+
+    def close(name, got, want, tol):
+        got64, want64 = got.detach().double().cpu().numpy(), want.detach().cpu().numpy()
+        np.testing.assert_allclose(got64, want64, err_msg=f"{form} {name}", **tol)
+        errs[name] = max(errs.get(name, 0.0), float(np.abs(got64 - want64).max()))
+
+    for r, sl in enumerate(runs):
+        r64 = rates[r].double().requires_grad_(True)
+        gr = 0.0
+        for sel in _plain_chunks(torch.ones(nb, dtype=torch.bool), M * ev * J):
+            piece = slice(sl.start + int(sel[0]), sl.start + int(sel[-1]) + 1)
+            ls_p = [part(t, ax, piece, lanes=True).double().requires_grad_(True)
+                    for t, ax in zip(leaves, axes)]
+            out_p = plain(piece, ls_p, r64)
+            g_p = torch.autograd.grad((out_p * cot[:, piece].double()).sum(), ls_p + [r64])
+            gr = gr + g_p[-1]
+            close("forward", out_k[:, piece], out_p, fwd_tol)
+            for name, gk, gp, ax in zip(names, grads_k[:-1], g_p[:-1], axes):
+                close(name, part(gk, ax, piece, lanes=True), gp, grad_tol)
+        rel = abs(float(grads_k[-1][r]) - float(gr)) / abs(float(gr))
+        errs["grad_rate_rel"] = max(errs.get("grad_rate_rel", 0.0), rel)
+        if rel > (RATE_RTOL if form == "summed" else grad_tol["rtol"]):
+            raise RuntimeError(f"{form}: chain {r}'s rate gradient {rel} from float64")
+    return errs
+
+
+def _time_chain_plain(plain, leaves, axes, rates, R, nb, M, grad, iters=3):
+    """ms of the plain version over R runs of nb images, each run with its
+    rate (forward only, or forward + autograd backward), in pieces of at
+    most 40960 / M images."""
+    step = max(1, 40960 // M)
+    pieces = [(r, slice(r * nb + i, r * nb + min(i + step, nb)))
+              for r in range(R) for i in range(0, nb, step)]
+
+    def run():
+        for r, sl in pieces:
+            ls = [t.narrow(ax, sl.start, sl.stop - sl.start) for t, ax in zip(leaves, axes)]
+            if grad:
+                ls = [t.detach().requires_grad_(True) for t in ls]
+                torch.autograd.grad(plain(sl, ls, rates[r]).sum(), ls)
+            else:
+                with torch.no_grad():
+                    plain(sl, ls, rates[r])
+
+    return time_ms(run, iters)
+
+
+def run_chain_kernels():
+    """Phase 17: the chain-batched launches of the restart step - the
+    summed statistics, summed forward and factored kernels with a rate per
+    chain - at the restart shapes (R=4 chains x nb=5120 images, M=4 / Kf=2;
+    then crosstalk's M=16 / Kf=4 over R=2 x 10240) against R single-chain
+    launches and float64 (:func:`compare_chains`), then timed with CUDA
+    events beside the R single-chain launches, the plain version, the
+    bound and the special-function floor. Returns the errors and the
+    timing rows (ms, plain ms, bound ms, bound by, floor ms, single ms)."""
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    EVP, ev, J = 256, 196, 61
+    R4, nb4 = RESTARTS_R, 5120
+    cases = [
+        ("summed", R4, nb4, 4, 2, FWD_TOL, GRAD_TOL),
+        ("factored", R4, nb4, 4, 2, FACT_FWD_TOL, FACT_GRAD_TOL),
+        ("summed", 2, XT_NB, XT_M, XT_KF, FWD_TOL, GRAD_TOL),
+        ("factored", 2, XT_NB, XT_M, XT_KF, FACT_FWD_TOL, FACT_GRAD_TOL),
+    ]
+    errs, timing = {}, {}
+    for i, (form, R, nb, M, Kf, fwd_tol, grad_tol) in enumerate(cases):
+        shape = f"M={M}" if form == "summed" else f"Kf={Kf} (M={M})"
+        errs[f"{form} R={R} x nb={nb} {shape}"] = compare_chains(
+            form, R, nb, EVP, ev, J, 60 + i, fwd_tol, grad_tol, M=M, Kf=Kf)
+        torch.cuda.empty_cache()
+
+        n_all = R * nb
+        rates = torch.tensor(chain_rates(R, 70 + i), device="cuda", dtype=torch.float32)
+        singles = [rates[r:r + 1] for r in range(R)]
+        runs = [slice(r * nb, (r + 1) * nb) for r in range(R)]
+        if form == "summed":
+            x, a, _, g, w = kernel_inputs(M, n_all, EVP, ev, J, torch.float32, 80 + i, "cuda")
+            x[:, ev:] = 91.0  # finite padding for the plain version
+            a[..., ev:] = 1.0
+            parts = [(x[sl].contiguous(), a[:, sl].contiguous()) for sl in runs]
+            floor = mufu_floor_ms(x[:, :ev], g, M)
+            for kname, launcher, stats in (("summed_stats", og.summed_stats, True),
+                                           ("summed_fwd", og.summed_fwd, False)):
+                row = f"{kname} R={R} x nb={nb} M={M}"
+                ms = time_ms(lambda: launcher(x, a, rates, g, w, ev), 20)
+                single = time_ms(lambda: [launcher(xp, ap, r1, g, w, ev)
+                                          for (xp, ap), r1 in zip(parts, singles)], 20)
+                plain = _time_chain_plain(
+                    lambda sl, ls, r: og.offset_gamma_summed_plain(x[sl], ls[0], r, g, w, ev),
+                    [a], [1], rates, R, nb, M, grad=stats)
+                timing[row] = (ms, plain, *bound_ms(x, a, g, ev, stats), floor, single)
+            del x, a, parts
+        else:
+            x, base, deltas, mtab, _, g, w = factored_inputs(Kf, n_all, EVP, ev, J,
+                                                             torch.float32, 80 + i, "cuda")
+            x[:, ev:] = 91.0
+            deltas[..., ev:] = 0.0
+            masks = og.config_masks(mtab, Kf)
+            parts = [(x[sl].contiguous(), base[sl].contiguous(), deltas[:, sl].contiguous())
+                     for sl in runs]
+            row = f"factored_stats R={R} x nb={nb} Kf={Kf}"
+            ms = time_ms(lambda: og.factored_stats(x, base, deltas, masks, rates, g, w, ev), 20)
+            single = time_ms(lambda: [og.factored_stats(xp, bp, dp, masks, r1, g, w, ev)
+                                      for (xp, bp, dp), r1 in zip(parts, singles)], 20)
+            plain = _time_chain_plain(
+                lambda sl, ls, r: og.offset_gamma_factored_summed_plain(
+                    x[sl], ls[0], ls[1], mtab, r, g, w, ev),
+                [base, deltas], [0, 1], rates, R, nb, M, grad=True)
+            timing[row] = (ms, plain, *bound_factored_ms(x, deltas, g, M, ev),
+                           mufu_floor_ms(x[:, :ev], g, M), single)
+            del x, base, deltas, parts
+        torch.cuda.empty_cache()
+    return errs, timing
+
+
+def profile_restart_steps(model, R, n_prof=3):
+    """Device launches per restart step of R chains (``Model._restart_step``
+    on the model's parameters stacked R times) and the device's busy share,
+    from a ``torch.profiler`` trace of ``n_prof`` steps, as
+    :func:`profile_steps` counts a single-chain step's."""
+    from tapqir_tpu_torch.parallel.restarts import stack_params
+
+    params = stack_params(model.params, R, perturb=0.01)
+    mu = {k: torch.zeros_like(v) for k, v in params.items()}
+    nu = {k: torch.zeros_like(v) for k, v in params.items()}
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(0)
+    model._restart_step(params, mu, nu, 1, model.lr, gen)  # warm-up outside the trace
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for t in range(2, 2 + n_prof):
+            model._restart_step(params, mu, nu, t, model.lr, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda]
+    return {
+        "launches_per_step": len(kernels) / n_prof,
+        "device_busy_share": sum(e.device_time_total for e in kernels) * 1e-6 / wall,
+        "profiled_ms_per_step": 1e3 * wall / n_prof,
+    }
+
+
+def _timed_restarts(seen, device):
+    """A stand-in for ``parallel.restarts.fit_restarts`` that times the call
+    (with the device synchronised) and keeps its losses and best chain in
+    ``seen``; returns it and the original to restore."""
+    from tapqir_tpu_torch.parallel import restarts
+
+    fit_restarts = restarts.fit_restarts
+
+    def timed(model, **kwargs):
+        _sync(device)
+        t0 = time.perf_counter()
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        losses, best = fit_restarts(model, **kwargs)
+        _sync(device)
+        seen.update(restart_seconds=time.perf_counter() - t0, losses=losses, best=best,
+                    iter_after_restarts=model.iter,
+                    restart_peak_bytes=(torch.cuda.max_memory_allocated()
+                                        if torch.device(device).type == "cuda" else None))
+        return losses, best
+
+    return restarts, timed, fit_restarts
+
+
+def run_cli_restarts(workdir, nbatch=10, fbatch=512, R=RESTARTS_R, restart_iter=RESTART_ITER,
+                     num_iter=200, device="cuda"):
+    """Phase 18: in a workspace of its own beside phase 7's (its
+    ``data.tpqr`` linked, not saved again), ``fit --model cosmos -n nbatch -f
+    fbatch -R R --restart-iter restart_iter -it num_iter --no-input`` and
+    then ``stats --no-input``, each in process with the launch counts set to
+    0 just before and read just after. Adds to :func:`run_cli`'s result the
+    restarts' seconds, losses and best chain, the count of launches per
+    shape, the stats command's result, and the checkpoint's iteration."""
+    sub = Path(workdir) / "restarts"
+    sub.mkdir()
+    (sub / "data.tpqr").symlink_to(Path(workdir) / "data.tpqr")
+    seen = {}
+    restarts, timed, original = _timed_restarts(seen, device)
+    restarts.fit_restarts = timed
+    try:
+        with record_kernel_shapes() as rec:
+            res = run_cli(sub, ["fit", "--model", "cosmos", "-n", str(nbatch), "-f",
+                                str(fbatch), "-R", str(R), "--restart-iter", str(restart_iter),
+                                "-it", str(num_iter), "--no-input"], device)
+    finally:
+        restarts.fit_restarts = original
+    res.update(seen, counts=rec.counts, workdir=sub)
+    res["restarts_json"] = json.loads((sub / ".tapqir" / "cosmos_restarts.json").read_text())
+    res["iter_checkpoint"] = _checkpoint_iter(sub)
+    res["stats"] = run_cli(sub, ["stats", "--no-input"], device)
+    return res
+
+
+def check_cli_restarts(res, R, restart_iter, num_iter, device="cuda"):
+    """Raise unless phase 18's fit exited 0 on ``device``, wrote
+    ``cosmos_restarts.json`` with R finite final losses and the best chain
+    the argmin of the trailing mean -ELBO over max(1, min(50, T // 10))
+    steps, reached iteration restart_iter + num_iter (model and
+    checkpoint), launched exactly restart_iter summed-statistics kernels at
+    (M, R·n·f) - one per restart step for all chains - then num_iter at (M,
+    n·f) and nothing else, and its stats command exited 0 with normalised
+    z_probs. Returns the numbers checked."""
+    m = res["model"]
+    if res["code"] != 0 or m is None:
+        raise RuntimeError(f"CLI restarts fit exited with {res['code']}")
+    if m.device.type != torch.device(device).type:
+        raise RuntimeError(f"CLI restarts fit ran on {m.device}, not on {device}")
+    meta, losses = res["restarts_json"], res["losses"]
+    if (meta["num_restarts"], meta["restart_iter"]) != (R, restart_iter):
+        raise RuntimeError(f"cosmos_restarts.json: {meta}")
+    final = np.asarray(meta["final_losses"])
+    if final.shape != (R,) or not np.isfinite(final).all():
+        raise RuntimeError(f"cosmos_restarts.json final losses {final}")
+    tail = max(1, min(50, restart_iter // 10))
+    best = int(np.argmin(losses[:, -tail:].mean(1)))
+    if losses.shape != (R, restart_iter) or meta["best_chain"] != best or res["best"] != best:
+        raise RuntimeError(f"best chain {meta['best_chain']} / {res['best']}, trailing "
+                           f"mean argmin {best}")
+    if not np.array_equal(final, losses[:, -1]):
+        raise RuntimeError("cosmos_restarts.json final losses differ from the run's")
+    total = restart_iter + num_iter
+    if res["iter_after_restarts"] != restart_iter or m.iter != total \
+            or res["iter_checkpoint"] != total:
+        raise RuntimeError(f"CLI restarts fit: iteration {res['iter_after_restarts']}, "
+                           f"{m.iter}, checkpoint {res['iter_checkpoint']}")
+    M, nb = 1 << m.K, m.nbatch_size * m.fbatch_size * m.data.C
+    want = dict.fromkeys(res["launches"], 0)
+    if m.device.type == "cuda":
+        want["summed_stats"] = restart_iter + num_iter
+        shapes = {("summed_stats", M, R * nb): restart_iter, ("summed_stats", M, nb): num_iter}
+        if res["counts"] != shapes or list(res["counts"]) != list(shapes):
+            raise RuntimeError(f"CLI restarts fit: launches per shape {res['counts']}, "
+                               f"expected {shapes} in that order")
+    if res["launches"] != want:
+        raise RuntimeError(f"CLI restarts fit: launches {res['launches']}, expected {want}")
+    stats = res["stats"]
+    if stats["code"] != 0:
+        raise RuntimeError(f"CLI restarts stats exited with {stats['code']}")
+    z = stats["model"].params_stats["z_probs"]
+    N = m.data.N
+    z_err = float(np.abs(z[:N].sum(-1) - 1.0).max())
+    if z_err > 1e-5:
+        raise RuntimeError(f"restarts stats: z_probs sum error {z_err}")
+    return {"best_chain": best, "final_losses": final.tolist(),
+            "trailing_means": losses[:, -tail:].mean(1).tolist(), "z_sum_max_abs_err": z_err}
+
+
+def run_api_restarts(workdir, name, R, num_iter=API_RESTART_ITER, nbatch=10, fbatch=512,
+                     device="cuda", use_factored=False):
+    """Phase 19: ``fit_restarts`` through the Python API on a fresh model of
+    ``name`` loaded from ``workdir`` (it resumes the workspace's
+    checkpoint: hmm phase 12's warm-started fit), ``num_iter`` steps of R
+    chains, the launch counts set to 0 just before and read just after.
+    Returns the seconds, steps/s, launches and their shapes, the losses and
+    the peak device memory, and the model."""
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.parallel.restarts import fit_restarts
+
+    model = models[name](device=device)
+    model.use_factored = use_factored
+    model.load(workdir)
+    model.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+    iter0 = model.iter
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with record_kernel_shapes() as rec:
+        _reset_launches()
+        _sync(device)
+        t0 = time.perf_counter()
+        losses, best = fit_restarts(model, num_restarts=R, num_iter=num_iter, chunk=num_iter,
+                                    perturb=0.01)
+        _sync(device)
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+    return {"seconds": seconds, "steps_per_s": num_iter / seconds, "launches": launches,
+            "counts": rec.counts, "losses": losses, "best": best, "iter_before": iter0,
+            "peak_bytes": torch.cuda.max_memory_allocated() if cuda else None}, model
+
+
+def check_api_restarts(res, model, R, num_iter):
+    """Raise unless the API run took ``num_iter`` steps with exactly one
+    launch each of the model's kernel for all R chains (the factored one at
+    (Kf, 2^Kf, R·n·f·C) with ``use_factored``, else the summed statistics
+    at (M, R·n·f·C); hmm takes every frame) and finite losses, and handed
+    the winner to the model."""
+    f = model.data.F if model.name == "cosmos+hmm" else model.fbatch_size
+    nb = R * model.nbatch_size * f * model.data.C
+    Kf = model.K * (model.Q if model.name == "crosstalk" else 1)
+    want = dict.fromkeys(res["launches"], 0)
+    if getattr(model, "use_factored", False):
+        key, want["factored_stats"] = ("factored_stats", Kf, 1 << Kf, nb), num_iter
+    else:
+        key, want["summed_stats"] = ("summed_stats", 1 << Kf, nb), num_iter
+    if model.device.type == "cuda" and (res["launches"] != want
+                                        or res["counts"] != {key: num_iter}):
+        raise RuntimeError(f"{model.name} restarts: launches {res['launches']} at "
+                           f"{res['counts']}, expected {want} at {key}")
+    if res["losses"].shape != (R, num_iter) or not np.isfinite(res["losses"]).all():
+        raise RuntimeError(f"{model.name} restarts: losses {res['losses']}")
+    if model.iter != res["iter_before"] + num_iter:
+        raise RuntimeError(f"{model.name} restarts: iteration {res['iter_before']} -> "
+                           f"{model.iter}")
+
+
+def check_restart_card_vs_cpu(model, R, n_aoi=4, n_frames=64, nbatch=2, fbatch=32):
+    """Phase 19, one restart step of R chains (``Model._restart_step``) on
+    the model's device in its dtype against float64 on the CPU, with the
+    same batches (each chain its own rows among AOIs 0..n_aoi-1 and frames
+    among 0..n_frames-1; hmm takes all n_frames) and the same draws
+    (recorded through the packed draw): the per-chain losses within
+    RESTART_RTOL relative. Both sides step the model's parameters over
+    those AOIs and frames, stacked R times and jittered, on that block of
+    the data (the CPU's float64 plain version holds (configs, images, 256
+    lanes, 61 bins) intermediates). Returns the losses and the largest
+    relative difference."""
+    from tapqir_tpu_torch.distributions import core
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.models.cosmos import _chain_perms
+    from tapqir_tpu_torch.parallel.restarts import stack_params
+
+    dev = model.device
+    hmm = model.name == "cosmos+hmm"
+    block = (torch.arange(n_aoi, device=dev).expand(R, -1),
+             torch.arange(n_frames, device=dev).expand(R, -1))
+    params = {k: v.contiguous() for k, v in model.gather_chain_windows(
+        stack_params(model.params, R, perturb=0.05), *block).items()}
+    per_aoi = ("is_ontarget", "mask")
+    data = {k: (v[:n_aoi, :n_frames] if k in ("images", "xy") else
+                v[:n_aoi] if k in per_aoi else v) for k, v in model._data_dev.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    ndx = _chain_perms(R, n_aoi, gen, dev)[:, :nbatch]
+    if hmm:
+        fidx, f = None, n_frames
+    else:
+        fidx, f = torch.sort(_chain_perms(R, n_frames, gen, dev)[:, :fbatch], -1)[0], fbatch
+
+    sampler, recorded = core.std_gamma_sample, []
+
+    def recording(conc, generator=None, draws=None):
+        out = sampler(conc, generator, draws)
+        recorded.append(out.detach())
+        return out
+
+    def zeros(tree):
+        return {k: torch.zeros_like(v) for k, v in tree.items()}
+
+    p64 = {k: v.cpu().double() for k, v in params.items()}  # the step updates params
+    full, model._data_dev = model._data_dev, data
+    core.std_gamma_sample = recording
+    try:
+        card = model._restart_step(params, zeros(params), zeros(params), 1, model.lr, gen,
+                                   batch=(ndx, fidx, f)).cpu().double()
+    finally:
+        core.std_gamma_sample = sampler
+        model._data_dev = full
+    cpu = models[model.name](S=model.S, K=model.K, device="cpu", dtype="double",
+                             priors=model.priors)
+    cpu.data, cpu._transforms = model.data, model._transforms
+    cpu.nbatch_size, cpu.fbatch_size = model.nbatch_size, model.fbatch_size
+    cpu._build_constants()
+    cpu._data_dev = {k: v.cpu() if k == "is_ontarget" else v.cpu().double()
+                     for k, v in data.items()}
+    want = cpu._restart_step(p64, zeros(p64), zeros(p64), 1, model.lr, None,
+                             batch=(ndx.cpu(), None if fidx is None else fidx.cpu(), f),
+                             draws=recorded[0].cpu().double())
+    rel = ((card - want).abs() / want.abs()).max().item()
+    if not rel <= RESTART_RTOL:
+        raise RuntimeError(f"{model.name} restart step: card vs CPU losses {card.tolist()} "
+                           f"vs {want.tolist()}, {rel} relative > {RESTART_RTOL}")
+    return {"losses_card": card.tolist(), "losses_cpu_f64": want.tolist(),
+            "max_rel_err": rel, "images": R * nbatch * f * model.data.C}
 
 
 def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
@@ -1917,7 +2435,7 @@ def main():
 
     # phases 7-11: the dense and factored fits, the per-pixel path, and the
     # command line's fit and stats on the dense fit's workspace
-    num_iter, cli_iter = 400, 200
+    num_iter, cli_iter = 200, 200
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         dense = run_main_path(tmp, num_iter=num_iter, device="cuda")
         gc.collect()  # the dense models' device data must not count in the next peak
@@ -1976,16 +2494,53 @@ def main():
         lap("15 crosstalk card vs CPU")
 
         # phase 16: the kinetics commands on the cosmos and hmm fits above
-        ttfb = run_kinetics(tmp, ["ttfb", "--model", "cosmos"], device="cuda")
+        ttfb = run_kinetics(tmp, ["ttfb", "--model", "cosmos", "-it", str(TTFB_ITER)],
+                            device="cuda")
         ttfb_tables = check_kinetics(ttfb, "ttfb", 1, 1, device="cuda")
         ttfb.pop("model")
         gc.collect()
-        dwell = run_kinetics(tmp, ["dwelltime", "--model", "cosmos+hmm", "-K", "1"],
-                             device="cuda")
+        dwell = run_kinetics(tmp, ["dwelltime", "--model", "cosmos+hmm", "-K", "1", "-it",
+                                   str(DWELL_ITER)], device="cuda")
         dwell_tables = check_kinetics(dwell, "dwelltime", 1, 2, device="cuda")
         dwell.pop("model")
         gc.collect()
         lap("16 kinetics")
+
+        # phase 17: the chain-batched kernels against single-chain launches
+        # and float64, and their times
+        torch.cuda.reset_peak_memory_stats()
+        chain_errs, chain_timing = run_chain_kernels()
+        print(f"[chains] peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+              flush=True)
+        lap("17 chain-batched kernels")
+
+        # phase 18: fit -R through the command line, then stats
+        cli_restarts = run_cli_restarts(tmp, num_iter=cli_iter, device="cuda")
+        restart_checks = check_cli_restarts(cli_restarts, RESTARTS_R, RESTART_ITER, cli_iter)
+        rmodel = cli_restarts.pop("model")
+        restart_profile = {"R=1": profile_steps(rmodel),
+                           f"R={RESTARTS_R}": profile_restart_steps(rmodel, RESTARTS_R)}
+        cli_restarts["stats"].pop("model")
+        del rmodel
+        gc.collect()
+        lap("18 CLI restarts")
+
+        # phase 19: fit_restarts through the API for the other models and
+        # routes, and one restart step of each against float64 on the CPU
+        api = {}
+        for label, wdir, mname, chains, factored in (
+                ("cosmos use_factored", tmp, "cosmos", RESTARTS_R, True),
+                ("cosmos+hmm", tmp, "cosmos+hmm", RESTARTS_R, False),
+                ("crosstalk", xws, "crosstalk", 2, False)):
+            res, amodel = run_api_restarts(wdir, mname, chains, device="cuda",
+                                           use_factored=factored)
+            check_api_restarts(res, amodel, chains, API_RESTART_ITER)
+            res["card_vs_cpu"] = check_restart_card_vs_cpu(amodel, chains)
+            res["R"] = chains
+            api[label] = res
+            del amodel
+            gc.collect()
+        lap("19 API restarts")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -2048,6 +2603,31 @@ def main():
               f"{res['cpu_refit_rows']} in {res['cpu_refit_seconds']:.1f} s); files "
               f"{res['files']}; {json.dumps(tables)}",
               flush=True)
+    for row, errs_r in chain_errs.items():
+        print(f"[chains] {row}: {json.dumps(errs_r)} (bitwise against single-chain "
+              f"launches; rate gradient {CHAIN_RATE_RTOL} relative; float64: fwd "
+              f"{FWD_TOL}, grad {GRAD_TOL} summed / {FACT_GRAD_TOL} factored)", flush=True)
+    for k, (ms, plain_ms, b, by, fl_ms, single_ms) in chain_timing.items():
+        print(f"[chains-timing] {k} on {name} ({smi}): kernel {ms:.6f} ms (R single-chain "
+              f"launches {single_ms:.6f} ms), plain {plain_ms:.4f} ms, bound {b:.6f} ms "
+              f"({by}), special-function floor {fl_ms:.6f} ms", flush=True)
+    cr = cli_restarts
+    print(f"[cli-restarts] fit -R {RESTARTS_R} --restart-iter {RESTART_ITER} -it {cli_iter} "
+          f"exit {cr['code']} in {cr['seconds']:.3f} s on {name} ({smi}): "
+          f"{RESTART_ITER} restart steps of {RESTARTS_R} chains in "
+          f"{cr['restart_seconds']:.3f} s = {RESTART_ITER / cr['restart_seconds']:.3f} "
+          f"restart steps/s; restarts' peak memory {cr['restart_peak_bytes'] / 2**30:.3f} "
+          f"GiB, the command's {cr['peak_bytes'] / 2**30:.3f} GiB; launches "
+          f"{cr['launches']} per shape {sorted(cr['counts'].items())}; stats exit "
+          f"{cr['stats']['code']} in {cr['stats']['seconds']:.3f} s", flush=True)
+    print(f"[cli-restarts] checks {json.dumps(restart_checks)}", flush=True)
+    print(f"[cli-restarts] profiled steps {json.dumps(restart_profile)}", flush=True)
+    for label, res in api.items():
+        print(f"[api-restarts] {label} R={res['R']}: {API_RESTART_ITER} steps in "
+              f"{res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} ({smi}); "
+              f"peak memory {res['peak_bytes'] / 2**30:.3f} GiB; launches {res['launches']} "
+              f"per shape {sorted(res['counts'].items())}; card vs CPU float64 "
+              f"{json.dumps(res['card_vs_cpu'])} (tolerance {RESTART_RTOL})", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -2066,10 +2646,12 @@ def main():
                     bound_by=by, library_ms=None)
 
     perr = pixel_errs[M]
-    # launches over every path driven: phases 7, 8, 9, 10, 12 and 14 (phases
-    # 11 and 16 launch none; 13 and 15 compare the card with the CPU)
+    # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18 and 19
+    # (phases 11 and 16 launch none; 13, 15 and 17 compare the card with the
+    # CPU or the kernels with their plain versions)
     paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"], xt_fit["launches"],
-             xt_fact["launches"])
+             xt_fact["launches"], cli_restarts["launches"], cli_restarts["stats"]["launches"],
+             *(res["launches"] for res in api.values()))
     total = {k: sum(r[k] for r in paths) for k in dl}
     kernels = [
         entry("summed_fwd", 365, total["summed_fwd"], errs["forward_nograd"]),

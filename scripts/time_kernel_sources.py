@@ -7,7 +7,9 @@ turns, in one process on one card.
 
 Every source must export the C interface of
 ``tapqir_tpu_torch/csrc/offset_gamma.cu`` (``og_summed_*``,
-``og_factored_*``, ``og_pixel_*``). Each is built with the port's nvcc
+``og_factored_*``, ``og_pixel_*``), or that of a source from before the
+summed kernels took a rate per run of images (no ``og_max_runs``: no
+``nbr`` argument); every launch here is one run. Each is built with the port's nvcc
 flags (all builds started together) into ``tapqir_tpu_torch/_build/`` and
 loaded with ctypes; its registers and spills (``-Xptxas -v``) are printed,
 and, from ``cuobjdump -sass``, a digest of each float32 summed-template
@@ -114,6 +116,28 @@ def build_all(sources):
     return built
 
 
+def _single_rate(lib):
+    """A source from before the summed kernels took a rate per run of
+    images: its summed entries have no ``nbr`` argument."""
+    return not hasattr(lib, "og_max_runs")
+
+
+def _load(og, path):
+    """The library at ``path`` with its entries' signatures: the package's,
+    or those of a single-rate source (the same less ``nbr``)."""
+    lib = ctypes.CDLL(str(path))
+    if not _single_rate(lib):
+        return og._Library._load(path)
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for entry, args in (("og_summed", [ptr] * 8 + [i32] * 6 + [ptr]),
+                        ("og_factored", [ptr] * 10 + [i32] * 6 + [ptr]),
+                        ("og_pixel", [ptr] * 8 + [i32, i64, i32, i32, ptr])):
+        for suffix in ("f32", "f64"):
+            fn = getattr(lib, f"{entry}_{suffix}")
+            fn.argtypes, fn.restype = args, ctypes.c_int
+    return lib
+
+
 def kernel_calls(lib, ins):
     """The summed-template kernels and the per-pixel kernels (M=4 and M=1)
     of ``lib`` as closures on ``ins``, each writing into its own
@@ -134,12 +158,15 @@ def kernel_calls(lib, ins):
         if err != 0:
             raise RuntimeError(f"kernel launch failed: CUDA error {err}")
 
+    runs = () if _single_rate(lib) else (nb,)  # one run of nb images
+
     def summed(o, stats):
         def call():
             check(lib.og_summed_f32(
                 x.data_ptr(), a.data_ptr(), g.data_ptr(), w.data_ptr(), r1.data_ptr(),
                 o[0].data_ptr(), o[1].data_ptr() if stats else None,
-                o[2].data_ptr() if stats else None, M, nb, EVP, ev, J, int(stats), stream))
+                o[2].data_ptr() if stats else None, M, nb, EVP, ev, J, *runs, int(stats),
+                stream))
             return o if stats else o[:1]
         return call
 
@@ -148,7 +175,7 @@ def kernel_calls(lib, ins):
             xf.data_ptr(), base.data_ptr(), deltas.data_ptr(),
             ctypes.cast(bits, ctypes.c_void_p), g.data_ptr(), w.data_ptr(),
             r1.data_ptr(), o_fa[0].data_ptr(), o_fa[1].data_ptr(), o_fa[2].data_ptr(),
-            len(masks), Kf, nb, EVP, ev, J, stream))
+            len(masks), Kf, nb, EVP, ev, J, *runs, stream))
         return o_fa
 
     def pixel(a2, stats):
@@ -256,7 +283,7 @@ def main():
             mix = mixes[f"{label}:{name}"] = bin_loop_mix(sass, kernel, ex2_per_bin)
             print(f"[sass] {label} {name}: per (pixel, bin) "
                   + ", ".join(f"{k} {v:.3f}" for k, v in mix.items()), flush=True)
-    libs = {label: og._Library._load(path) for label, (path, _) in built.items()}
+    libs = {label: _load(og, path) for label, (path, _) in built.items()}
 
     # phase 6 inputs of chip_smoke.py, padding finite
     M, nb, EVP, ev, J, Kf = 4, 5120, 256, 196, 61, 2

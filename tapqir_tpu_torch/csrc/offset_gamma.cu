@@ -6,8 +6,8 @@
 //   _sum_fwd_kernel    (:365)  -> offset_gamma_summed_kernel  STATS = false
 //   _sum_stats_kernel  (:384)  -> offset_gamma_summed_kernel  STATS = true
 //   _fact_stats_kernel (:520)  -> offset_gamma_summed_kernel  STATS = true, FACT = true
-// For config m and pixel i (x = value, a = concentration, b = the scalar
-// rate, g_j / w_j = offset bins and their log weights) each computes
+// For config m and pixel i (x = value, a = concentration, b = the rate,
+// g_j / w_j = offset bins and their log weights) each computes
 //
 //   lp[m, i] = lse_j[w_j + (a-1) log(x-g_j) - b (x-g_j)] + a log b - lgamma(a)
 //                                                        (masked to x > g_j)
@@ -74,6 +74,12 @@
 //    (config, pixel) buffer, and one warp per (config, image) sums it in a
 //    fixed order (strided lane sums, then shuffles), out written as (M, nb)
 //    directly; two launches on the same inputs give bitwise-equal outputs.
+//  * runs of images: the nb images may come as nb / nbr equal runs, run r
+//    with its own rate rate[r] (the R chains of a batched restart step: the
+//    fold that vmap makes of the Pallas grid, whose rate sits in SMEM).
+//    Grid row r takes run r and its blocks split the run as a launch over
+//    that run alone would, so each image comes out bitwise as in R
+//    single-rate launches. nbr = nb is the single-rate call.
 //
 // Pixel kernel: a thread per pixel of a 256-thread block (a grid-stride
 // loop only beyond kMaxPixelBlocks blocks), out, spl and spd written
@@ -122,6 +128,7 @@ constexpr int kImagesPerBlock = 4;    // summed kernel: images per block
 constexpr int kPartialBytes = 32768;  // summed kernel: per-pixel lp buffer
 constexpr int kPixelThreads = 256;    // pixel kernel: threads per block
 constexpr int kMaxPixelBlocks = 1 << 20;  // pixel kernel: grid-stride beyond
+constexpr int kMaxRuns = 65535;          // summed kernel: rate runs (grid rows)
 
 template <typename T> __device__ __forceinline__ T dlog(T v);
 template <> __device__ __forceinline__ float dlog<float>(float v) { return logf(v); }
@@ -293,12 +300,13 @@ __global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
     int Kf,                      // FACT: number of spot factors
     const T* __restrict__ g,     // (J,)
     const T* __restrict__ w,     // (J,)
-    const T* __restrict__ rate,  // (1,)
+    const T* __restrict__ rate,  // (nb / nbr,): one rate per run of nbr images
     T* __restrict__ out,         // (M, nb)
     T* __restrict__ spl,         // (M, nb, EVP) when STATS
     T* __restrict__ spd,         // (M, nb, EVP) when STATS
     int M, int nb, int EVP, int ev, int J,
-    int ipb) {                   // images per block
+    int ipb,                     // images per block
+    int nbr) {                   // images per rate (blockIdx.y: the run)
   using A = BinArith<T>;
   __shared__ Bin<T> sbin[kMaxJ];
   extern __shared__ __align__(16) unsigned char og_smem[];
@@ -308,12 +316,12 @@ __global__ void __launch_bounds__(kSumThreads) offset_gamma_summed_kernel(
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int n0 = blockIdx.x * ipb;
-  const int nimg = min(ipb, nb - n0);
+  const int n0 = blockIdx.y * nbr + blockIdx.x * ipb;
+  const int nimg = min(ipb, nbr - (int)blockIdx.x * ipb);
   const int npx = nimg * ev;
   const int Jt = stage_bins<T>(g, w, sbin, J);
 
-  const T b = rate[0];
+  const T b = rate[blockIdx.y];
   const T b_units = b * A::kScale;
   const T log_b = dlog<T>(b);
   const T inv_b = T(1) / b;
@@ -445,6 +453,12 @@ __global__ void __launch_bounds__(kPixelThreads) offset_gamma_pixel_kernel(
   }
 }
 
+// The summed kernel's runs: nb images in nb / nbr runs of nbr images, run r
+// reading rate[r] (the chains of a batched restart step), one grid row each.
+inline bool valid_runs(int nb, int nbr) {
+  return nbr >= 1 && nb % nbr == 0 && nb / nbr <= kMaxRuns;
+}
+
 // The summed kernel's launch: images per block (kImagesPerBlock, fewer
 // where the per-pixel lp buffer would outgrow kPartialBytes) and that
 // buffer as dynamic shared memory, raised past the default 48 KB only for
@@ -453,7 +467,7 @@ template <typename T, bool STATS, bool FACT>
 int launch_summed_kernel(const T* x, const T* a, const T* base,
                          const ConfigMasks& masks, int Kf, const T* g,
                          const T* w, const T* rate, T* out, T* spl, T* spd,
-                         int M, int nb, int EVP, int ev, int J,
+                         int M, int nb, int EVP, int ev, int J, int nbr,
                          cudaStream_t stream) {
   int ipb = kImagesPerBlock;
   while (ipb > 1 && (size_t)kChunk * ipb * ev * sizeof(T) > (size_t)kPartialBytes) --ipb;
@@ -464,16 +478,18 @@ int launch_summed_kernel(const T* x, const T* a, const T* base,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<dim3((nb + ipb - 1) / ipb), kSumThreads, dyn, stream>>>(
-      x, a, base, masks, Kf, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, ipb);
+  kernel<<<dim3((nbr + ipb - 1) / ipb, nb / nbr), kSumThreads, dyn, stream>>>(
+      x, a, base, masks, Kf, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, ipb, nbr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_summed(const void* x, const void* a, const void* g, const void* w,
                   const void* rate, void* out, void* spl, void* spd, int M,
-                  int nb, int EVP, int ev, int J, int stats, void* stream) {
-  if (J > kMaxJ || J < 1 || M < 1 || nb < 1 || ev < 1 || ev > EVP) {
+                  int nb, int EVP, int ev, int J, int nbr, int stats,
+                  void* stream) {
+  if (J > kMaxJ || J < 1 || M < 1 || nb < 1 || ev < 1 || ev > EVP ||
+      !valid_runs(nb, nbr)) {
     return (int)cudaErrorInvalidValue;
   }
   const ConfigMasks none = {};
@@ -481,20 +497,21 @@ int launch_summed(const void* x, const void* a, const void* g, const void* w,
   if (stats) {
     return launch_summed_kernel<T, true, false>(
         (const T*)x, (const T*)a, nullptr, none, 0, (const T*)g, (const T*)w,
-        (const T*)rate, (T*)out, (T*)spl, (T*)spd, M, nb, EVP, ev, J, s);
+        (const T*)rate, (T*)out, (T*)spl, (T*)spd, M, nb, EVP, ev, J, nbr, s);
   }
   return launch_summed_kernel<T, false, false>(
       (const T*)x, (const T*)a, nullptr, none, 0, (const T*)g, (const T*)w,
-      (const T*)rate, (T*)out, nullptr, nullptr, M, nb, EVP, ev, J, s);
+      (const T*)rate, (T*)out, nullptr, nullptr, M, nb, EVP, ev, J, nbr, s);
 }
 
 template <typename T>
 int launch_factored(const void* x, const void* base, const void* deltas,
                     const int* mask_bits, const void* g, const void* w,
                     const void* rate, void* out, void* spl, void* spd, int M,
-                    int Kf, int nb, int EVP, int ev, int J, void* stream) {
+                    int Kf, int nb, int EVP, int ev, int J, int nbr,
+                    void* stream) {
   if (J > kMaxJ || J < 1 || M < 1 || M > kMaxConfigs || Kf < 1 ||
-      Kf > kMaxFactors || nb < 1 || ev < 1 || ev > EVP) {
+      Kf > kMaxFactors || nb < 1 || ev < 1 || ev > EVP || !valid_runs(nb, nbr)) {
     return (int)cudaErrorInvalidValue;
   }
   ConfigMasks masks = {};
@@ -505,7 +522,7 @@ int launch_factored(const void* x, const void* base, const void* deltas,
   return launch_summed_kernel<T, true, true>(
       (const T*)x, (const T*)deltas, (const T*)base, masks, Kf, (const T*)g,
       (const T*)w, (const T*)rate, (T*)out, (T*)spl, (T*)spd, M, nb, EVP, ev,
-      J, (cudaStream_t)stream);
+      J, nbr, (cudaStream_t)stream);
 }
 
 // The pixel kernel's launch, its config chunk sized to M.
@@ -545,34 +562,40 @@ extern "C" {
 
 int og_max_bins() { return kMaxJ; }
 
+int og_max_runs() { return kMaxRuns; }
+
 int og_summed_f32(const void* x, const void* a, const void* g, const void* w,
                   const void* rate, void* out, void* spl, void* spd, int M,
-                  int nb, int EVP, int ev, int J, int stats, void* stream) {
+                  int nb, int EVP, int ev, int J, int nbr, int stats,
+                  void* stream) {
   return launch_summed<float>(x, a, g, w, rate, out, spl, spd, M, nb, EVP, ev,
-                              J, stats, stream);
+                              J, nbr, stats, stream);
 }
 
 int og_summed_f64(const void* x, const void* a, const void* g, const void* w,
                   const void* rate, void* out, void* spl, void* spd, int M,
-                  int nb, int EVP, int ev, int J, int stats, void* stream) {
+                  int nb, int EVP, int ev, int J, int nbr, int stats,
+                  void* stream) {
   return launch_summed<double>(x, a, g, w, rate, out, spl, spd, M, nb, EVP,
-                               ev, J, stats, stream);
+                               ev, J, nbr, stats, stream);
 }
 
 int og_factored_f32(const void* x, const void* base, const void* deltas,
                     const int* mask_bits, const void* g, const void* w,
                     const void* rate, void* out, void* spl, void* spd, int M,
-                    int Kf, int nb, int EVP, int ev, int J, void* stream) {
+                    int Kf, int nb, int EVP, int ev, int J, int nbr,
+                    void* stream) {
   return launch_factored<float>(x, base, deltas, mask_bits, g, w, rate, out,
-                                spl, spd, M, Kf, nb, EVP, ev, J, stream);
+                                spl, spd, M, Kf, nb, EVP, ev, J, nbr, stream);
 }
 
 int og_factored_f64(const void* x, const void* base, const void* deltas,
                     const int* mask_bits, const void* g, const void* w,
                     const void* rate, void* out, void* spl, void* spd, int M,
-                    int Kf, int nb, int EVP, int ev, int J, void* stream) {
+                    int Kf, int nb, int EVP, int ev, int J, int nbr,
+                    void* stream) {
   return launch_factored<double>(x, base, deltas, mask_bits, g, w, rate, out,
-                                 spl, spd, M, Kf, nb, EVP, ev, J, stream);
+                                 spl, spd, M, Kf, nb, EVP, ev, J, nbr, stream);
 }
 
 int og_pixel_f32(const void* x, const void* a, const void* g, const void* w,

@@ -70,17 +70,22 @@ def std_gamma_sample(conc, generator=None, draws=None):
     return _StdGammaDraw.apply(conc, z)
 
 
-def std_gamma_sample_packed(concs, generator=None, draws=None):
+def std_gamma_sample_packed(concs, generator=None, draws=None, batch_dims=0):
     """One :func:`std_gamma_sample` over several concentration tensors,
     flattened (row-major) and concatenated in the given order; returns the
-    samples in matching shapes. ``draws`` is the flat packed vector."""
+    samples in matching shapes. ``draws`` is the flat packed vector.
+
+    With ``batch_dims`` = 1 every tensor has a leading chain axis (R, ...)
+    and each chain's sites are packed apart, in the same order: one draw of
+    (R, N) from the one generator, and ``draws`` is (R, N)."""
+    lead = tuple(concs[0].shape[:batch_dims])
     shapes = [c.shape for c in concs]
-    flat = torch.cat([c.reshape(-1) for c in concs])
+    flat = torch.cat([c.reshape(lead + (-1,)) for c in concs], -1)
     g = std_gamma_sample(flat, generator, draws)
     out, o = [], 0
     for s in shapes:
-        n = math.prod(s)
-        out.append(g[o:o + n].reshape(s))
+        n = math.prod(s[batch_dims:])
+        out.append(g[..., o:o + n].reshape(s))
         o += n
     return out
 

@@ -32,16 +32,24 @@ def log_probs_theta(K: int, S: int, dtype=torch.float32, device=None):
     return torch.as_tensor(out, dtype=dtype, device=device)
 
 
+def select_ontarget(table, is_ontarget):
+    """Each AOI's slice of a table indexed last by is_ontarget: ``table``
+    (*lead, *E, 2) and ``is_ontarget`` (*lead, n) integer {0, 1} give
+    (*lead, n, *E), ``lead`` a leading chain axis or none."""
+    c = is_ontarget.dim() - 1
+    on, off = table[..., 1].unsqueeze(c), table[..., 0].unsqueeze(c)
+    cond = (is_ontarget == 1).reshape(tuple(is_ontarget.shape) + (1,) * (on.dim() - c - 1))
+    return torch.where(cond, on, off)
+
+
 def log_probs_z(pi, is_ontarget):
     """log p(z | pi, is_ontarget) of shape (n, Q, 1+S); off-target AOIs are
     forced into z=0.
 
-    :param pi: (Q, 1+S) state probabilities.
-    :param is_ontarget: (n,) integer {0,1} tensor.
+    :param pi: (Q, 1+S) state probabilities, or (R, Q, 1+S) per chain.
+    :param is_ontarget: (n,) integer {0,1} tensor, or (R, n) per chain.
     """
-    lpz = safe_log(expand_offtarget(pi))  # (Q, 1+S, 2)
-    sel = lpz[:, :, is_ontarget]  # (Q, 1+S, n)
-    return torch.movedim(sel, -1, 0)  # (n, Q, 1+S)
+    return select_ontarget(safe_log(expand_offtarget(pi)), is_ontarget)
 
 
 def log_probs_m(lamda, K: int):

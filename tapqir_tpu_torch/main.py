@@ -9,6 +9,9 @@ short flags, defaults and config keys are the JAX package's, and so are the
 files, so either package's CLI continues a workspace the other wrote.
 
 * ``fit`` fits the model by SVI (``Model.run``), then computes the stats;
+  with ``-R/--num-restarts`` R > 1 it first runs R chains at once for
+  ``--restart-iter`` steps (``parallel/restarts.py``), writes
+  ``.tapqir/<model>_restarts.json`` and continues the best chain;
 * ``stats`` loads the checkpoint's parameters and computes the stats:
   p(specific), credible intervals, SNR / chi2 and, with ground-truth
   labels, MCC, recall and precision;
@@ -28,11 +31,13 @@ with a logged warning, as in the JAX package.
 
 import argparse
 import copy
+import json
 import logging
 import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from tapqir_tpu_torch.device import resolve_device
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
@@ -45,8 +50,6 @@ AVAIL_MODELS = ["cosmos", "crosstalk", "cosmos+hmm"]
 # what the JAX package's fit / stats accept that the port does not run yet,
 # with the ROADMAP Queue A item that ports it
 NOT_PORTED = {
-    "num_restarts": "--num-restarts is not ported yet (ROADMAP Queue A item 7)",
-    "restart_iter": "--restart-iter is not ported yet (ROADMAP Queue A item 7)",
     "mesh": "--mesh is not ported yet (ROADMAP Queue A item 8)",
     "profile": "--profile is not ported yet (ROADMAP Queue A item 9)",
 }
@@ -156,9 +159,11 @@ def _parser():
     fit.add_argument("--num-iter", "-it", type=int, default=S,
                      help="Number of iterations (0 = run to convergence)")
     fit.add_argument("--num-restarts", "-R", type=int, default=S,
-                     help="Batched random restarts")
+                     help="Batched random restarts: run R SVI chains at once for "
+                          "--restart-iter steps, keep the best (by trailing -ELBO) "
+                          "and continue it (default 1: no restarts)")
     fit.add_argument("--restart-iter", type=int, default=S,
-                     help="Warm-up iterations per restart chain")
+                     help="Steps per restart chain before selection (default 2000)")
     fit.add_argument("--profile", type=int, default=S,
                      help="Profile N training steps and exit")
     fit.add_argument("--warm-start", dest="warm_start", action="store_true", default=S,
@@ -206,6 +211,7 @@ def _defaults(command, config):
             "fbatch_size": config.get("fbatch-size", 512),
             "learning_rate": config.get("learning-rate", 0.005),
             "frame_sampling": "random", "num_iter": 0, "k_max": 2,
+            "num_restarts": 1, "restart_iter": 2000,
             "matlab": bool(config.get("matlab", False)), "dtype": "float32",
             "warm_start": None, "overwrite": True, "no_input": False,
         }
@@ -264,7 +270,7 @@ def _make_prompter(given):
 
 
 def _refuse_unported(given):
-    for name in ("num_restarts", "restart_iter", "mesh", "profile"):
+    for name in NOT_PORTED:
         if name in given:
             raise CliError(NOT_PORTED[name])
 
@@ -300,6 +306,32 @@ def _warm_start(cd, model, asked):
         logger.info("Warm-starting cosmos+hmm from the cosmos fit (--no-warm-start "
                     "to disable)")
         model.warm_start_from_cosmos()
+
+
+def _restarts(model, num_restarts, restart_iter):
+    """R chains for ``restart_iter`` steps, the best kept: the selection in
+    ``<model>_restarts.json``, the winner checkpointed before ``run``
+    continues it."""
+    from tapqir_tpu_torch.parallel.restarts import fit_restarts
+
+    logger.info(f"Running {num_restarts} batched random restarts ...")
+    try:
+        losses, best = fit_restarts(
+            model, num_restarts=num_restarts, num_iter=restart_iter,
+            progress=lambda it, loss: logger.info(f"restarts @{it}: best -ELBO {loss:.1f}"),
+        )
+    except torch.cuda.OutOfMemoryError as err:
+        raise CudaOutOfMemoryError() from err
+    logger.info(f"Selected restart #{best}")
+    with open(model.run_path / f"{model.name}_restarts.json", "w") as fh:
+        json.dump({
+            "num_restarts": num_restarts,
+            "restart_iter": restart_iter,
+            "best_chain": int(best),
+            "final_losses": [float(x) for x in losses[:, -1]],
+        }, fh)
+    model.save_checkpoint()
+    logger.info("Continuing the winning chain ...")
 
 
 def fit(cd, config, opts, given):
@@ -345,6 +377,8 @@ def fit(cd, config, opts, given):
     m.init(opts["learning_rate"], opts["nbatch_size"], opts["fbatch_size"])
     if opts["model"] == "cosmos+hmm" and opts["warm_start"] is not False:
         _warm_start(cd, m, opts["warm_start"])
+    if opts["num_restarts"] > 1:
+        _restarts(m, opts["num_restarts"], opts["restart_iter"])
     m.run(opts["num_iter"])
     logger.info("Fitting the data: Done")
 

@@ -17,6 +17,14 @@ width c0, x c0, y c0); :meth:`cosmos._probs_batch` takes the
 sampled pi, lamda, proximity, x and y with a leading particle axis. Tests
 feed the JAX package's draws through both.
 
+Chains: every ELBO function also takes a leading chain axis R written out
+(``vmap`` of the JAX package's restarts as a batch dimension): windows
+(R, ...), batch rows (R, n) and frames (R, f) from ``_draw_batch(generator,
+chains=R)``, the packed draw (R, N), discrete tables (M, R, ...), one
+kernel launch for all R chains with per-chain rates 1/gain (R,), and the
+ELBO of each chain, (R,). Without the chain axis every shape and every
+random stream is the single-chain one.
+
 After the fit, :meth:`cosmos.compute_probs_arrays` gives the posterior
 marginals of z and theta, and :meth:`cosmos.compute_params` the credible
 intervals that ``utils/stats.py`` writes out.
@@ -72,6 +80,18 @@ DEFAULT_PRIORS = {
 # the device bytes of one chunk of z_sample's Gumbel noise: 2000 samples at
 # 856 AOIs x 790 frames x 2 channels would take ~21.6 GB in float64 at once
 Z_SAMPLE_CHUNK_BYTES = 1 << 28
+
+
+def _per_chain(a, gain, nd):
+    """``a`` divided by each chain's ``gain`` (R,) (or by a 0-dim one)
+    broadcast over ``a``'s last ``nd`` dims."""
+    return a / gain.reshape(gain.shape + (1,) * nd)
+
+
+def _chain_perms(R, n, generator, device):
+    """(R, n): a uniform random permutation of range(n) per chain, from one
+    (R, n) uniform draw."""
+    return torch.rand((R, n), generator=generator, device=device).argsort(-1)
 
 
 class cosmos(Model):
@@ -175,22 +195,34 @@ class cosmos(Model):
         }
 
     # -- ELBO -----------------------------------------------------------------
-    def _draw_batch(self, generator):
+    def _draw_batch(self, generator, chains=None):
         """(ndx, fidx, f): ``n`` AOI rows without replacement and, when
         frames are subsampled, ``f`` frame indices - a sorted uniform subset
         (``frame_sampling="random"``) or a cyclic contiguous window at a
-        random offset ("window"). ``fidx`` is None when f == F."""
+        random offset ("window"). ``fidx`` is None when f == F.
+
+        ``chains`` = R draws R batches at once, each chain its own rows (R,
+        n) and frames (R, f): a permutation per chain from one (R, Nt) and
+        one (R, F) uniform draw."""
         Nt, F = self.data.Nt, self.data.F
         n = min(self.nbatch_size, Nt)
         f = min(self.fbatch_size, F)
         dev = self.device
-        ndx = torch.randperm(Nt, generator=generator, device=dev)[:n]
+        if chains is None:
+            ndx = torch.randperm(Nt, generator=generator, device=dev)[:n]
+        else:
+            ndx = _chain_perms(chains, Nt, generator, dev)[:, :n]
         if f == F:
             return ndx, None, f
         if self.frame_sampling == "random":
-            fidx = torch.sort(torch.randperm(F, generator=generator, device=dev)[:f])[0]
+            if chains is None:
+                perm = torch.randperm(F, generator=generator, device=dev)
+            else:
+                perm = _chain_perms(chains, F, generator, dev)
+            fidx = torch.sort(perm[..., :f], -1)[0]
         else:
-            f0 = torch.randint(0, F, (1,), generator=generator, device=dev)
+            lead = () if chains is None else (chains,)
+            f0 = torch.randint(0, F, lead + (1,), generator=generator, device=dev)
             fidx = (f0 + torch.arange(f, device=dev)) % F
         return ndx, fidx, f
 
@@ -204,9 +236,10 @@ class cosmos(Model):
                           draws=None):
         """ELBO from pre-gathered unconstrained parameter windows; the
         optimizer step differentiates this function, so its gradients are
-        window-shaped."""
+        window-shaped. With a chain axis (windows (R, ...), ``ndx`` (R, n),
+        ``fidx`` (R, f)) it is each chain's ELBO, (R,)."""
         Nt, F = self.data.Nt, self.data.F
-        n = ndx.shape[0]
+        n = ndx.shape[-1]
         scale = (Nt / n) * (F / f_b)
         scale_n = Nt / n
         local, aoi_term, global_term = self._elbo_terms(
@@ -216,33 +249,34 @@ class cosmos(Model):
 
     def _elbo_terms(self, win, generator, ndx, fidx, f_b, data, draws=None):
         """(sum of local per-(n,f,c) terms, sum of per-AOI terms, global
-        term) for the batch."""
-        S, Q = self.S, self.Q
-        dtype = self.dtype
+        term) for the batch, each (R,) with a chain axis."""
         priors = self.priors
         P = self.data.P
         prox_high = (P + 1) / math.sqrt(12)
         tf = self._transforms
+        lead = tuple(ndx.shape[:-1])  # (R,) with a chain axis, else ()
+        c = len(lead)
         F_l = data["xy"].shape[1]
-        n_b = ndx.shape[0]
+        n_b = ndx.shape[-1]
         if fidx is None:
             fidx = torch.arange(F_l, device=ndx.device)
-        flat_ndx = (ndx[:, None] * F_l + fidx[None, :]).reshape(-1)
+        flat_ndx = (ndx[..., :, None] * F_l + fidx[..., None, :]).reshape(-1)
 
-        def g2a(arr):  # raw DATA (Nt, F, ...) -> (n, f, ...)
+        def g2a(arr):  # raw DATA (Nt, F, ...) -> (*lead, n, f, ...)
             flat = arr.reshape((arr.shape[0] * arr.shape[1],) + tuple(arr.shape[2:]))
-            return flat.index_select(0, flat_ndx).reshape((n_b, f_b) + tuple(arr.shape[2:]))
+            return flat.index_select(0, flat_ndx).reshape(
+                lead + (n_b, f_b) + tuple(arr.shape[2:]))
 
         def pc(name):  # global parameter -> constrained
             return tf[name](win[name])
 
-        def gk(name):  # window (K, n, f, Q) -> (n, f, Q, K), constrained
-            return tf[name](torch.movedim(win[name], 0, -1))
+        def gk(name):  # window (*lead, K, n, f, Q) -> (*lead, n, f, Q, K), constrained
+            return tf[name](torch.movedim(win[name], c, -1))
 
-        obs = g2a(data["images"])  # (n, f, C, EVP)
-        target_locs = g2a(data["xy"])  # (n, f, C, 2)
-        ont = data["is_ontarget"].index_select(0, ndx)
-        mask = data["mask"].index_select(0, ndx)
+        obs = g2a(data["images"])  # (*lead, n, f, C, EVP)
+        target_locs = g2a(data["xy"])  # (*lead, n, f, C, 2)
+        ont = data["is_ontarget"][ndx]  # (*lead, n)
+        mask = data["mask"][ndx]
 
         b_loc, b_beta = pc("b_loc"), pc("b_beta")
         h_loc, h_beta = gk("h_loc"), gk("h_beta")
@@ -253,7 +287,7 @@ class cosmos(Model):
 
         gain, pi, lamda, prox, b, h, w, xs, ys, extras = self._sample_sites(
             generator, pc, b_loc, b_beta, h_loc, h_beta,
-            w_mean, w_size, x_mean, y_mean, size, draws,
+            w_mean, w_size, x_mean, y_mean, size, draws, c,
         )
         gain_conc = pc("gain_loc") * pc("gain_beta")
         pi_conc = pc("pi_mean") * pc("pi_size")
@@ -265,11 +299,11 @@ class cosmos(Model):
             + (
                 dirichlet_log_prob(pi, self._const["pi_prior"])
                 - dirichlet_log_prob(pi, pi_conc)
-            ).sum()
+            ).sum(-1)
             + (
                 exponential_log_prob(lamda, priors["lamda_rate"])
                 - gamma_log_prob(lamda, lamda_conc, pc("lamda_beta"))
-            ).sum()
+            ).sum(-1)
             + exponential_log_prob(prox, priors["proximity_rate"])
             - affine_beta_log_prob(
                 prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
@@ -278,24 +312,24 @@ class cosmos(Model):
         global_term = self._extra_global_terms(pc, extras, global_term)
 
         # per-AOI Delta sites (MAP background hyper-parameters)
-        bm = pc("background_mean_loc")[:, 0, :]  # (n, C)
-        bs = pc("background_std_loc")[:, 0, :]
+        bm = pc("background_mean_loc")[..., 0, :]  # (*lead, n, C)
+        bs = pc("background_std_loc")[..., 0, :]
         aoi_term = (
             (
                 halfnormal_log_prob(bm, priors["background_mean_std"])
                 + halfnormal_log_prob(bs, priors["background_std_std"])
             )
-            * mask[:, None]
-        ).sum()
+            * mask[..., None]
+        ).sum((-2, -1))
 
-        lp_b = gamma_log_prob(b, (bm / bs)[:, None, :] ** 2, (bm / bs**2)[:, None, :])
+        lp_b = gamma_log_prob(b, (bm / bs)[..., None, :] ** 2, (bm / bs**2)[..., None, :])
         lq_b = gamma_log_prob(b, b_loc * b_beta, b_beta)
 
         local = self._local_marginalized(
             obs, target_locs, ont, gain, pi, lamda, prox, b, h, w, xs, ys, qm,
             h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size, data,
         )
-        local_sum = ((local + lp_b - lq_b) * mask[:, None, None]).sum()
+        local_sum = ((local + lp_b - lq_b) * mask[..., None, None]).sum((-3, -2, -1))
         return local_sum, aoi_term, global_term
 
     def _extra_global_concs(self, pc):
@@ -310,11 +344,12 @@ class cosmos(Model):
         return global_term
 
     def _sample_sites(self, generator, pc, b_loc, b_beta, h_loc, h_beta,
-                      w_mean, w_size, x_mean, y_mean, size, draws=None):
+                      w_mean, w_size, x_mean, y_mean, size, draws=None, c=0):
         """All guide-site draws in ONE packed standard-Gamma draw, in the
         JAX package's packing order, the extra global sites after the
-        proximity pair; ``draws`` replaces the random vector. Returns the
-        samples and ``extras`` (name -> sample of each extra site)."""
+        proximity pair; ``draws`` replaces the random vector (c = 1: a
+        leading chain axis, each chain packed apart). Returns the samples
+        and ``extras`` (name -> sample of each extra site)."""
         P = self.data.P
         lim = (P + 1) / 2
         wmin, wmax = self.priors["width_min"], self.priors["width_max"]
@@ -330,22 +365,23 @@ class cosmos(Model):
         wc1, wc0 = affine_beta_concentrations(w_mean, w_size, wmin, wmax)
         xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
         yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
-        g = std_gamma_sample_packed(
-            [
-                gain_conc.reshape(1),
-                lamda_conc,
-                pi_conc.reshape(-1),
-                pg1.reshape(1),
-                pg0.reshape(1),
-                *extra_concs,
-                b_loc * b_beta, h_loc * h_beta, wc1, xc1, yc1, wc0, xc0, yc0,
-            ],
-            generator, draws,
-        )
-        gain = g[0][0] / pc("gain_beta")
+        concs = [
+            gain_conc[..., None],
+            lamda_conc,
+            pi_conc.flatten(c),
+            pg1[..., None],
+            pg0[..., None],
+            *extra_concs,
+            b_loc * b_beta, h_loc * h_beta, wc1, xc1, yc1, wc0, xc0, yc0,
+        ]
+        if c:  # each chain packed apart
+            g = std_gamma_sample_packed(concs, generator, draws, batch_dims=c)
+        else:
+            g = std_gamma_sample_packed(concs, generator, draws)
+        gain = g[0][..., 0] / pc("gain_beta")
         lamda = g[1] / pc("lamda_beta")
         pi = dirichlet_from_gammas(g[2].reshape(pi_conc.shape))
-        prox = prox_high * beta_from_gamma_pair(g[3][0], g[4][0])
+        prox = prox_high * beta_from_gamma_pair(g[3][..., 0], g[4][..., 0])
         n_extra = len(extra_names)
         extras = {nm: dirichlet_from_gammas(gg)
                   for nm, gg in zip(extra_names, g[5:5 + n_extra])}
@@ -359,9 +395,10 @@ class cosmos(Model):
 
     def _dye_tables(self, ont, pi, lamda, prox, h, w, xs, ys, qm,
                     h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size):
-        """Per-dye discrete tables, each (M=2^K, n, f, Q): ``inner`` (the
-        logsumexp over (z, theta) of the model's discrete joint),
-        ``term_hw``, ``log_qm`` and ``term_q``."""
+        """Per-dye discrete tables, each (M=2^K, *lead, n, f, Q): ``inner``
+        (the logsumexp over (z, theta) of the model's discrete joint),
+        ``term_hw``, ``log_qm`` and ``term_q``; ``lead`` is a leading chain
+        axis of the inputs, or none."""
         K = self.K
         P = self.data.P
         priors = self.priors
@@ -369,86 +406,92 @@ class cosmos(Model):
         wmin, wmax = priors["width_min"], priors["width_max"]
         mtab = self._const["mtab"]  # (M, K)
 
-        lpz = log_probs_z(pi, ont)  # (n, Q, 1+S)
+        lpz = log_probs_z(pi, ont)  # (*lead, n, Q, 1+S)
         lpt = self._const["lpt"]  # (1+S, 1+K)
-        lpm1, lpm0 = log_probs_m(lamda, K)  # (Q, 1+K, K)
-        log_pm_sum = torch.einsum("mk,qtk->mtq", mtab, lpm1) + torch.einsum(
-            "mk,qtk->mtq", 1.0 - mtab, lpm0
-        )  # (M, 1+K, Q)
+        lpm1, lpm0 = log_probs_m(lamda, K)  # (*lead, Q, 1+K, K)
+        log_pm_sum = torch.einsum("mk,...qtk->m...tq", mtab, lpm1) + torch.einsum(
+            "mk,...qtk->m...tq", 1.0 - mtab, lpm0
+        )  # (M, *lead, 1+K, Q)
 
         size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
+        size_sp = size_sp.reshape(size_sp.shape + (1,) * 4)  # against (n, f, Q, K)
         lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
             ys, 0.0, 2.0, -lim, lim
-        )  # (n, f, Q, K)
+        )  # (*lead, n, f, Q, K)
         lpxy_sp = affine_beta_log_prob(
             xs, 0.0, size_sp, -lim, lim
         ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
         spec_tk = self._const["spec_tk"]  # (1+K, K)
         lpxy_t = torch.where(
-            spec_tk[:, None, None, None, :], lpxy_sp[None], lpxy_ns[None]
-        )  # (1+K, n, f, Q, K)
-        term_xy = torch.einsum("mk,tnfqk->mtnfq", mtab, lpxy_t)  # (M, 1+K, n, f, Q)
+            spec_tk[:, None, None, None, :], lpxy_sp.unsqueeze(-5), lpxy_ns.unsqueeze(-5)
+        )  # (*lead, 1+K, n, f, Q, K)
+        term_xy = torch.einsum("mk,...tnfqk->m...tnfq", mtab, lpxy_t)  # (M, *lead, T, n, f, Q)
 
         T_full = (
-            lpz.permute(2, 0, 1)[None, :, None, :, None, :]  # (1, Z, 1, n, 1, Q)
-            + lpt[None, :, :, None, None, None]  # (1, Z, T, 1, 1, 1)
-            + log_pm_sum[:, None, :, None, None, :]  # (M, 1, T, 1, 1, Q)
-            + term_xy[:, None]  # (M, 1, T, n, f, Q)
+            torch.movedim(lpz, -1, -3).unsqueeze(-2).unsqueeze(-4)[None]  # (1, *lead, Z, 1, n, 1, Q)
+            + lpt[:, :, None, None, None]  # (Z, T, 1, 1, 1)
+            + log_pm_sum.unsqueeze(-2).unsqueeze(-2).unsqueeze(-5)  # (M, *lead, 1, T, 1, 1, Q)
+            + term_xy.unsqueeze(-5)  # (M, *lead, 1, T, n, f, Q)
         )
-        inner = torch.logsumexp(T_full, dim=(1, 2))  # (M, n, f, Q)
+        inner = torch.logsumexp(T_full, dim=(-5, -4))  # (M, *lead, n, f, Q)
 
         lph = halfnormal_log_prob(h, priors["height_std"])
         lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
-        term_hw = torch.einsum("mk,nfqk->mnfq", mtab, lph + lpw)
+        term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
 
-        log_qm = torch.einsum("mk,nfqk->mnfq", mtab, torch.log(qm)) + torch.einsum(
-            "mk,nfqk->mnfq", 1.0 - mtab, torch.log1p(-qm)
+        log_qm = torch.einsum("mk,...nfqk->m...nfq", mtab, torch.log(qm)) + torch.einsum(
+            "mk,...nfqk->m...nfq", 1.0 - mtab, torch.log1p(-qm)
         )
         lqh = gamma_log_prob(h, h_loc * h_beta, h_beta)
         lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
         lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
         lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
-        term_q = torch.einsum("mk,nfqk->mnfq", mtab, lqh + lqw + lqx + lqy)
+        term_q = torch.einsum("mk,...nfqk->m...nfq", mtab, lqh + lqw + lqx + lqy)
         return inner, term_hw, log_qm, term_q
 
     def _local_marginalized(self, obs, target_locs, ont, gain, pi, lamda, prox,
                             b, h, w, xs, ys, qm, h_loc, h_beta, w_mean, w_size,
                             x_mean, y_mean, size, data):
         """E_q(m)[ log-marginal over (z, theta) + spot priors + likelihood
-        - guide terms ], per (n, f, c). Spot tensors are (n, f, Q, K)."""
+        - guide terms ], per (*lead, n, f, c). Spot tensors are (*lead, n,
+        f, Q, K)."""
         inner, term_hw, log_qm, term_q = self._dye_tables(
             ont, pi, lamda, prox, h, w, xs, ys, qm,
             h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
         )
         wq = torch.exp(log_qm)
         loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)
-        return (wq * (inner + term_hw + loglik - log_qm - term_q)).sum(0)  # (n, f, Q)
+        return (wq * (inner + term_hw + loglik - log_qm - term_q)).sum(0)  # (*lead, n, f, Q)
 
     @staticmethod
     def _spots_kernel_layout(h, w, xs, ys, target_locs, P, ev_pad):
-        """Rendered spots in the factored kernel's (K, n, f, C, EVP) layout,
-        made spot-major by moving the small (n, f, Q, K) parameters before
-        the render instead of the rendered tensor after it."""
+        """Rendered spots in the factored kernel's (K, *lead, n, f, C, EVP)
+        layout, made spot-major by moving the small (*lead, n, f, Q, K)
+        parameters before the render instead of the rendered tensor after
+        it."""
 
-        def tr(a):  # (n, f, Q, K) -> (K, n, f, Q, 1)
+        def tr(a):  # (*lead, n, f, Q, K) -> (K, *lead, n, f, Q, 1)
             return torch.movedim(a, -1, 0)[..., None]
 
         g = gaussian_spots_flat(
             tr(h), tr(w), tr(xs), tr(ys), target_locs[None], P, ev_pad
-        )  # (K, n, f, C, 1, EVP)
+        )  # (K, *lead, n, f, C, 1, EVP)
         return g[..., 0, :]
 
     def _likelihood(self, obs, b, h, w, xs, ys, target_locs, gain, data):
-        """(M, n, f, C) event-summed KSMOGN log-likelihood on the flat padded
-        pixel axis.
+        """(M, *lead, n, f, C) event-summed KSMOGN log-likelihood on the
+        flat padded pixel axis, ``lead`` a leading chain axis (gain (R,)) or
+        none; all chains in one kernel launch, images chain-major, each
+        chain with its rate 1 / gain.
 
-        Default: spots rendered spot-last (n, f, C, K, EVP), the (M, batch,
-        EVP) concentration by an einsum over configs, and the event sum in
-        the summed kernel. With ``use_factored = True`` set on the model (as
-        on the JAX package's): spots rendered spot-major, and the configs
-        assembled inside the factored kernel from ``b / gain`` and the
-        per-spot ``spots / gain``."""
-        n_, f_, C_, ev_pad = obs.shape
+        Default: spots rendered spot-last (*lead, n, f, C, K, EVP), the (M,
+        *lead, batch, EVP) concentration by one einsum over configs, and
+        the event sum in the summed kernel. With ``use_factored = True`` set
+        on the model (as on the JAX package's): spots rendered spot-major,
+        and the configs assembled inside the factored kernel from ``b /
+        gain`` and the per-spot ``spots / gain``."""
+        *lead, n_, f_, C_, ev_pad = obs.shape
+        lead = tuple(lead)
         K = self.K
         P = self.data.P
         mtab = self._const["mtab"]
@@ -456,26 +499,27 @@ class cosmos(Model):
         if getattr(self, "use_factored", False):
             spots = self._spots_kernel_layout(
                 h, w, xs, ys, target_locs, P, ev_pad
-            )  # (K, n, f, C, EVP)
+            )  # (K, *lead, n, f, C, EVP)
             out = offset_gamma_factored_summed(
-                obs.reshape(nfc, ev_pad), b.reshape(-1) / gain,
-                spots.reshape(K, nfc, ev_pad) / gain, m_configs(K), 1.0 / gain,
+                obs.reshape(-1, ev_pad), _per_chain(b, gain, 3).reshape(-1),
+                _per_chain(spots, gain, 4).reshape(K, -1, ev_pad), m_configs(K), 1.0 / gain,
                 data["offset_samples"], data["offset_logits"], ev=P * P,
             )
         else:
             gauss = gaussian_spots_flat(
                 h, w, xs, ys, target_locs, P, ev_pad
-            )  # (n, f, C, K, EVP)
-            gauss_flat = gauss.reshape(nfc, K, ev_pad)
-            img_flat = b.reshape(-1)[None, :, None] + torch.einsum(
-                "mk,xkp->mxp", mtab, gauss_flat
-            )  # (M, nfc, EVP)
+            )  # (*lead, n, f, C, K, EVP)
+            gauss_flat = gauss.reshape(lead + (nfc, K, ev_pad))
+            img_flat = b.reshape(lead + (nfc, 1)) + torch.einsum(
+                "mk,...xkp->m...xp", mtab, gauss_flat
+            )  # (M, *lead, nfc, EVP)
             out = offset_gamma_log_prob_summed(
-                obs.reshape(nfc, ev_pad), img_flat / gain, 1.0 / gain,
-                data["offset_samples"], data["offset_logits"],
+                obs.reshape(-1, ev_pad),
+                _per_chain(img_flat, gain, 2).reshape(mtab.shape[0], -1, ev_pad),
+                1.0 / gain, data["offset_samples"], data["offset_logits"],
                 event_ndims=1, ev=P * P,
             )
-        return out.reshape(mtab.shape[0], n_, f_, C_)
+        return out.reshape((mtab.shape[0],) + lead + (n_, f_, C_))
 
     # -- posterior probabilities ----------------------------------------------
     @staticmethod

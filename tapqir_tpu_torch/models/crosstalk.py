@@ -28,7 +28,7 @@ from tapqir_tpu_torch.distributions.ksmogn import (
 )
 from tapqir_tpu_torch.distributions.util import gaussian_spots_flat
 from tapqir_tpu_torch.infer.discrete import m_configs
-from tapqir_tpu_torch.models.cosmos import cosmos
+from tapqir_tpu_torch.models.cosmos import _per_chain, cosmos
 
 __all__ = ["crosstalk"]
 
@@ -91,58 +91,65 @@ class crosstalk(cosmos):
         """alpha's prior minus its guide. The sample waits on the model for
         :meth:`_local_marginalized` of the same ELBO evaluation, which takes
         it off again, so no step's graph outlives the step."""
-        alpha = extras["alpha"]  # (Q, C)
+        alpha = extras["alpha"]  # (*lead, Q, C)
         self._alpha_sample = alpha
         return global_term + (
             dirichlet_log_prob(alpha, self._const["alpha_prior"])
             - dirichlet_log_prob(alpha, pc("alpha_mean") * pc("alpha_size"))
-        ).sum()
+        ).sum(-1)
 
     # -- the likelihood over the global configs ---------------------------------
     @staticmethod
     def _mixed_images(b, h, w, xs, ys, target_locs, alpha, mtab, P, ev_pad):
-        """Expected images, (G, n*f, C, EVP), one per config of ``mtab`` (G,
-        Q, K): the background ``b`` (n, f, C) plus every present spot of
-        every dye (``h``, ``w``, ``xs``, ``ys`` (n, f, Q, K)) rendered at
-        each channel's target (``target_locs`` (n, f, C, 2)) and scaled by
-        ``alpha`` (Q, C), on the flat padded pixel axis."""
-        n_, f_, Q, K = h.shape
+        """Expected images, (G, *lead, n*f, C, EVP), one per config of
+        ``mtab`` (G, Q, K): the background ``b`` (*lead, n, f, C) plus every
+        present spot of every dye (``h``, ``w``, ``xs``, ``ys`` (*lead, n,
+        f, Q, K)) rendered at each channel's target (``target_locs`` (*lead,
+        n, f, C, 2)) and scaled by ``alpha`` (*lead, Q, C), on the flat
+        padded pixel axis; ``lead`` a leading chain axis or none."""
+        *lead, n_, f_, Q, K = h.shape
+        lead = tuple(lead)
         C = target_locs.shape[-2]
         gauss = gaussian_spots_flat(
             h[..., None, :], w[..., None, :], xs[..., None, :], ys[..., None, :],
             target_locs[..., None, :, :], P, ev_pad,
-        )  # (n, f, Q, C, K, EVP)
-        return b.reshape(n_ * f_, C, 1) + torch.einsum(
-            "gqk,qc,xqckp->gxcp", mtab, alpha, gauss.reshape(n_ * f_, Q, C, K, ev_pad)
+        )  # (*lead, n, f, Q, C, K, EVP)
+        return b.reshape(lead + (n_ * f_, C, 1)) + torch.einsum(
+            "gqk,...qc,...xqckp->g...xcp", mtab, alpha,
+            gauss.reshape(lead + (n_ * f_, Q, C, K, ev_pad)),
         )
 
     @staticmethod
     def _mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad):
         """The alpha-scaled spots in the factored kernel's spot-major layout,
-        (Q*K, n*f*C, EVP), spot q*K + k: made spot-major by moving the small
-        (n, f, Q, K) parameters before the render."""
-        n_, f_, Q, K = h.shape
+        (Q*K, *lead, n*f*C, EVP), spot q*K + k: made spot-major by moving
+        the small (*lead, n, f, Q, K) parameters before the render."""
+        *lead, n_, f_, Q, K = h.shape
         C = target_locs.shape[-2]
 
-        def qk_major(a):  # (n, f, Q, K) -> (Q, K, n, f, 1, 1)
-            return torch.movedim(a, (2, 3), (0, 1))[..., None, None]
+        def qk_major(a):  # (*lead, n, f, Q, K) -> (Q, K, *lead, n, f, 1, 1)
+            return torch.movedim(a, (-2, -1), (0, 1))[..., None, None]
 
+        # alpha (*lead, Q, C) -> (Q, 1, *lead, 1, 1, C, 1)
+        alpha_qk = torch.movedim(alpha, -2, 0)[:, None, ..., None, None, :, None]
         spots = gaussian_spots_flat(
-            qk_major(h) * alpha[:, None, None, None, :, None], qk_major(w),
+            qk_major(h) * alpha_qk, qk_major(w),
             qk_major(xs), qk_major(ys), target_locs[None, None], P, ev_pad,
-        )  # (Q, K, n, f, C, 1, EVP)
-        return spots.reshape(Q * K, n_ * f_ * C, ev_pad)
+        )  # (Q, K, *lead, n, f, C, 1, EVP)
+        return spots.reshape((Q * K,) + tuple(lead) + (n_ * f_ * C, ev_pad))
 
     def _local_marginalized(self, obs, target_locs, ont, gain, pi, lamda, prox,
                             b, h, w, xs, ys, qm, h_loc, h_beta, w_mean, w_size,
                             x_mean, y_mean, size, data):
-        """The expectation over all 2^(K*Q) global configs, per (n, f),
-        spread evenly over the C channels (the caller adds per-channel
-        background terms and sums, so the sum stays exact): (n, f, 1)."""
-        alpha = self.__dict__.pop("_alpha_sample")  # (Q, C)
-        n_, f_, C, ev_pad = obs.shape
+        """The expectation over all 2^(K*Q) global configs, per (*lead, n,
+        f), spread evenly over the C channels (the caller adds per-channel
+        background terms and sums, so the sum stays exact): (*lead, n, f,
+        1). All chains of a leading chain axis go through one kernel
+        launch."""
+        alpha = self.__dict__.pop("_alpha_sample")  # (*lead, Q, C)
+        *lead, n_, f_, C, ev_pad = obs.shape
+        lead = tuple(lead)
         P = self.data.P
-        nfc = n_ * f_ * C
         onehot = self._const["onehot"]
         mtab_global = self._const["mtab_global"]
         Mf = mtab_global.shape[0]
@@ -150,26 +157,27 @@ class crosstalk(cosmos):
         tables = self._dye_tables(
             ont, pi, lamda, prox, h, w, xs, ys, qm,
             h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
-        )  # each (Mq, n, f, Q)
+        )  # each (Mq, *lead, n, f, Q)
         inner, term_hw, log_qm, term_q = (
-            torch.einsum("gqm,mnfq->gnf", onehot, t) for t in tables
-        )  # each (Mf, n, f)
+            torch.einsum("gqm,m...nfq->g...nf", onehot, t) for t in tables
+        )  # each (Mf, *lead, n, f)
 
         if getattr(self, "use_factored", False):
+            spots = self._mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad)
             out = offset_gamma_factored_summed(
-                obs.reshape(nfc, ev_pad), b.reshape(-1) / gain,
-                self._mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad) / gain,
+                obs.reshape(-1, ev_pad), _per_chain(b, gain, 3).reshape(-1),
+                _per_chain(spots, gain, 2).reshape(spots.shape[0], -1, ev_pad),
                 self._const["mtab_global_np"], 1.0 / gain,
                 data["offset_samples"], data["offset_logits"], ev=P * P,
             )
         else:
             img = self._mixed_images(b, h, w, xs, ys, target_locs, alpha,
-                                     mtab_global, P, ev_pad)  # (Mf, n*f, C, EVP)
+                                     mtab_global, P, ev_pad)  # (Mf, *lead, n*f, C, EVP)
             out = offset_gamma_log_prob_summed(
-                obs.reshape(nfc, ev_pad), img.reshape(Mf, nfc, ev_pad) / gain,
+                obs.reshape(-1, ev_pad), _per_chain(img, gain, 3).reshape(Mf, -1, ev_pad),
                 1.0 / gain, data["offset_samples"], data["offset_logits"],
                 event_ndims=1, ev=P * P,
             )
-        loglik = out.reshape(Mf, n_, f_, C).sum(-1)  # event dims (C, P, P)
+        loglik = out.reshape((Mf,) + lead + (n_, f_, C)).sum(-1)  # event dims (C, P, P)
         local = (torch.exp(log_qm) * (inner + term_hw + loglik - log_qm - term_q)).sum(0)
         return local[..., None] / C

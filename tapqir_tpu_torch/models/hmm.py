@@ -55,8 +55,9 @@ from tapqir_tpu_torch.infer.discrete import (
     log_probs_z,
     m_configs,
     safe_log,
+    select_ontarget,
 )
-from tapqir_tpu_torch.models.cosmos import cosmos
+from tapqir_tpu_torch.models.cosmos import _chain_perms, cosmos
 from tapqir_tpu_torch.ops.scan import cumulative_logmatmulexp
 
 logger = logging.getLogger(__name__)
@@ -123,25 +124,32 @@ class hmm(cosmos):
         )
 
     # -- ELBO -----------------------------------------------------------------
-    def _draw_batch(self, generator):
+    def _draw_batch(self, generator, chains=None):
         """(ndx, None, F): ``n`` AOI rows without replacement and every
-        frame."""
+        frame; ``chains`` = R: rows (R, n), each chain its own."""
         Nt, F = self.data.Nt, self.data.F
         n = min(self.nbatch_size, Nt)
-        ndx = torch.randperm(Nt, generator=generator, device=self.device)[:n]
+        if chains is None:
+            ndx = torch.randperm(Nt, generator=generator, device=self.device)[:n]
+        else:
+            ndx = _chain_perms(chains, Nt, generator, self.device)[:, :n]
         return ndx, None, F
 
     def elbo_from_windows(self, win, generator, ndx, fidx, f_b, data,
                           draws=None):
         """ELBO from pre-gathered unconstrained windows (AOI rows ``ndx``,
-        every frame); local and per-AOI terms are scaled by Nt / n."""
+        every frame); local and per-AOI terms are scaled by Nt / n. With a
+        leading chain axis (windows (R, ...), ``ndx`` (R, n)) it is each
+        chain's ELBO, (R,)."""
         S, K = self.S, self.K
         P = self.data.P
         priors = self.priors
         lim = (P + 1) / 2
         wmin, wmax = priors["width_min"], priors["width_max"]
         prox_high = (P + 1) / math.sqrt(12)
-        n = ndx.shape[0]
+        n = ndx.shape[-1]
+        lead = tuple(ndx.shape[:-1])  # (R,) with a chain axis, else ()
+        c = len(lead)
         scale_n = self.data.Nt / n
         tf = self._transforms
         const = self._const
@@ -149,20 +157,22 @@ class hmm(cosmos):
         def pc(name):
             return tf[name](win[name])
 
-        def gk(name):  # window (K, n, F, Q) -> (n, F, Q, K), constrained
-            return tf[name](torch.movedim(win[name], 0, -1))
+        def gk(name):  # window (*lead, K, n, F, Q) -> (*lead, n, F, Q, K), constrained
+            return tf[name](torch.movedim(win[name], c, -1))
 
         F_l = data["xy"].shape[1]
-        flat_ndx = (ndx[:, None] * F_l + torch.arange(F_l, device=ndx.device)).reshape(-1)
+        flat_ndx = (ndx[..., :, None] * F_l
+                    + torch.arange(F_l, device=ndx.device)).reshape(-1)
 
-        def g2a(arr):  # raw DATA (Nt, F, ...) -> (n, F, ...)
+        def g2a(arr):  # raw DATA (Nt, F, ...) -> (*lead, n, F, ...)
             flat = arr.reshape((arr.shape[0] * arr.shape[1],) + tuple(arr.shape[2:]))
-            return flat.index_select(0, flat_ndx).reshape((n, F_l) + tuple(arr.shape[2:]))
+            return flat.index_select(0, flat_ndx).reshape(
+                lead + (n, F_l) + tuple(arr.shape[2:]))
 
-        obs = g2a(data["images"])  # (n, F, C, EVP)
+        obs = g2a(data["images"])  # (*lead, n, F, C, EVP)
         target_locs = g2a(data["xy"])
-        ont = data["is_ontarget"].index_select(0, ndx)
-        mask = data["mask"].index_select(0, ndx)
+        ont = data["is_ontarget"][ndx]  # (*lead, n)
+        mask = data["mask"][ndx]
 
         # every guide site in ONE packed standard-Gamma draw
         gain_conc = pc("gain_loc") * pc("gain_beta")
@@ -172,26 +182,28 @@ class hmm(cosmos):
         pg1, pg0 = affine_beta_concentrations(
             pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
         )
-        b_loc, b_beta = pc("b_loc"), pc("b_beta")  # (n, F, C)
-        h_loc, h_beta = gk("h_loc"), gk("h_beta")  # (n, F, Q, K)
+        b_loc, b_beta = pc("b_loc"), pc("b_beta")  # (*lead, n, F, C)
+        h_loc, h_beta = gk("h_loc"), gk("h_beta")  # (*lead, n, F, Q, K)
         w_mean, w_size = gk("w_mean"), gk("w_size")
         x_mean, y_mean = gk("x_mean"), gk("y_mean")
         size = gk("size")
         wc1, wc0 = affine_beta_concentrations(w_mean, w_size, wmin, wmax)
         xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
         yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
+        concs = [gain_conc[..., None], lamda_conc, init_conc, trans_conc,
+                 pg1[..., None], pg0[..., None], b_loc * b_beta, h_loc * h_beta,
+                 wc1, xc1, yc1, wc0, xc0, yc0]
+        if c:  # each chain packed apart
+            packed = std_gamma_sample_packed(concs, generator, draws, batch_dims=c)
+        else:
+            packed = std_gamma_sample_packed(concs, generator, draws)
         (g_gain, g_lamda, g_init, g_trans, g_p1, g_p0,
-         gb, gh, gw1, gx1, gy1, gw0, gx0, gy0) = std_gamma_sample_packed(
-            [gain_conc.reshape(1), lamda_conc, init_conc, trans_conc,
-             pg1.reshape(1), pg0.reshape(1), b_loc * b_beta, h_loc * h_beta,
-             wc1, xc1, yc1, wc0, xc0, yc0],
-            generator, draws,
-        )
-        gain = g_gain[0] / pc("gain_beta")
+         gb, gh, gw1, gx1, gy1, gw0, gx0, gy0) = packed
+        gain = g_gain[..., 0] / pc("gain_beta")
         lamda = g_lamda / pc("lamda_beta")
-        init = dirichlet_from_gammas(g_init)  # (Q, 1+S)
-        trans = dirichlet_from_gammas(g_trans)  # (Q, 1+S, 1+S)
-        prox = prox_high * beta_from_gamma_pair(g_p1[0], g_p0[0])
+        init = dirichlet_from_gammas(g_init)  # (*lead, Q, 1+S)
+        trans = dirichlet_from_gammas(g_trans)  # (*lead, Q, 1+S, 1+S)
+        prox = prox_high * beta_from_gamma_pair(g_p1[..., 0], g_p0[..., 0])
         b = gb / b_beta
         h = gh / h_beta
         w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
@@ -202,11 +214,11 @@ class hmm(cosmos):
             halfnormal_log_prob(gain, priors["gain_std"])
             - gamma_log_prob(gain, gain_conc, pc("gain_beta"))
             + (dirichlet_log_prob(init, const["init_prior"])
-               - dirichlet_log_prob(init, init_conc)).sum()
+               - dirichlet_log_prob(init, init_conc)).sum(-1)
             + (dirichlet_log_prob(trans, const["trans_prior"])
-               - dirichlet_log_prob(trans, trans_conc)).sum()
+               - dirichlet_log_prob(trans, trans_conc)).sum((-2, -1))
             + (exponential_log_prob(lamda, priors["lamda_rate"])
-               - gamma_log_prob(lamda, lamda_conc, pc("lamda_beta"))).sum()
+               - gamma_log_prob(lamda, lamda_conc, pc("lamda_beta"))).sum(-1)
             + exponential_log_prob(prox, priors["proximity_rate"])
             - affine_beta_log_prob(
                 prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
@@ -214,36 +226,39 @@ class hmm(cosmos):
         )
 
         # per-AOI Delta sites (MAP background hyper-parameters)
-        bm = pc("background_mean_loc")[:, 0, :]  # (n, C)
-        bs = pc("background_std_loc")[:, 0, :]
+        bm = pc("background_mean_loc")[..., 0, :]  # (*lead, n, C)
+        bs = pc("background_std_loc")[..., 0, :]
         aoi_term = (
             (halfnormal_log_prob(bm, priors["background_mean_std"])
              + halfnormal_log_prob(bs, priors["background_std_std"]))
-            * mask[:, None]
-        ).sum()
+            * mask[..., None]
+        ).sum((-2, -1))
 
         # z-chain: marginals gamma_f from the prefix products
-        A = pc("z_trans")  # (n, F, C, 1+S, 1+S), rows q(z_f | z_{f-1})
+        A = pc("z_trans")  # (*lead, n, F, C, 1+S, 1+S), rows q(z_f | z_{f-1})
         logA = torch.log(A)
-        gamma = torch.exp(cumulative_logmatmulexp(logA, 1)[..., 0, :])  # (n, F, C, 1+S)
-        lp_init = log_probs_z(init, ont)  # (n, Q, 1+S)
-        lp_trans = torch.movedim(safe_log(expand_offtarget(trans))[..., ont], -1, 0)
-        q0 = A[:, 0, :, 0, :]  # (n, C, 1+S): the chain's start
-        init_term = (q0 * (lp_init - torch.log(q0))).sum((-2, -1))  # (n,)
-        xi = gamma[:, :-1, :, :, None] * A[:, 1:]  # (n, F-1, C, 1+S, 1+S)
-        chain_term = init_term + (xi * (lp_trans[:, None] - logA[:, 1:])).sum((1, 2, 3, 4))
+        gamma = torch.exp(cumulative_logmatmulexp(logA, -4)[..., 0, :])  # (*lead, n, F, C, 1+S)
+        lp_init = log_probs_z(init, ont)  # (*lead, n, Q, 1+S)
+        lp_trans = select_ontarget(safe_log(expand_offtarget(trans)), ont)  # (*lead, n, Q, 1+S, 1+S)
+        q0 = A[..., 0, :, 0, :]  # (*lead, n, C, 1+S): the chain's start
+        init_term = (q0 * (lp_init - torch.log(q0))).sum((-2, -1))  # (*lead, n)
+        xi = gamma[..., :-1, :, :, None] * A[..., 1:, :, :, :]  # (*lead, n, F-1, C, 1+S, 1+S)
+        chain_term = init_term + (
+            xi * (lp_trans.unsqueeze(-4) - logA[..., 1:, :, :, :])
+        ).sum((-4, -3, -2, -1))
 
-        lp_b = gamma_log_prob(b, (bm / bs)[:, None, :] ** 2, (bm / bs**2)[:, None, :])
+        lp_b = gamma_log_prob(b, (bm / bs)[..., None, :] ** 2, (bm / bs**2)[..., None, :])
         lq_b = gamma_log_prob(b, b_loc * b_beta, b_beta)
 
         # per-frame terms conditioned on z = s
-        qm = tf["m_probs"](torch.movedim(win["m_probs"], 1, -1))  # (1+S, n, F, C, K)
+        qm = tf["m_probs"](torch.movedim(win["m_probs"], c + 1, -1))  # (*lead, 1+S, n, F, C, K)
         mtab = const["mtab"]  # (M, K)
-        lpm1, lpm0 = log_probs_m(lamda, K)  # (Q, 1+K, K)
-        log_pm_sum = torch.einsum("mk,qtk->mtq", mtab, lpm1) + torch.einsum(
-            "mk,qtk->mtq", 1.0 - mtab, lpm0
-        )  # (M, 1+K, Q)
+        lpm1, lpm0 = log_probs_m(lamda, K)  # (*lead, Q, 1+K, K)
+        log_pm_sum = torch.einsum("mk,...qtk->m...tq", mtab, lpm1) + torch.einsum(
+            "mk,...qtk->m...tq", 1.0 - mtab, lpm0
+        )  # (M, *lead, 1+K, Q)
         size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
+        size_sp = size_sp.reshape(size_sp.shape + (1,) * 4)  # against (n, F, Q, K)
         lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
             ys, 0.0, 2.0, -lim, lim
         )
@@ -251,30 +266,32 @@ class hmm(cosmos):
             xs, 0.0, size_sp, -lim, lim
         ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
         lpxy_t = torch.where(
-            const["spec_tk"][:, None, None, None, :], lpxy_sp[None], lpxy_ns[None]
-        )  # (1+K, n, F, Q, K)
-        term_xy = torch.einsum("mk,tnfqk->mtnfq", mtab, lpxy_t)  # (M, 1+K, n, F, Q)
+            const["spec_tk"][:, None, None, None, :], lpxy_sp.unsqueeze(-5),
+            lpxy_ns.unsqueeze(-5),
+        )  # (*lead, 1+K, n, F, Q, K)
+        term_xy = torch.einsum("mk,...tnfqk->m...tnfq", mtab, lpxy_t)  # (M, *lead, 1+K, n, F, Q)
         # over (m, z, theta): theta summed out, z kept for the chain
         T_full = (
-            const["lpt"][None, :, :, None, None, None]  # (1, 1+S, 1+K, 1, 1, 1)
-            + log_pm_sum[:, None, :, None, None, :]  # (M, 1, 1+K, 1, 1, Q)
-            + term_xy[:, None]  # (M, 1, 1+K, n, F, Q)
+            const["lpt"][:, :, None, None, None]  # (1+S, 1+K, 1, 1, 1)
+            + log_pm_sum.unsqueeze(-2).unsqueeze(-2).unsqueeze(-5)  # (M, *lead, 1, 1+K, 1, 1, Q)
+            + term_xy.unsqueeze(-5)  # (M, *lead, 1, 1+K, n, F, Q)
         )
-        inner = torch.logsumexp(T_full, dim=2)  # (M, 1+S, n, F, Q)
+        inner = torch.logsumexp(T_full, dim=-4)  # (M, *lead, 1+S, n, F, Q)
 
         lph = halfnormal_log_prob(h, priors["height_std"])
         lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
-        term_hw = torch.einsum("mk,nfqk->mnfq", mtab, lph + lpw)
-        loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)  # (M, n, F, C)
+        term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
+        loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)  # (M, *lead, n, F, C)
 
-        log_qm = torch.einsum("mk,snfqk->msnfq", mtab, torch.log(qm)) + torch.einsum(
-            "mk,snfqk->msnfq", 1.0 - mtab, torch.log1p(-qm)
-        )  # (M, 1+S, n, F, Q)
+        log_qm = torch.einsum("mk,...snfqk->m...snfq", mtab, torch.log(qm)) + torch.einsum(
+            "mk,...snfqk->m...snfq", 1.0 - mtab, torch.log1p(-qm)
+        )  # (M, *lead, 1+S, n, F, Q)
         # q(m | z) restricted to the configs feasible given z and
         # renormalised: given z > 0 the all-zero m has zero model
         # probability, and the unrestricted guide would make the ELBO -inf
         # at its own init (m_probs = 0.5)
-        log_qm = log_qm + const["log_feasible_m"][:, :, None, None, None]
+        lfm = const["log_feasible_m"]  # (M, 1+S)
+        log_qm = log_qm + lfm.reshape(lfm.shape[:1] + (1,) * c + lfm.shape[1:] + (1, 1, 1))
         log_qm = log_qm - torch.logsumexp(log_qm, dim=0, keepdim=True)
         wq = torch.exp(log_qm)
         # zero-weight configs can carry -1e30 costs: neutralise them exactly
@@ -283,14 +300,14 @@ class hmm(cosmos):
         lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
         lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
         lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
-        term_q = torch.einsum("mk,nfqk->mnfq", mtab, lqh + lqw + lqx + lqy)
+        term_q = torch.einsum("mk,...nfqk->m...nfq", mtab, lqh + lqw + lqx + lqy)
 
         ell = (
-            wq * (inner + (term_hw + loglik - term_q)[:, None] - log_qm)
-        ).sum(0)  # (1+S, n, F, Q)
-        frames_term = (gamma.permute(3, 0, 1, 2) * ell).sum(0) + lp_b - lq_b  # (n, F, C)
-        local_sum = (frames_term.sum((1, 2)) + chain_term) * mask
-        return global_term + (aoi_term + local_sum.sum()) * scale_n
+            wq * (inner + (term_hw + loglik - term_q).unsqueeze(-4) - log_qm)
+        ).sum(0)  # (*lead, 1+S, n, F, Q)
+        frames_term = (torch.movedim(gamma, -1, -4) * ell).sum(-4) + lp_b - lq_b  # (*lead, n, F, C)
+        local_sum = (frames_term.sum((-2, -1)) + chain_term) * mask
+        return global_term + (aoi_term + local_sum.sum(-1)) * scale_n
 
     # -- posteriors ---------------------------------------------------------------
     @property

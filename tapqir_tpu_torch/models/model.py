@@ -1,5 +1,5 @@
 """Model base class: the SVI lifecycle in PyTorch (counterpart of
-tapqir_tpu/models/model.py, without the mesh, restarts and profiler).
+tapqir_tpu/models/model.py, without the mesh and the profiler).
 
 Parameters are a dict of unconstrained tensors; the optimizer is the JAX
 package's minibatch-sparse Adam in window space: only the subsampled AOI
@@ -19,6 +19,13 @@ Retained reference behaviors:
 * non-finite loss or parameters -> reload the last checkpoint, reseed,
   continue, at most MAX_CONSECUTIVE_RESTARTS times in a row;
 * device out-of-memory -> CudaOutOfMemoryError with batch-size advice.
+
+Batched random restarts (``tapqir_tpu_torch.parallel.restarts``) step R
+chains at once with a leading chain axis on every parameter: the
+:meth:`Model._restart_step` gathers each chain's windows, takes every
+chain's ELBO in one pass (one kernel launch), and updates the (R, ...)
+parameters with the JAX package's dense ``optax.adam`` (every row decays
+every step); :meth:`Model.adopt_chain` hands the winner to the sparse step.
 
 Checkpoints (``.tapqir/<model>_model.tpqr``) use the JAX package's npz keys
 (``p::``, ``mu::``, ``nu::``, ``count::``, ``rng::key``, ``meta``), so each
@@ -57,6 +64,33 @@ def key_to_seed(key) -> int:
     """A ``rng::key`` entry (the port's seed, or a JAX PRNG key) as a seed."""
     k = np.asarray(key, np.uint64).reshape(-1)
     return int((int(k[0]) << 32) | int(k[-1]))
+
+
+def _take_rows(v, axis, idx):
+    """out[r] = v[r].index_select(axis - 1, idx[r]) for v (R, ...) and idx
+    (R, k), as one ``torch.gather``."""
+    shape = [1] * v.dim()
+    shape[0], shape[axis] = idx.shape
+    size = list(v.shape)
+    size[axis] = idx.shape[1]
+    return torch.gather(v, axis, idx.reshape(shape).expand(size))
+
+
+def _dense_adam(params, grads, mu, nu, t, lr):
+    """``optax.adam(lr, b1=0.9, b2=0.999, eps=1e-8)`` on lists of tensors in
+    place, at step count ``t``: mu and nu decay on every element, and the
+    bias correction 1 - b^t is the same for all (multi-tensor launches)."""
+    b1, b2, eps = _ADAM_B1, _ADAM_B2, _ADAM_EPS
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+    denom = torch._foreach_div(nu, 1.0 - b2**t)
+    torch._foreach_sqrt_(denom)
+    torch._foreach_add_(denom, eps)
+    step = torch._foreach_div(mu, 1.0 - b1**t)
+    torch._foreach_div_(step, denom)
+    torch._foreach_add_(params, step, alpha=-lr)
 
 
 class Model:
@@ -269,6 +303,24 @@ class Model:
                 w = rows
             v.index_copy_(a_ax, ndx, w)
 
+    def gather_chain_windows(self, tree, ndx, fidx):
+        """:meth:`gather_windows` with a leading chain axis: values (R,
+        ...), AOI rows ``ndx`` (R, n) and frames ``fidx`` (R, f) (or None),
+        each chain its own rows. A ``torch.gather`` per axis, so the
+        gradient of a window is a full-size, dense (R, ...) gradient."""
+        wspec = self._window_spec()
+        out = {}
+        for name, v in tree.items():
+            if name not in wspec:
+                out[name] = v
+                continue
+            a_ax, f_ax = wspec[name]
+            rows = _take_rows(v, a_ax + 1, ndx)
+            if fidx is not None and f_ax is not None:
+                rows = _take_rows(rows, f_ax + 1, fidx)
+            out[name] = rows
+        return out
+
     def _init_opt_state(self):
         """Adam moments plus per-row-group step counts: one scalar for
         globals, (Nt,) for per-AOI and (Nt*F,) for per-AOI-frame rows."""
@@ -368,6 +420,47 @@ class Model:
             self.scatter_windows(opt["mu"], mu_w, ndx, fidx)
             self.scatter_windows(opt["nu"], nu_w, ndx, fidx)
         return loss.detach()
+
+    def _restart_step(self, params, mu, nu, t, lr, generator, batch=None,
+                      draws=None):
+        """One SVI step of R chains at once (JAX: ``one_step`` of
+        ``fit_restarts`` under ``vmap``): each chain's batch, every chain's
+        ELBO in one pass, gradients of the (R, ...) parameters, then the
+        dense Adam of ``optax.adam`` at learning rate ``lr`` and step count
+        ``t`` (1 for the first step) on ``params``, ``mu`` and ``nu`` in
+        place. As in the JAX package the gradients are taken as they are
+        (no zeroing of non-finite elements) and no NaN check runs.
+
+        ``batch`` = (ndx (R, n), fidx (R, f) or None, f) and ``draws`` (R,
+        N) replace the random batch and draws. Returns the (R,) losses on
+        the device."""
+        data = self._data_dev
+        R = next(iter(params.values())).shape[0]
+        if batch is None:
+            batch = self._draw_batch(generator, chains=R)
+        ndx, fidx, f_b = batch
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        win = self.gather_chain_windows(leaves, ndx, fidx)
+        losses = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, data,
+                                         draws=draws)
+        grads = torch.autograd.grad(losses.sum(), list(leaves.values()))
+        with torch.no_grad():
+            _dense_adam(list(params.values()), list(grads), list(mu.values()),
+                        list(nu.values()), t, lr)
+        return losses.detach()
+
+    def adopt_chain(self, params, mu, nu, best, count):
+        """The restart handoff (JAX: the end of ``fit_restarts`` and
+        ``_coerce_opt_state``): chain ``best`` of the (R, ...) parameters
+        and Adam moments becomes the model's, and every per-row step count
+        (``g``, ``a``, ``af``) is the restarts' step count ``count``."""
+        self.params = {k: v[best].clone() for k, v in params.items()}
+        fresh = self._init_opt_state()
+        self.opt_state = {
+            "mu": {k: v[best].clone() for k, v in mu.items()},
+            "nu": {k: v[best].clone() for k, v in nu.items()},
+            "count": {k: torch.full_like(v, count) for k, v in fresh["count"].items()},
+        }
 
     def _next_seed(self) -> int:
         self._seed = (self._seed * _SEED_MULT + _SEED_INC) % (1 << 64)

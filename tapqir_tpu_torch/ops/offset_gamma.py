@@ -23,6 +23,12 @@ spl = d/da and spd = d/db, so the backward is elementwise in torch, as the
 TPU's backward was XLA. The factored form has no forward-only variant:
 without a gradient it drops the statistics, as the JAX package does.
 
+The two event-summed forms take the rate as a scalar or as R per-chain
+rates: the images are then R equal runs laid out one after the other
+(chain-major), run r scored with rate[r], all in one launch - the fold that
+``vmap`` over R restart chains makes of the Pallas grid. The rate gradient
+is then per chain.
+
 The kernels are built with ``nvcc`` for sm_90a at first use into
 ``_build/`` next to this package and loaded with ctypes through a plain C
 interface. CUDA tensors always go through a kernel (or raise); CPU tensors
@@ -60,30 +66,47 @@ MAX_CONFIGS = 64  # kMaxConfigs
 def offset_gamma_log_prob_plain(value, concentration, rate, offset_samples,
                                 offset_logits):
     """Per-pixel log sum_j exp(w_j) Gamma(value - g_j; a, b), exact lgamma;
-    the port of ``_offset_gamma_log_prob_xla``. A pixel below every bin
-    gives -inf."""
+    the port of ``_offset_gamma_log_prob_xla``. The rate broadcasts against
+    the concentration. A pixel below every bin gives -inf."""
     dtype = concentration.dtype
     v = value.to(dtype)[..., None]
     a = concentration[..., None]
     d = v - offset_samples.to(dtype)
     ok = d > 0
     d_safe = torch.where(ok, d, torch.ones_like(d))
-    inner = (a - 1.0) * torch.log(d_safe) - rate * d_safe + offset_logits.to(dtype)
+    rate_b = rate[..., None] if rate.dim() else rate  # against the bin axis too
+    inner = (a - 1.0) * torch.log(d_safe) - rate_b * d_safe + offset_logits.to(dtype)
     inner = torch.where(ok, inner, torch.full_like(inner, -torch.inf))
     lse = torch.logsumexp(inner, dim=-1)
     return concentration * torch.log(rate) - torch.lgamma(concentration) + lse
 
 
+def image_rates(rate, nb):
+    """The rate of each of ``nb`` images as a (nb, 1) column, from a scalar
+    or from (R,) per-chain rates over R equal runs of images; a scalar (or
+    one rate) stays a 0-dim tensor."""
+    if rate.numel() == 1:
+        return rate.reshape(())
+    if rate.dim() != 1 or nb % rate.shape[0]:
+        raise ValueError(
+            f"per-chain rates must be (R,) with R dividing the {nb} images, "
+            f"got shape {tuple(rate.shape)}"
+        )
+    return rate.repeat_interleave(nb // rate.shape[0])[:, None]
+
+
 def offset_gamma_summed_plain(value, concentration, rate, offset_samples,
                               offset_logits, ev):
     """(M, nb) sums over the first ``ev`` lanes of each (nb, EVP) image;
+    ``rate`` a scalar or (R,) per-chain rates (see :func:`image_rates`);
     gradients by autograd."""
     EVP = concentration.shape[-1]
     mask = (torch.arange(EVP, device=concentration.device) < ev).to(
         concentration.dtype
     )
+    r = image_rates(rate, concentration.shape[-2])
     lp = offset_gamma_log_prob_plain(
-        value, concentration, rate, offset_samples, offset_logits
+        value, concentration, r, offset_samples, offset_logits,
     )
     return (lp * mask).sum(-1)
 
@@ -114,11 +137,14 @@ class _Library:
         self.build_seconds = None
         self.build_log = ""
         self.path = None
+        self.max_bins = self.max_runs = None  # the kernels' limits, read at load
 
     def get(self):
         with self._lock:
             if self._lib is None:
-                self._lib = self._load(self._build())
+                lib = self._load(self._build())
+                self.max_bins, self.max_runs = lib.og_max_bins(), lib.og_max_runs()
+                self._lib = lib
             return self._lib
 
     def _build(self) -> Path:
@@ -152,11 +178,12 @@ class _Library:
         lib = ctypes.CDLL(str(path))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         signatures = {
-            # x, a, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, stats, stream
-            "og_summed": [ptr] * 8 + [i32] * 6 + [ptr],
+            # x, a, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, nbr, stats,
+            # stream
+            "og_summed": [ptr] * 8 + [i32] * 7 + [ptr],
             # x, base, deltas, mask bits (host), g, w, rate, out, spl, spd,
-            # M, Kf, nb, EVP, ev, J, stream
-            "og_factored": [ptr] * 10 + [i32] * 6 + [ptr],
+            # M, Kf, nb, EVP, ev, J, nbr, stream
+            "og_factored": [ptr] * 10 + [i32] * 7 + [ptr],
             # x, a, g, w, rate, out, spl, spd, M, n_px, J, stats, stream
             "og_pixel": [ptr] * 8 + [i32, i64, i32, i32, ptr],
         }
@@ -165,31 +192,41 @@ class _Library:
                 fn = getattr(lib, f"{entry}_{suffix}")
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
-        lib.og_max_bins.argtypes = []
-        lib.og_max_bins.restype = ctypes.c_int
+        for probe in ("og_max_bins", "og_max_runs"):
+            getattr(lib, probe).argtypes = []
+            getattr(lib, probe).restype = ctypes.c_int
         return lib
 
 
 library = _Library()
 
 
-def _check_inputs(x, a, rate, g, w):
+def _check_inputs(x, a, rate, g, w, nb=None):
     """What every launcher takes: CUDA tensors of one floating dtype,
-    contiguous, a scalar rate and (J,) offsets within the kernel's limit."""
+    contiguous, (J,) offsets within the kernel's limit and one rate, or,
+    for the summed kernel over ``nb`` images, R per-chain rates (R,) with R
+    dividing nb."""
     if a.device.type != "cuda":
         raise ValueError(f"the kernel takes CUDA tensors, got {a.device}")
     if a.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the kernel takes float32 or float64, got {a.dtype}")
-    if rate.numel() != 1 or g.ndim != 1 or w.shape != g.shape:
-        raise ValueError("rate must be a scalar and offsets (J,) vectors")
+    if g.ndim != 1 or w.shape != g.shape:
+        raise ValueError("offsets must be (J,) vectors")
+    if nb is None and rate.numel() != 1:
+        raise ValueError("rate must be a scalar")
+    if nb is not None and (rate.ndim != 1 or nb % max(rate.shape[0], 1)):
+        raise ValueError(f"rate must be (R,) with R dividing the {nb} images, got shape "
+                         f"{tuple(rate.shape)}")
     for t in (x, a, rate, g, w):
         if t.device != a.device or t.dtype != a.dtype:
             raise TypeError("all inputs must share the concentration's device and dtype")
         if not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
     lib = library.get()
-    if g.shape[0] > lib.og_max_bins():
-        raise ValueError(f"{g.shape[0]} offset bins exceed the kernel's {lib.og_max_bins()}")
+    if g.shape[0] > library.max_bins:
+        raise ValueError(f"{g.shape[0]} offset bins exceed the kernel's {library.max_bins}")
+    if nb is not None and not 1 <= rate.shape[0] <= library.max_runs:
+        raise ValueError(f"{rate.shape[0]} rates: the kernel takes 1..{library.max_runs}")
     return lib
 
 
@@ -229,19 +266,19 @@ class _Launcher:
 
 class _SummedLauncher(_Launcher):
     def __call__(self, x2, a3, rate, g, w, ev):
-        """x2 (nb, EVP), a3 (M, nb, EVP), rate (1,), g and w (J,). Returns
-        out (M, nb) and, for the statistics variant, spl and spd (M, nb,
-        EVP)."""
-        lib = _check_inputs(x2, a3, rate, g, w)
+        """x2 (nb, EVP), a3 (M, nb, EVP), rate (R,) over R runs of nb / R
+        images, g and w (J,). Returns out (M, nb) and, for the statistics
+        variant, spl and spd (M, nb, EVP)."""
         if a3.ndim != 3 or x2.ndim != 2 or x2.shape != a3.shape[1:]:
             raise ValueError(f"shapes: value {tuple(x2.shape)} vs concentration {tuple(a3.shape)}")
         M, nb, EVP = a3.shape
+        lib = _check_inputs(x2, a3, rate, g, w, nb)
         _check_ev(ev, EVP)
         out, spl, spd = self._outputs((M, nb), a3.shape, a3)
         self._launch(
             lib, a3, x2.data_ptr(), a3.data_ptr(), g.data_ptr(), w.data_ptr(),
             rate.data_ptr(), out.data_ptr(), self._ptr(spl), self._ptr(spd),
-            M, nb, EVP, int(ev), g.shape[0], int(self.stats),
+            M, nb, EVP, int(ev), g.shape[0], nb // rate.shape[0], int(self.stats),
         )
         return (out, spl, spd) if self.stats else out
 
@@ -266,11 +303,12 @@ class _PixelLauncher(_Launcher):
 class _FactoredLauncher(_Launcher):
     def __call__(self, x2, base, deltas, masks, rate, g, w, ev):
         """x2 (nb, EVP), base (nb,), deltas (Kf, nb, EVP), masks: M ints
-        (bit k of masks[m] says config m holds spot k), rate (1,), g and w
-        (J,). Returns out (M, nb), spl and spd (M, nb, EVP)."""
-        lib = _check_inputs(x2, deltas, rate, g, w)
-        _check_inputs(x2, base, rate, g, w)
+        (bit k of masks[m] says config m holds spot k), rate (R,) over R
+        runs of nb / R images, g and w (J,). Returns out (M, nb), spl and
+        spd (M, nb, EVP)."""
         Kf, nb, EVP = deltas.shape
+        lib = _check_inputs(x2, deltas, rate, g, w, nb)
+        _check_inputs(x2, base, rate, g, w, nb)
         if x2.shape != (nb, EVP) or base.shape != (nb,):
             raise ValueError(
                 f"shapes: value {tuple(x2.shape)}, base {tuple(base.shape)} vs "
@@ -291,7 +329,7 @@ class _FactoredLauncher(_Launcher):
             lib, deltas, x2.data_ptr(), base.data_ptr(), deltas.data_ptr(),
             ctypes.cast(bits, ctypes.c_void_p), g.data_ptr(), w.data_ptr(),
             rate.data_ptr(), out.data_ptr(), spl.data_ptr(), spd.data_ptr(),
-            M, Kf, nb, EVP, int(ev), g.shape[0],
+            M, Kf, nb, EVP, int(ev), g.shape[0], nb // rate.shape[0],
         )
         return out, spl, spd
 
@@ -317,6 +355,16 @@ def _wants_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _rate_grad(go, spd, R):
+    """d/d rate of each of R chains: go * spd summed over its run of
+    images (images are chain-major), one sum per chain over the same shape
+    as a single-chain launch's, so each chain's gradient is bitwise the
+    one R single-chain launches give."""
+    nbr = go.shape[1] // R
+    runs = [slice(r * nbr, (r + 1) * nbr) for r in range(R)]
+    return torch.stack([(go[:, sl, None] * spd[:, sl]).sum() for sl in runs])
+
+
 class _SummedFunction(torch.autograd.Function):
     """Forward + statistics in one launch; elementwise backward."""
 
@@ -324,14 +372,14 @@ class _SummedFunction(torch.autograd.Function):
     def forward(ctx, x2, a3, rate, g, w, ev):
         out, spl, spd = summed_stats(x2, a3, rate, g, w, ev)
         ctx.save_for_backward(spl, spd)
+        ctx.R = rate.shape[0]
         return out
 
     @staticmethod
     def backward(ctx, go):
         spl, spd = ctx.saved_tensors
         da = go[..., None] * spl
-        drate = (go[..., None] * spd).sum().reshape(1)
-        return None, da, drate, None, None, None
+        return None, da, _rate_grad(go, spd, ctx.R), None, None, None
 
 
 def offset_gamma_summed(value, concentration, rate, offset_samples,
@@ -340,7 +388,8 @@ def offset_gamma_summed(value, concentration, rate, offset_samples,
 
     :param value: (nb, EVP) flat images; lanes >= ev are ignored.
     :param concentration: (M, nb, EVP).
-    :param rate: scalar tensor (the Gamma rate 1/gain).
+    :param rate: scalar tensor (the Gamma rate 1/gain), or (R,) per-chain
+        rates over R equal runs of the nb images, run r scored with rate[r].
     :param ev: number of real pixels per image.
     :return: (M, nb) log-probabilities summed over each image's pixels.
     """
@@ -353,10 +402,10 @@ def offset_gamma_summed(value, concentration, rate, offset_samples,
     a3 = concentration.contiguous()
     g = offset_samples.to(dtype).contiguous()
     w = offset_logits.to(dtype).contiguous()
-    rate1 = rate.to(dtype).reshape(1)
-    if _wants_grad(a3, rate1):
-        return _SummedFunction.apply(x2, a3, rate1, g, w, int(ev))
-    return summed_fwd(x2, a3, rate1, g, w, int(ev))
+    rates = rate.to(dtype).reshape(-1)
+    if _wants_grad(a3, rates):
+        return _SummedFunction.apply(x2, a3, rates, g, w, int(ev))
+    return summed_fwd(x2, a3, rates, g, w, int(ev))
 
 
 class _PixelFunction(torch.autograd.Function):
@@ -443,7 +492,7 @@ class _FactoredFunction(torch.autograd.Function):
     def forward(ctx, x2, base, deltas, rate, g, w, masks, ev):
         out, spl, spd = factored_stats(x2, base, deltas, masks, rate, g, w, ev)
         ctx.save_for_backward(spl, spd)
-        ctx.masks, ctx.Kf = masks, deltas.shape[0]
+        ctx.masks, ctx.Kf, ctx.R = masks, deltas.shape[0], rate.shape[0]
         return out
 
     @staticmethod
@@ -459,8 +508,7 @@ class _FactoredFunction(torch.autograd.Function):
             for k in range(ctx.Kf):
                 if (bits >> k) & 1:
                     ddeltas[k] += gsl[m]
-        drate = (go[..., None] * spd).sum().reshape(1)
-        return None, dbase, ddeltas, drate, None, None, None, None
+        return None, dbase, ddeltas, _rate_grad(go, spd, ctx.R), None, None, None, None
 
 
 def offset_gamma_factored_summed(value, base, deltas, mtab, rate,
@@ -475,7 +523,8 @@ def offset_gamma_factored_summed(value, base, deltas, mtab, rate,
     :param deltas: (Kf,) + batch + (EVP,) per-spot contributions >= 0.
     :param mtab: (M, Kf) 0/1 host table (numpy array or nested sequence) of
         configs; on the card Kf <= 6 and M <= 64.
-    :param rate: scalar tensor (the Gamma rate 1/gain).
+    :param rate: scalar tensor (the Gamma rate 1/gain), or (R,) per-chain
+        rates over R equal runs of the images (see :func:`offset_gamma_summed`).
     :param ev: number of real pixels; the rest of EVP is masked.
     :return: (M,) + batch log-probabilities summed over each image's pixels.
     """
@@ -492,9 +541,9 @@ def offset_gamma_factored_summed(value, base, deltas, mtab, rate,
     d3 = deltas.reshape(Kf, nb, EVP).contiguous()
     g = offset_samples.to(dtype).contiguous()
     w = offset_logits.to(dtype).contiguous()
-    rate1 = torch.as_tensor(rate, dtype=dtype, device=deltas.device).reshape(1)
-    if _wants_grad(b1, d3, rate1):
-        out = _FactoredFunction.apply(x2, b1, d3, rate1, g, w, masks, int(ev))
+    rates = torch.as_tensor(rate, dtype=dtype, device=deltas.device).reshape(-1)
+    if _wants_grad(b1, d3, rates):
+        out = _FactoredFunction.apply(x2, b1, d3, rates, g, w, masks, int(ev))
     else:  # the JAX package's forward too runs the stats kernel and drops them
-        out = factored_stats(x2, b1, d3, masks, rate1, g, w, int(ev))[0]
+        out = factored_stats(x2, b1, d3, masks, rates, g, w, int(ev))[0]
     return out.reshape((len(masks),) + batch)

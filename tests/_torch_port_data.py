@@ -131,3 +131,98 @@ def jax_particle_draws(jm, pc, key, ndx, fdx, num_particles):
         out["xs"].append(jax_affine_beta_sample(ks[3], gk(pc["x_mean"]), size, -lim, lim))
         out["ys"].append(jax_affine_beta_sample(ks[4], gk(pc["y_mean"]), size, -lim, lim))
     return {k: np.stack([np.asarray(a) for a in v]) for k, v in out.items()}
+
+
+def jax_restart_inputs(jm, R, num_iter, perturb, chunk, record):
+    """What JAX ``fit_restarts(jm, R, num_iter, perturb=perturb,
+    chunk=chunk)`` starts from and draws, in its own key order
+    (restarts.py:45-99): the (R, ...) perturbed initial parameters, and per
+    step and chain the batch and the packed standard-Gamma draws that
+    ``record(jm, key)`` -> (ndx, fidx or None, f, draws) reads from the
+    chain's parameters at that step. The draws depend on the parameters,
+    so each chain is stepped here as ``one_step`` steps it (value_and_grad
+    of -elbo, then ``optax.adam``)."""
+    import zlib
+
+    import optax
+
+    data = jm._data_dev
+    tx = optax.adam(jm.lr, b1=0.9, b2=0.999, eps=1e-8)
+    k_perturb, k_run = jax.random.split(jax.random.PRNGKey(0))
+    init = {}
+    for name, v in jm.params.items():
+        v = np.asarray(v)
+        base = np.broadcast_to(v, (R,) + v.shape)
+        noise = np.array(perturb * jax.random.normal(
+            jax.random.fold_in(k_perturb, zlib.crc32(name.encode()) % (2**31)),
+            base.shape, v.dtype))
+        noise[0] = 0.0  # chain 0 keeps the unperturbed init
+        init[name] = base + noise
+
+    @jax.jit
+    def one_step(params, opt_state, key):
+        grads = jax.grad(lambda q: -jm.elbo(q, key, data))(params)
+        updates, opt_state = tx.update(grads, opt_state)
+        return optax.apply_updates(params, updates), opt_state
+
+    base_params = jm.params
+    state = []
+    for r in range(R):
+        p = {k: jnp.asarray(v[r]) for k, v in init.items()}
+        state.append((p, tx.init(p)))
+    steps = []
+    done = 0
+    while done < num_iter:
+        n = min(chunk, num_iter - done)
+        k_run, sub = jax.random.split(k_run)
+        keys_r = jax.random.split(sub, R)
+        chunk_steps = [[None] * R for _ in range(n)]
+        for r in range(R):
+            p, opt = state[r]
+            for i, key in enumerate(jax.random.split(keys_r[r], n)):
+                jm.params = p
+                chunk_steps[i][r] = record(jm, key)
+                p, opt = one_step(p, opt, key)
+            state[r] = (p, opt)
+        steps.extend(chunk_steps)
+        done += n
+    jm.params = base_params
+    return init, steps
+
+
+def port_restart_args(init, steps, device="cpu", dtype=None):
+    """``fit_restarts``' seams from :func:`jax_restart_inputs`: the initial
+    (R, ...) parameters, and per step the chains' batch (ndx (R, n), fidx
+    (R, f) or None, f) and draws (R, N)."""
+    import torch
+
+    params = {k: torch.tensor(v, device=device, dtype=dtype) for k, v in init.items()}
+    batches, draws = [], []
+    for chains in steps:
+        ndx = torch.tensor(np.stack([c[0] for c in chains]), device=device)
+        fidx = (None if chains[0][1] is None else
+                torch.tensor(np.stack([c[1] for c in chains]), device=device))
+        batches.append((ndx, fidx, chains[0][2]))
+        draws.append(torch.tensor(np.stack([c[3] for c in chains]), device=device,
+                                  dtype=dtype))
+    return params, batches, draws
+
+
+def assert_restarts_match(tm, t_losses, t_best, jm, j_losses, j_best, rtol=1e-6):
+    """The port's ``fit_restarts`` result against the JAX package's: the
+    (R, T) losses, the best chain, the winner's parameters, Adam moments
+    and step counts, the iteration and the last loss."""
+    np.testing.assert_allclose(t_losses, np.asarray(j_losses), rtol=rtol)
+    assert t_best == j_best
+    adam = jm.opt_state[0]
+    assert set(tm.params) == set(jm.params)
+    for name in tm.params:
+        assert_close_scaled(tm.params[name].numpy(), jm.params[name], f"param {name}", rtol)
+        assert_close_scaled(tm.opt_state["mu"][name].numpy(), adam.mu[name], f"mu {name}", rtol)
+        assert_close_scaled(tm.opt_state["nu"][name].numpy(), adam.nu[name], f"nu {name}", rtol)
+    count = int(np.asarray(adam.count))
+    assert count == t_losses.shape[1]
+    for k, v in tm.opt_state["count"].items():
+        assert (v.numpy() == count).all(), k
+    assert tm.iter == jm.iter
+    np.testing.assert_allclose(tm.iter_loss, jm.iter_loss, rtol=rtol)

@@ -201,9 +201,6 @@ def test_fit_prompts_for_options_not_given(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("command, extra, item", [
-    ("fit", ["-R", "3"], 7),
-    ("fit", ["--num-restarts", "2"], 7),
-    ("fit", ["--restart-iter", "100"], 7),
     ("fit", ["--mesh", "4x2"], 8),
     ("fit", ["--profile", "3"], 9),
     ("stats", ["--mesh", "auto"], 8),

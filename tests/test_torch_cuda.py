@@ -12,7 +12,9 @@ around multiples of 8, whole tiles masked, a bin term spread over more than
 100 log units, a < 1 with d just above 0), the summed kernel's blocks of
 several images (nb not a multiple of them, ev < EVP), the pixel kernel's
 config chunks of 1, 2 and 4 (M = 1, 2, 3, 4, 5, 16), and launch each kernel
-twice on the same inputs, requiring bitwise-equal outputs.
+twice on the same inputs, requiring bitwise-equal outputs. A launch over R
+chains' images with a rate per chain (the restart step's) must equal R
+single-chain launches bitwise.
 """
 
 import importlib.util
@@ -197,3 +199,38 @@ def test_factored_fit_and_pixel_path_on_the_card(cs, tmp_path):
     assert res["launches"]["summed_stats"] == res["launches"]["summed_fwd"] == 0
     pixel = cs.run_pixel_path(model.data, n_aoi=4, n_frames=16, device="cuda")
     assert pixel["launches"]["pixel_fwd"] == 1 and pixel["launches"]["pixel_stats"] == 2
+
+
+CHAIN_CASES = {
+    "summed-R3": dict(form="summed", R=3, nb=7, M=4, Kf=2),
+    "summed-R4-M16": dict(form="summed", R=4, nb=9, M=16, Kf=4),
+    "factored-R3": dict(form="factored", R=3, nb=7, M=4, Kf=2),
+    "factored-R2-Kf4": dict(form="factored", R=2, nb=13, M=16, Kf=4),
+}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_chain_batched_launch_matches_single_chain_launches(cs, case):
+    """One launch over R runs of images with a rate per run (the restart
+    step's chains) is bitwise equal, image for image, to R single-chain
+    launches; each chain's rate gradient agrees within 1e-6 relative, and
+    everything with the float64 plain version (chip_smoke.compare_chains)."""
+    c = CHAIN_CASES[case]
+    summed = c["form"] == "summed"
+    errs = cs.compare_chains(c["form"], c["R"], c["nb"], 256, 196, 61, 5,
+                             cs.FWD_TOL if summed else cs.FACT_FWD_TOL,
+                             cs.GRAD_TOL if summed else cs.FACT_GRAD_TOL, M=c["M"], Kf=c["Kf"])
+    assert errs["rate_vs_single_rel"] <= cs.CHAIN_RATE_RTOL
+
+
+def test_chain_batched_launcher_checks_its_rates(cs):
+    from tapqir_tpu_torch.ops import offset_gamma as og
+
+    x, a, rate, g, w = cs.kernel_inputs(2, 6, 256, 196, 7, torch.float32, 0, "cuda")
+    with pytest.raises(ValueError):  # 4 rates cannot split 6 images
+        og.summed_stats(x, a, rate.repeat(4), g, w, 196)
+    with pytest.raises(ValueError):
+        og.summed_fwd(x, a, rate.reshape(1, 1), g, w, 196)
+    n = og.summed_fwd.launches
+    og.summed_fwd(x, a, rate.repeat(3), g, w, 196)
+    assert og.summed_fwd.launches == n + 1

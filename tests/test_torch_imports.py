@@ -35,7 +35,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "tapqir_tpu_torch.ops.scan" in mods and "tapqir_tpu_torch.models.hmm" in mods
     assert "tapqir_tpu_torch.main" in mods and "tapqir_tpu_torch.utils.stats" in mods
     assert {"tapqir_tpu_torch.models.crosstalk", "tapqir_tpu_torch.utils.imscroll",
-            "tapqir_tpu_torch.utils.mle_analysis"} <= set(mods)
+            "tapqir_tpu_torch.utils.mle_analysis",
+            "tapqir_tpu_torch.parallel.restarts"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
