@@ -92,7 +92,8 @@ one. Phases, each printing its findings; any failure is an exception:
     R=2 x 10240, each launch bitwise equal, image for image, to R
     single-chain launches and within the float64 tolerances above, timed
     beside the R single-chain launches, the plain version, the bound and
-    the special-function floor;
+    the special-function floor; the summed statistics of the hmm restart
+    step (R=4 x nb=7900) timed so too;
 18. batched random restarts through the command line, in a workspace of its
     own on phase 7's saved data: ``fit --model cosmos -n 10 -f 512 -R 4
     --restart-iter 200 -it 200 --no-input`` (200 `summed_stats` launches
@@ -106,18 +107,38 @@ one. Phases, each printing its findings; any failure is an exception:
     at R=4, crosstalk at R=2, each with one kernel launch per step
     (:func:`check_api_restarts`), and one restart step of each on the card
     in float32 against float64 on the CPU with the same batches and draws
-    (:func:`check_restart_card_vs_cpu`).
+    (:func:`check_restart_card_vs_cpu`);
+20. raw-data ingest at the eLife cell's width: a raw Glimpse folder drawn
+    from a seed (:func:`write_glimpse_folder`: 512 x 512 frames in two
+    ``.glimpse`` files, ``header.mat``, a driftlist within 2 px, Nt=856
+    AOIs half on target in ``aoiinfo2`` files, P=14, the default 30 x 30
+    offset region; depth cut to F=256 of 790 frames, as the int64
+    ``data.tpqr`` is written compressed), then ``glimpse ... --no-input``
+    in process, every crop checked bit for bit against the frames written,
+    the targets inside the central pixel, the offset weights summing to 1,
+    and the native decoder bitwise equal to the numpy decoder on every
+    frame (:func:`run_ingest`, :func:`check_ingest`); ingest seconds by
+    stage and the host's peak resident memory;
+21. the ingested workspace through the command line in process
+    (:func:`run_ingested_cli`, :func:`check_ingested_cli`): ``fit --model
+    cosmos -n 10 -f 256 -it 20`` (exactly 20 `summed_stats` launches at
+    nb = 2560, a finite -ELBO, steps/s), ``fit --profile 5`` (a
+    ``torch.profiler`` trace with exactly 5 device events of the summed
+    kernel; the checkpoint's bytes and the parameters unchanged), ``stats``
+    (phase 11's checks that need no labels), ``subset`` of 20 AOIs and
+    ``log`` with the pager captured.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
 of the logs the kernels issue at M=16 (one per chunk of 4 configs). The
 kernels' launch counts are set to 0 just before each of the paths 7-16 and
-read just after it, and so before and after phases 18 and 19. Phases 10-19
-print their seconds (stats: by stage) and their peak device memory; every
-phase prints its wall time at the end.
+read just after it, and so before and after phases 18 and 19 and each
+command of phases 20-21. Phases 10-21 print their seconds (stats and
+ingest: by stage) and their peak device memory; every phase prints its
+wall time at the end.
 
 The second-to-last line is a JSON object with one entry per kernel, its
-launches summed over the paths 7-19; the last line is {"ok": true,
+launches summed over the paths 7-21; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -130,6 +151,7 @@ import resource
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -414,9 +436,14 @@ def _checkpoint_iter(workdir):
         return json.loads(bytes(z["meta"]).decode())["iter"]
 
 
+# the commands that take --cpu
+DEVICE_COMMANDS = ("fit", "stats", "ttfb", "dwelltime")
+
+
 def run_cli(workdir, argv, device="cuda", setup=None):
     """``python -m tapqir_tpu_torch --cd workdir <argv>`` in process, through
-    the module's ``main(argv)`` (with ``--cpu`` when ``device`` is the CPU),
+    the module's ``main(argv)`` (with ``--cpu`` when ``device`` is the CPU
+    and the command takes it),
     the kernels' launch counts set to 0 just before and read just after.
     ``setup(model)``, if given, is called on the model the command builds
     before the command uses it. Returns the exit code, that model, the
@@ -433,13 +460,14 @@ def run_cli(workdir, argv, device="cuda", setup=None):
         return built[-1]
 
     cuda = torch.device(device).type == "cuda"
+    cpu_flag = [] if cuda or argv[0] not in DEVICE_COMMANDS else ["--cpu"]
     cli._make_model = record
     try:
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         t0 = time.perf_counter()
-        code = cli.main(["--cd", str(workdir), *argv] + ([] if cuda else ["--cpu"]))
+        code = cli.main(["--cd", str(workdir), *argv, *cpu_flag])
         _sync(device)
         seconds = time.perf_counter() - t0
         launches = _read_launches()
@@ -516,6 +544,26 @@ def _check_intervals_and_snr(m, ps):
         raise RuntimeError(f"{m.name}: non-finite SNR or chi2 on on-target rows")
 
 
+def _check_stats_arrays(m, ps):
+    """Raise unless the cosmos stats ``ps`` hold z_probs normalised on
+    on-target rows and 0 on off-target ones, theta_probs summing to at most
+    1, p_specific in [0, 1], and the checks of :func:`_check_intervals_and_snr`.
+    Returns z_probs' largest sum error and theta_probs' largest sum."""
+    N = m.data.N
+    z, th = ps["z_probs"], ps["theta_probs"]
+    z_sum_err = float(np.abs(z[:N].sum(-1) - 1.0).max())
+    if z_sum_err > 1e-5 or z[N:].any() or th[:, N:].any():
+        raise RuntimeError(f"z_probs: sum error {z_sum_err} or nonzero off-target rows")
+    th_max = float(th.sum(0).max())
+    if th_max > 1.0 + 1e-5:
+        raise RuntimeError(f"theta_probs sum over spots up to {th_max}")
+    p_spec = ps["p_specific"]
+    if not ((p_spec >= 0).all() and (p_spec <= 1).all()):
+        raise RuntimeError("p_specific outside [0, 1]")
+    _check_intervals_and_snr(m, ps)
+    return z_sum_err, th_max
+
+
 def check_cli_stats(res, fit_res):
     """Raise unless phase 11's stats hold: z_probs normalised on on-target
     rows and 0 on off-target ones, theta_probs summing to at most 1,
@@ -530,17 +578,8 @@ def check_cli_stats(res, fit_res):
     if any(res["launches"].values()):
         raise RuntimeError(f"CLI stats launched kernels: {res['launches']}")
     ps, N = m.params_stats, m.data.N
-    z, th = ps["z_probs"], ps["theta_probs"]
-    z_sum_err = float(np.abs(z[:N].sum(-1) - 1.0).max())
-    if z_sum_err > 1e-5 or z[N:].any() or th[:, N:].any():
-        raise RuntimeError(f"z_probs: sum error {z_sum_err} or nonzero off-target rows")
-    th_max = float(th.sum(0).max())
-    if th_max > 1.0 + 1e-5:
-        raise RuntimeError(f"theta_probs sum over spots up to {th_max}")
+    z_sum_err, th_max = _check_stats_arrays(m, ps)
     p_spec = ps["p_specific"]
-    if not ((p_spec >= 0).all() and (p_spec <= 1).all()):
-        raise RuntimeError("p_specific outside [0, 1]")
-    _check_intervals_and_snr(m, ps)
     summary = m.summary
     metrics = {k: summary[k]["Mean"] for k in ("MCC", "Recall", "Precision")}
     if not (-1 <= metrics["MCC"] <= 1 and 0 <= metrics["Recall"] <= 1
@@ -1404,7 +1443,8 @@ def run_chain_kernels():
     then crosstalk's M=16 / Kf=4 over R=2 x 10240) against R single-chain
     launches and float64 (:func:`compare_chains`), then timed with CUDA
     events beside the R single-chain launches, the plain version, the
-    bound and the special-function floor. Returns the errors and the
+    bound and the special-function floor; the summed statistics of the
+    hmm restart step (R=4 x 7900) timed so too. Returns the errors and the
     timing rows (ms, plain ms, bound ms, bound by, floor ms, single ms)."""
     from tapqir_tpu_torch.ops import offset_gamma as og
 
@@ -1416,12 +1456,16 @@ def run_chain_kernels():
         ("summed", 2, XT_NB, XT_M, XT_KF, FWD_TOL, GRAD_TOL),
         ("factored", 2, XT_NB, XT_M, XT_KF, FACT_FWD_TOL, FACT_GRAD_TOL),
     ]
+    # the hmm restart step (phase 19): R=4 chains x 10 AOIs x 790 frames,
+    # timed only (its arithmetic is checked at R=4 x 5120 above)
+    cases.append(("summed", R4, 10 * 790, 4, 2, None, None))
     errs, timing = {}, {}
     for i, (form, R, nb, M, Kf, fwd_tol, grad_tol) in enumerate(cases):
         shape = f"M={M}" if form == "summed" else f"Kf={Kf} (M={M})"
-        errs[f"{form} R={R} x nb={nb} {shape}"] = compare_chains(
-            form, R, nb, EVP, ev, J, 60 + i, fwd_tol, grad_tol, M=M, Kf=Kf)
-        torch.cuda.empty_cache()
+        if fwd_tol is not None:
+            errs[f"{form} R={R} x nb={nb} {shape}"] = compare_chains(
+                form, R, nb, EVP, ev, J, 60 + i, fwd_tol, grad_tol, M=M, Kf=Kf)
+            torch.cuda.empty_cache()
 
         n_all = R * nb
         rates = torch.tensor(chain_rates(R, 70 + i), device="cuda", dtype=torch.float32)
@@ -1433,8 +1477,9 @@ def run_chain_kernels():
             a[..., ev:] = 1.0
             parts = [(x[sl].contiguous(), a[:, sl].contiguous()) for sl in runs]
             floor = mufu_floor_ms(x[:, :ev], g, M)
-            for kname, launcher, stats in (("summed_stats", og.summed_stats, True),
-                                           ("summed_fwd", og.summed_fwd, False)):
+            kernels = (("summed_stats", og.summed_stats, True),
+                       ("summed_fwd", og.summed_fwd, False))
+            for kname, launcher, stats in kernels if fwd_tol is not None else kernels[:1]:
                 row = f"{kname} R={R} x nb={nb} M={M}"
                 ms = time_ms(lambda: launcher(x, a, rates, g, w, ev), 20)
                 single = time_ms(lambda: [launcher(xp, ap, r1, g, w, ev)
@@ -1730,6 +1775,376 @@ def check_restart_card_vs_cpu(model, R, n_aoi=4, n_frames=64, nbatch=2, fbatch=3
                            f"vs {want.tolist()}, {rel} relative > {RESTART_RTOL}")
     return {"losses_card": card.tolist(), "losses_cpu_f64": want.tolist(),
             "max_rel_err": rel, "images": R * nbatch * f * model.data.C}
+
+
+# ---------------------------------------------------------------------------
+# phases 20-21: raw-data ingest and the rest of the command line
+# ---------------------------------------------------------------------------
+
+# phase 20's raw Glimpse movie at the eLife cell's width: a 512 x 512 field
+# of view, Nt = 856 AOIs (half on target) on a grid spaced 16 px, P = 14,
+# the default 30 x 30 offset region at (10, 10); depth cut to 256 of the
+# cell's 790 frames, as the int64 data.tpqr is written compressed (the
+# 530 MB simulated stack of 790 frames takes 76-88 s to save)
+GLIMPSE_FOV, GLIMPSE_F, GLIMPSE_NT, GLIMPSE_SPACING = 512, 256, 856, 16
+GLIMPSE_OFFSET = (10, 10, 30)  # offset-x, offset-y, offset-P (the defaults)
+# phase 21: the fit on the ingested workspace, its profile and the subset
+INGEST_NBATCH, INGEST_ITER, INGEST_PROFILE, INGEST_SUBSET = 10, 20, 5, 20
+SPOT_HEIGHT, SPOT_WIDTH = 400.0, 1.4  # the bright spots on target (counts, px)
+
+
+def write_glimpse_folder(root, H=GLIMPSE_FOV, W=GLIMPSE_FOV, F=GLIMPSE_F, Nt=GLIMPSE_NT,
+                         P=14, offset=GLIMPSE_OFFSET, spacing=GLIMPSE_SPACING, n_files=2,
+                         seed=0):
+    """Phase 20's raw Glimpse folder under ``root``, drawn with numpy from
+    ``seed``: F frames of H x W as ``n_files`` ``<k>.glimpse`` files of
+    big-endian int16 minus 2^15, a ``header.mat`` with per-frame file
+    numbers, byte offsets and time stamps, a driftlist of per-frame (dy,
+    dx) increments whose cumulative drift stays within 2 px, and Nt // 2
+    on-target and Nt - Nt // 2 off-target AOIs at fractional 1-based
+    coordinates (``aoiinfo2`` .mat files, picked on the middle frame) on a
+    grid spaced ``spacing`` px, away from the edges and the offset region.
+    Every pixel holds a camera offset of 85-95 counts, every pixel outside
+    the offset region background photons, and the on-target AOIs a
+    Gaussian spot in about 40% of the frames, at the drifted target.
+
+    Returns the frames as ingest must read them ((F, H, W) unsigned), the
+    true target of every AOI in every frame ((Nt, F, 2), x and y, 0-based),
+    each file's frames and byte offsets, and the command's arguments."""
+    from scipy.io import savemat
+
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    gdir = root / "glimpse"
+    gdir.mkdir(parents=True)
+    ox, oy, oP = offset
+    margin = P // 2 + 3  # half a crop, the drift and the fraction
+    points = np.array([(x, y) for y in np.arange(spacing, H - margin, spacing)
+                       for x in np.arange(spacing, W - margin, spacing)
+                       if not (x - margin < ox + oP and y - margin < oy + oP
+                               and x + margin > ox and y + margin > oy)], float)
+    if len(points) < Nt:
+        raise ValueError(f"{H} x {W} holds {len(points)} AOIs spaced {spacing} px, not {Nt}")
+    xy0 = points[rng.permutation(len(points))[:Nt]] + rng.uniform(-0.4, 0.4, (Nt, 2))
+    n_on = Nt // 2
+
+    # the driftlist: increments (dy, dx) per frame, 0 at the anchor (the
+    # AOIs' frame); the drift of frame f is the walk from the anchor to f
+    anchor = F // 2
+    step = min(0.015, 1.9 / max(1, F - anchor))
+    deltas = rng.uniform(-step, step, (F, 2))
+    deltas[anchor] = 0.0
+    walk = np.zeros((F, 2))  # (dy, dx)
+    for f in range(anchor + 1, F):
+        walk[f] = walk[f - 1] + deltas[f]
+    for f in range(anchor - 1, -1, -1):
+        walk[f] = walk[f + 1] - deltas[f + 1]
+    truth = xy0[:, None, :] + walk[None, :, ::-1]  # (Nt, F, 2) x, y
+
+    r = np.arange(-7, 8)
+    present = rng.random((n_on, F)) < 0.4
+    frames = np.empty((F, H, W), np.uint16)
+    for f in range(F):
+        img = rng.integers(85, 96, (H, W))
+        photons = rng.poisson(15, (H, W))
+        photons[oy:oy + oP, ox:ox + oP] = 0
+        img += photons
+        c = truth[:n_on, f][present[:, f]]  # (n, 2) spot centres x, y
+        base = np.round(c).astype(int)
+        rows = base[:, 1, None, None] + r[None, :, None]
+        cols = base[:, 0, None, None] + r[None, None, :]
+        d2 = (cols - c[:, 0, None, None]) ** 2 + (rows - c[:, 1, None, None]) ** 2
+        img[rows, cols] += (SPOT_HEIGHT * np.exp(-0.5 * d2 / SPOT_WIDTH**2)).astype(int)
+        frames[f] = img
+
+    per_file = -(-F // n_files)
+    files, filenumber, offsets = [], [], []
+    for k in range(n_files):
+        path, idx = gdir / f"{k}.glimpse", np.arange(k * per_file, min(F, (k + 1) * per_file))
+        file_offsets = []
+        with open(path, "wb") as fh:
+            for f in idx:
+                file_offsets.append(fh.tell())
+                (frames[f].astype(np.int32) - 2**15).astype(">i2").tofile(fh)
+        files.append((path, idx, np.asarray(file_offsets, np.int64)))
+        filenumber += [k] * len(idx)
+        offsets += file_offsets
+    ttb = np.arange(F) * 100.0 + 17.0
+    savemat(gdir / "header.mat", {"vid": {
+        "height": H, "width": W, "nframes": F, "filenumber": np.asarray(filenumber),
+        "offset": np.asarray(offsets), "ttb": ttb, "time1": 12345.5}})
+    drift = np.column_stack([np.arange(1, F + 1), deltas])  # (frame, dy, dx)
+    savemat(root / "driftlist.mat", {"driftlist": drift})
+    for name, sel in (("aoi_on.mat", slice(0, n_on)), ("aoi_off.mat", slice(n_on, Nt))):
+        xy = xy0[sel]
+        rows = np.column_stack([np.full(len(xy), anchor + 1.0), np.ones(len(xy)),
+                                xy[:, 1] + 1, xy[:, 0] + 1, np.full(len(xy), 7.0),
+                                np.arange(1, len(xy) + 1)])
+        savemat(root / name, {"aoiinfo2": rows})
+    argv = ["glimpse", "--dataset", "chip-smoke-glimpse", "-P", str(P),
+            "--offset-x", str(ox), "--offset-y", str(oy), "--offset-p", str(oP),
+            "--name", "green", "--glimpse-folder", str(gdir),
+            "--driftlist", str(root / "driftlist.mat"),
+            "--ontarget-aoiinfo", str(root / "aoi_on.mat"),
+            "--offtarget-aoiinfo", str(root / "aoi_off.mat"), "--no-input"]
+    return {"frames": frames, "truth": truth, "files": files, "ttb": ttb, "argv": argv,
+            "shape": (H, W), "P": P, "n_on": n_on}
+
+
+def _host_rss_kib():
+    """This process's resident set in KiB (VmRSS of /proc/self/status)."""
+    for ln in Path("/proc/self/status").read_text().splitlines():
+        if ln.startswith("VmRSS:"):
+            return int(ln.split()[1])
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class host_peak_rss:
+    """The largest resident set of this process while the block runs,
+    sampled every 20 ms by a thread (``before`` and ``peak``, KiB): not
+    every kernel keeps a peak that a process may reset."""
+
+    def __enter__(self):
+        self.before = self.peak = _host_rss_kib()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, _host_rss_kib())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _host_rss_kib())
+
+
+def run_ingest(workdir, raw):
+    """Phase 20: ``glimpse ... --no-input`` in process on the raw folder
+    of :func:`write_glimpse_folder` (its result ``raw``), with the wall
+    seconds of each ingest stage and the host's resident memory before and
+    its peak during the command; then the checks of :func:`check_ingest`, and the
+    native decoder against the numpy decoder on every frame of every
+    file, bitwise, each timed. Returns the numbers."""
+    import tapqir_tpu_torch.imscroll as imscroll
+    from tapqir_tpu_torch.csrc import glimpse_native
+    from tapqir_tpu_torch.utils.dataset import load
+
+    stages, read = {}, imscroll.read_glimpse
+    imscroll.read_glimpse = lambda *a, **k: read(*a, stage_seconds=stages, **k)
+    try:
+        with host_peak_rss() as rss:
+            res = run_cli(workdir, raw["argv"], device="cpu")
+    finally:
+        imscroll.read_glimpse = read
+    res["host_rss_before_gib"] = rss.before / 2**20
+    res["host_peak_gib"] = rss.peak / 2**20
+    res["stage_seconds"] = stages
+    if res["code"] != 0:
+        raise RuntimeError(f"glimpse exited with {res['code']}")
+    res["checks"] = check_ingest(load(workdir), raw)
+
+    H, W = raw["shape"]
+    decode = {"native_seconds": 0.0, "numpy_seconds": 0.0, "frames": 0}
+    for path, idx, offsets in raw["files"]:
+        t0 = time.perf_counter()
+        native = glimpse_native.read_frames(path, offsets, H, W)
+        t1 = time.perf_counter()
+        plain = glimpse_native.read_frames_plain(path, offsets, H, W)
+        decode["native_seconds"] += t1 - t0
+        decode["numpy_seconds"] += time.perf_counter() - t1
+        if not (np.array_equal(native, plain) and np.array_equal(native, raw["frames"][idx])):
+            raise RuntimeError(f"{path}: the native decoder differs from the numpy decoder "
+                               "or from the frames written")
+        decode["frames"] += len(idx)
+    res["decoders"] = decode
+    return res
+
+
+def check_ingest(data, raw):
+    """Raise unless the ingested dataset holds every AOI's crop of every
+    frame bit for bit as cut in numpy from the frames written, at the
+    written target less an integer corner, with every target inside the
+    central pixel, the offset weights summing to 1 and the time stamps
+    carried over. Returns the numbers checked."""
+    P, truth, frames = raw["P"], raw["truth"], raw["frames"]
+    Nt, F = truth.shape[:2]
+    if data.images.shape != (Nt, F, 1, P, P) or data.N != raw["n_on"]:
+        raise RuntimeError(f"ingested images {data.images.shape}, N={data.N}")
+    if data.images.dtype != np.int64 or data.xy.dtype != np.float64:
+        raise RuntimeError(f"ingested dtypes {data.images.dtype} / {data.xy.dtype}")
+    xy = data.xy[:, :, 0]
+    if not ((xy > 0.5 * P - 1).all() and (xy < 0.5 * P).all()):
+        raise RuntimeError("an ingested target lies outside the central pixel")
+    corner = truth - xy  # integer pixels: where each crop starts (x, y)
+    off_grid = float(np.abs(corner - np.round(corner)).max())
+    if off_grid > 1e-9:
+        raise RuntimeError(f"targets {off_grid} px from the written ones less a corner")
+    corner = np.round(corner).astype(int)
+    r = np.arange(P)
+    for f in range(F):
+        rows = corner[:, f, 1, None, None] + r[None, :, None]
+        cols = corner[:, f, 0, None, None] + r[None, None, :]
+        if not np.array_equal(data.images[:, f, 0], frames[f][rows, cols]):
+            raise RuntimeError(f"frame {f + 1}: ingested crops differ from the frame written")
+    w_err = abs(float(data.offset.weights.sum()) - 1.0)
+    if w_err > 1e-12:
+        raise RuntimeError(f"offset weights sum to 1 within {w_err}")
+    if not np.array_equal(data.ttb[:, 0], raw["ttb"]) or float(data.time1[0]) != 12345.5:
+        raise RuntimeError("time stamps (ttb, time1) not carried over")
+    return {"crops_bitwise_equal": True, "target_off_grid_px": off_grid,
+            "offset_bins": len(data.offset.samples), "offset_weight_sum_err": w_err,
+            "offset_mean": data.offset.mean, "images": list(data.images.shape)}
+
+
+def _trace_kernels(path, name):
+    """Device events of kernels whose name holds ``name`` in a Chrome trace."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+
+
+def run_ingested_cli(workdir, nbatch=INGEST_NBATCH, num_iter=INGEST_ITER,
+                     n_profile=INGEST_PROFILE, n_subset=INGEST_SUBSET, device="cuda"):
+    """Phase 21, the command line on phase 20's ingested workspace, in
+    process: ``fit --model cosmos -n nbatch -f F -it num_iter`` (timed
+    steps, the kernels' shapes), ``fit --profile n_profile`` (the trace's
+    device events of the summed kernel; the checkpoint's bytes and the
+    parameters before and after), ``stats``, ``subset`` of ``n_subset``
+    AOIs spread over both kinds, and ``log`` with the pager captured.
+    Returns each command's :func:`run_cli` result with what it adds."""
+    import pydoc
+
+    from tapqir_tpu_torch.utils.dataset import load
+
+    workdir = Path(workdir)
+    F = load(workdir).F
+    fit_argv = ["fit", "--model", "cosmos", "-n", str(nbatch), "-f", str(F), "--no-input"]
+    seen = {}
+
+    def setup(model):
+        run = model.run
+
+        def timed_run(num_iter, progress_bar=None):
+            del model.run  # the command's run only
+            seen["iter_before"] = model.iter
+            _sync(device)
+            t0 = time.perf_counter()
+            run(num_iter, progress_bar)
+            _sync(device)
+            seen["run_seconds"] = time.perf_counter() - t0
+
+        model.run = timed_run
+
+    with record_kernel_shapes() as rec:
+        fit = run_cli(workdir, fit_argv + ["-it", str(num_iter)], device, setup)
+    fit.update(seen, shapes=rec.shapes)
+    with np.load(workdir / "cosmos_params.tpqr") as z:
+        fit["z_probs"] = z["z_probs"]
+
+    ckpt = workdir / ".tapqir" / "cosmos_model.tpqr"
+    before = ckpt.read_bytes()
+    with record_kernel_shapes() as rec:
+        prof = run_cli(workdir, fit_argv + ["--profile", str(n_profile)], device)
+    prof["shapes"] = rec.shapes
+    prof["checkpoint_unchanged"] = ckpt.read_bytes() == before
+    if prof["model"] is not None:
+        with np.load(ckpt) as z:
+            prof["params_unchanged"] = all(
+                np.array_equal(v.cpu().numpy(), z[f"p::{k}"])
+                for k, v in prof["model"].params.items())
+    trace = workdir / ".tapqir" / "profile" / "cosmos_trace.json"
+    prof["trace_bytes"] = trace.stat().st_size if trace.exists() else 0
+    prof["trace_kernel_events"] = (_trace_kernels(trace, "offset_gamma_summed_kernel")
+                                   if trace.exists() else None)
+
+    stats = run_cli(workdir, ["stats", "--no-input"], device)
+    with np.load(workdir / "cosmos_params.tpqr") as z:
+        stats["z_probs"] = z["z_probs"]
+
+    data = load(workdir)
+    idx = np.linspace(0, data.Nt - 1, n_subset).astype(int)
+    (workdir / "aoi_subset.txt").write_text(", ".join(str(i) for i in idx) + "\n")
+    sub = run_cli(workdir, ["subset"], device)
+    sub["idx"] = idx
+
+    paged, pager = [], pydoc.pager
+    pydoc.pager = paged.append
+    try:
+        log = run_cli(workdir, ["log"], device)
+    finally:
+        pydoc.pager = pager
+    log["paged"] = paged
+    return {"fit": fit, "profile": prof, "stats": stats, "subset": sub, "log": log}
+
+
+def check_ingested_cli(res, num_iter=INGEST_ITER, n_profile=INGEST_PROFILE, device="cuda"):
+    """Raise unless phase 21's commands exited 0 on ``device``: the fit
+    took ``num_iter`` steps from a fresh start with exactly one
+    summed-statistics launch each at nb = n x F (nothing else) and a finite
+    -ELBO; the profile left the checkpoint's bytes and the parameters as
+    they were, launched 2 x ``n_profile`` (a warm-up chunk, then the
+    traced one) and its trace holds exactly ``n_profile`` device events of
+    the summed kernel on the card; the stats hold the checks of phase 11
+    that need no labels (z_probs bitwise equal to the fit's); ``subset``
+    wrote the listed AOIs and ``log`` paged the log file. Returns the
+    numbers checked."""
+    from tapqir_tpu_torch.utils.dataset import load
+
+    fit, prof, stats = res["fit"], res["profile"], res["stats"]
+    m = fit["model"]
+    for label, r in res.items():
+        if r["code"] != 0:
+            raise RuntimeError(f"phase 21 {label} exited with {r['code']}")
+    if m.device.type != torch.device(device).type:
+        raise RuntimeError(f"fit on the ingested data ran on {m.device}, not on {device}")
+    if fit["iter_before"] != 0 or m.iter != num_iter or not math.isfinite(m.iter_loss):
+        raise RuntimeError(f"ingested fit: iteration {fit['iter_before']} -> {m.iter}, "
+                           f"-ELBO {m.iter_loss}")
+    cuda = m.device.type == "cuda"
+    nb, M = m.nbatch_size * m.fbatch_size * m.data.C, 1 << m.K
+    for label, r, n in (("fit", fit, num_iter), ("profile", prof, 2 * n_profile)):
+        want = dict.fromkeys(r["launches"], 0)
+        if cuda:
+            want["summed_stats"] = n
+            if r["shapes"] != {("summed_stats", M, nb)}:
+                raise RuntimeError(f"ingested {label}: launches at {r['shapes']}")
+        if r["launches"] != want:
+            raise RuntimeError(f"ingested {label}: kernel launches {r['launches']}, "
+                               f"expected {want}")
+    if not (prof["checkpoint_unchanged"] and prof["params_unchanged"]):
+        raise RuntimeError("fit --profile changed the checkpoint or the parameters")
+    if prof["model"].iter != num_iter or prof["trace_bytes"] == 0:
+        raise RuntimeError(f"fit --profile: iteration {prof['model'].iter}, trace "
+                           f"{prof['trace_bytes']} bytes")
+    if cuda and prof["trace_kernel_events"] != n_profile:
+        raise RuntimeError(f"the profile trace holds {prof['trace_kernel_events']} summed "
+                           f"kernel events, not {n_profile}")
+    if any(stats["launches"].values()):
+        raise RuntimeError(f"stats launched kernels: {stats['launches']}")
+    sm = stats["model"]
+    _check_stats_arrays(sm, sm.params_stats)
+    if not np.array_equal(stats["z_probs"], fit["z_probs"]):
+        raise RuntimeError("z_probs of stats differ from those of fit (same default seed)")
+
+    data, sub, idx = load(m.path), load(m.path / "subset"), res["subset"]["idx"]
+    for k in ("images", "xy", "is_ontarget", "mask"):
+        if not np.array_equal(getattr(sub, k), getattr(data, k)[idx]):
+            raise RuntimeError(f"subset/data.tpqr: {k} is not the listed AOIs'")
+    log_text = (m.path / ".tapqir" / "loginfo").read_text()
+    if res["log"]["paged"] != [log_text] or "Extracting AOIs: Done" not in log_text:
+        raise RuntimeError("log did not page the log file")
+    return {
+        "ingested_fit_final_elbo": m.iter_loss,
+        "launch_shape": ["summed_stats", M, nb],
+        "profile_trace_kernel_events": prof["trace_kernel_events"],
+        "profile_checkpoint_and_params_unchanged": True,
+        "p_specific_mean_on_target": float(sm.params_stats["p_specific"][:sm.data.N].mean()),
+        "z_probs_bitwise_equal_to_fit": True,
+        "subset": list(sub.images.shape),
+        "log_chars_paged": len(log_text),
+    }
 
 
 def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
@@ -2541,6 +2956,31 @@ def main():
             del amodel
             gc.collect()
         lap("19 API restarts")
+
+        # phase 20: raw Glimpse files at the cell's width -> data.tpqr
+        gws = Path(tmp) / "glimpse"
+        gws.mkdir()
+        t0 = time.perf_counter()
+        raw = write_glimpse_folder(Path(tmp) / "raw")
+        raw_seconds = time.perf_counter() - t0
+        ingest = run_ingest(gws, raw)
+        del raw
+        gc.collect()
+        lap("20 ingest")
+
+        # phase 21: the ingested workspace through fit, fit --profile,
+        # stats, subset and log
+        ingested = run_ingested_cli(gws, device="cuda")
+        ingested_checks = check_ingested_cli(ingested, device="cuda")
+        ingested_fit = ingested["fit"]
+        ingested_prof = ingested["profile"]
+        ingested_seconds = {k: r["seconds"] for k, r in ingested.items()}
+        ingested_stage_seconds = ingested["stats"]["model"].stats_seconds
+        for r in ingested.values():
+            r.pop("model")  # the models' device data must not outlive the phase
+        del ingested
+        gc.collect()
+        lap("21 ingested CLI")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -2628,6 +3068,26 @@ def main():
               f"peak memory {res['peak_bytes'] / 2**30:.3f} GiB; launches {res['launches']} "
               f"per shape {sorted(res['counts'].items())}; card vs CPU float64 "
               f"{json.dumps(res['card_vs_cpu'])} (tolerance {RESTART_RTOL})", flush=True)
+    print(f"[ingest] raw Glimpse folder {GLIMPSE_FOV} x {GLIMPSE_FOV} x {GLIMPSE_F} frames "
+          f"in 2 files, Nt={GLIMPSE_NT}, written in {raw_seconds:.3f} s; glimpse exit "
+          f"{ingest['code']} in {ingest['seconds']:.3f} s on {name} ({smi}); seconds by "
+          f"stage {json.dumps(ingest['stage_seconds'])}; host resident "
+          f"{ingest['host_rss_before_gib']:.3f} GiB before, peak during "
+          f"{ingest['host_peak_gib']:.3f} GiB", flush=True)
+    print(f"[ingest] checks {json.dumps(ingest['checks'])}; decoders on every frame "
+          f"{json.dumps(ingest['decoders'])} (bitwise equal)", flush=True)
+    print(f"[ingested-cli] fit -n {INGEST_NBATCH} -f {GLIMPSE_F} -it {INGEST_ITER} exit "
+          f"{ingested_fit['code']} on {name} ({smi}): {INGEST_ITER} steps in "
+          f"{ingested_fit['run_seconds']:.3f} s = "
+          f"{INGEST_ITER / ingested_fit['run_seconds']:.3f} steps/s; peak memory "
+          f"{ingested_fit['peak_bytes'] / 2**30:.3f} GiB; launches "
+          f"{ingested_fit['launches']}; stats seconds by stage "
+          f"{json.dumps(ingested_stage_seconds)}", flush=True)
+    print(f"[ingested-cli] fit --profile {INGEST_PROFILE}: {ingested_prof['trace_bytes']} "
+          f"bytes of trace, {ingested_prof['trace_kernel_events']} device events of "
+          f"offset_gamma_summed_kernel; launches {ingested_prof['launches']}; command "
+          f"seconds {json.dumps(ingested_seconds)}", flush=True)
+    print(f"[ingested-cli] checks {json.dumps(ingested_checks)}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -2646,12 +3106,13 @@ def main():
                     bound_by=by, library_ms=None)
 
     perr = pixel_errs[M]
-    # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18 and 19
-    # (phases 11 and 16 launch none; 13, 15 and 17 compare the card with the
-    # CPU or the kernels with their plain versions)
+    # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18, 19
+    # and 21 (phases 11, 16 and 20 launch none; 13, 15 and 17 compare the
+    # card with the CPU or the kernels with their plain versions)
     paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"], xt_fit["launches"],
              xt_fact["launches"], cli_restarts["launches"], cli_restarts["stats"]["launches"],
-             *(res["launches"] for res in api.values()))
+             *(res["launches"] for res in api.values()), ingested_fit["launches"],
+             ingested_prof["launches"])
     total = {k: sum(r[k] for r in paths) for k in dl}
     kernels = [
         entry("summed_fwd", 365, total["summed_fwd"], errs["forward_nograd"]),

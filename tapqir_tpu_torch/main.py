@@ -1,6 +1,6 @@
 """Command-line interface: ``python -m tapqir_tpu_torch [--cd DIR]
-fit|stats|ttfb|dwelltime`` (counterpart of the workspace and of the ``fit``,
-``stats``, ``ttfb`` and ``dwelltime`` commands of tapqir_tpu/main.py).
+glimpse|fit|stats|ttfb|dwelltime|subset|log`` (counterpart of the workspace
+and of these commands of tapqir_tpu/main.py).
 
 Every command runs inside an analysis folder (``--cd``, default: the
 working directory) that holds ``.tapqir/`` (config.yaml, loginfo, model
@@ -8,17 +8,25 @@ checkpoints, logs) next to ``data.tpqr`` and the result files. The options,
 short flags, defaults and config keys are the JAX package's, and so are the
 files, so either package's CLI continues a workspace the other wrote.
 
+* ``glimpse`` extracts the AOIs of raw Glimpse movies into ``data.tpqr``
+  (``imscroll/glimpse_reader.py``), asking for each channel's missing
+  files, and persists its options and ``channels`` to config.yaml;
 * ``fit`` fits the model by SVI (``Model.run``), then computes the stats;
   with ``-R/--num-restarts`` R > 1 it first runs R chains at once for
   ``--restart-iter`` steps (``parallel/restarts.py``), writes
-  ``.tapqir/<model>_restarts.json`` and continues the best chain;
+  ``.tapqir/<model>_restarts.json`` and continues the best chain; with
+  ``--profile N`` it writes a ``torch.profiler`` trace of N steps under
+  ``.tapqir/profile/`` instead and leaves the fit as it was;
 * ``stats`` loads the checkpoint's parameters and computes the stats:
   p(specific), credible intervals, SNR / chi2 and, with ground-truth
   labels, MCC, recall and precision;
 * ``ttfb`` fits the time-to-first-binding model (ka, kns, Af) to z samples
   of a fit's posterior, per channel;
 * ``dwelltime`` fits K-exponential mixtures to the bound and unbound dwell
-  times of those samples (koff, kon), per channel.
+  times of those samples (koff, kon), per channel;
+* ``subset`` writes the AOIs listed in ``aoi_subset.txt`` to
+  ``subset/data.tpqr``;
+* ``log`` pages ``.tapqir/loginfo``.
 
 Options of ``fit`` and ``stats`` not given on the command line are asked for
 on the terminal unless ``--no-input``. Commands run on the CUDA card;
@@ -51,8 +59,19 @@ AVAIL_MODELS = ["cosmos", "crosstalk", "cosmos+hmm"]
 # with the ROADMAP Queue A item that ports it
 NOT_PORTED = {
     "mesh": "--mesh is not ported yet (ROADMAP Queue A item 8)",
-    "profile": "--profile is not ported yet (ROADMAP Queue A item 9)",
 }
+
+# glimpse's per-channel options, in the order of a channel's config keys:
+# flag (= "--" + config key), option name, help
+GLIMPSE_CHANNEL_OPTIONS = (
+    ("--name", "names", "Channel name"),
+    ("--glimpse-folder", "glimpse_folders", "Channel header/glimpse folder"),
+    ("--driftlist", "driftlists", "Channel driftlist file"),
+    ("--ontarget-aoiinfo", "ontarget_aoiinfos", "On-target aoiinfo file"),
+    ("--offtarget-aoiinfo", "offtarget_aoiinfos", "Off-target aoiinfo file"),
+    ("--ontarget-labels", "ontarget_labels", "On-target label intervals"),
+    ("--offtarget-labels", "offtarget_labels", "Off-target label intervals"),
+)
 
 # the config a new workspace starts from (the JAX package's)
 DEFAULT_CONFIG = {
@@ -200,6 +219,42 @@ def _parser():
     kinetics(dwell_p, 500, 10000)
     dwell_p.add_argument("-K", "--num-exponentials", dest="K", type=int, default=S,
                          help="Number of exponentials (default 3)")
+
+    g = sub.add_parser("glimpse", help="Extract AOIs from raw Glimpse files into "
+                                       "data.tpqr")
+    g.add_argument("--dataset", default=S, help="Dataset name")
+    g.add_argument("-P", "--aoi-size", dest="P", type=int, default=S, help="AOI image size")
+    g.add_argument("--num-channels", "-C", type=int, default=S,
+                   help="Number of color channels")
+    g.add_argument("--offset-x", type=int, default=S, help="Offset region top-left x")
+    g.add_argument("--offset-y", type=int, default=S, help="Offset region top-left y")
+    g.add_argument("--offset-p", dest="offset_P", type=int, default=S,
+                   help="Offset region size")
+    g.add_argument("--bin-size", type=int, default=S, help="Offset histogram bin size")
+    g.add_argument("--frame-start", type=int, default=S, help="First frame")
+    g.add_argument("--frame-end", type=int, default=S, help="Last frame")
+    g.add_argument("--use-offtarget", dest="use_offtarget", action="store_true",
+                   default=S,
+                   help="Use off-target control AOIs (default: config.yaml's, else on)")
+    g.add_argument("--no-offtarget", dest="use_offtarget", action="store_false",
+                   default=S)
+    g.add_argument("--labels", dest="labels", action="store_true", default=S,
+                   help="Parse spot-picker label intervals")
+    g.add_argument("--no-labels", dest="labels", action="store_false", default=S)
+    for flag, dest, text in GLIMPSE_CHANNEL_OPTIONS:
+        g.add_argument(flag, dest=dest, action="append", default=S,
+                       help=f"{text} (repeat per channel)")
+    g.add_argument("--overwrite", "-w", action="store_true", default=S,
+                   help="Persist these values to config.yaml")
+    g.add_argument("--no-input", action="store_true", default=S,
+                   help="Disable interactive prompt.")
+    sub.add_parser("subset", help="Write the AOIs listed in aoi_subset.txt to "
+                                  "subset/data.tpqr")
+    sub.add_parser("log", help="Show logging info")
+    # takes any arguments (none is an option here), so that it always
+    # reaches the message naming the ROADMAP item
+    show = sub.add_parser("show", prefix_chars="+", help="AOI viewer (not ported yet)")
+    show.add_argument("args", nargs="*")
     return parser
 
 
@@ -211,10 +266,23 @@ def _defaults(command, config):
             "fbatch_size": config.get("fbatch-size", 512),
             "learning_rate": config.get("learning-rate", 0.005),
             "frame_sampling": "random", "num_iter": 0, "k_max": 2,
-            "num_restarts": 1, "restart_iter": 2000,
+            "num_restarts": 1, "restart_iter": 2000, "profile": 0,
             "matlab": bool(config.get("matlab", False)), "dtype": "float32",
             "warm_start": None, "overwrite": True, "no_input": False,
         }
+    if command == "glimpse":
+        return {
+            "dataset": config.get("dataset", "dataset"), "P": config.get("P", 14),
+            "num_channels": config.get("num-channels", 1),
+            "offset_x": config.get("offset-x", 10), "offset_y": config.get("offset-y", 10),
+            "offset_P": config.get("offset-P", 30), "bin_size": config.get("bin-size", 1),
+            "frame_start": config.get("frame-start"), "frame_end": config.get("frame-end"),
+            "use_offtarget": bool(config.get("use-offtarget", True)), "labels": False,
+            **{dest: [] for _, dest, _ in GLIMPSE_CHANNEL_OPTIONS},
+            "overwrite": True, "no_input": False,
+        }
+    if command in ("subset", "log", "show"):
+        return {}
     fitted = {"model": config.get("model", "cosmos"), "S": config.get("S", 1),
               "k_max": config.get("k-max", 2), "cpu": False}
     if command == "ttfb":
@@ -377,6 +445,10 @@ def fit(cd, config, opts, given):
     m.init(opts["learning_rate"], opts["nbatch_size"], opts["fbatch_size"])
     if opts["model"] == "cosmos+hmm" and opts["warm_start"] is not False:
         _warm_start(cd, m, opts["warm_start"])
+    if opts["profile"]:
+        out = m.profile_trace(num_steps=opts["profile"])
+        logger.info(f"Profiler trace written to {out}")
+        return
     if opts["num_restarts"] > 1:
         _restarts(m, opts["num_restarts"], opts["restart_iter"])
     m.run(opts["num_iter"])
@@ -613,7 +685,112 @@ def dwelltime(cd, config, opts, given):
                                        f"{tag.capitalize()} dwell times channel {c}"))
 
 
-COMMANDS = {"fit": fit, "stats": stats, "ttfb": ttfb, "dwelltime": dwelltime}
+def _ask_required(text):
+    """An answer on the terminal to ``text``; asked again while empty."""
+    while True:
+        answer = input(f"{text}: ").strip()
+        if answer:
+            return answer
+
+
+def glimpse(cd, config, opts, given):
+    """Extract the AOIs of raw Glimpse movies into ``data.tpqr``: the
+    channels' files from the command line, else from config.yaml, else
+    asked for (an error under ``--no-input``); the options and the channels
+    are persisted to config.yaml (``--overwrite``, always on as in the JAX
+    package)."""
+    from tapqir_tpu_torch.imscroll import read_glimpse
+
+    C = opts["num_channels"]
+    # a copy: prompted values reach the config only through the persisting
+    # below, never a later command of the same process otherwise
+    channels = copy.deepcopy(config.get("channels") or [])
+    for c in range(C):
+        if c >= len(channels):
+            channels.append({})
+        ch = channels[c]
+        for flag, dest, _ in GLIMPSE_CHANNEL_OPTIONS:
+            key = flag[2:]
+            if c < len(opts[dest]):
+                ch[key] = str(opts[dest][c])
+            elif key.endswith("-labels"):
+                ch[key] = ch.get(key)  # the JAX package writes a null
+        required = ["name", "glimpse-folder", "driftlist", "ontarget-aoiinfo"]
+        if opts["use_offtarget"]:
+            required.append("offtarget-aoiinfo")
+        for key in required:
+            if ch.get(key) is None:
+                if opts["no_input"]:
+                    raise CliError(f"channel {c}: missing required option '{key}'")
+                ch[key] = _ask_required(f"Channel #{c}: {key}")
+    channels = channels[:C]
+
+    settings = {
+        "dataset": opts["dataset"],
+        "P": opts["P"],
+        "num-channels": C,
+        "offset-x": opts["offset_x"],
+        "offset-y": opts["offset_y"],
+        "offset-P": opts["offset_P"],
+        "bin-size": opts["bin_size"],
+        "frame-start": opts["frame_start"],
+        "frame-end": opts["frame_end"],
+        "use-offtarget": opts["use_offtarget"],
+    }
+    if opts["overwrite"]:
+        config.update({**settings, "channels": channels})
+        save_config(cd, config)
+
+    logger.info("Extracting AOIs ...")
+    read_glimpse(cd, **settings, **{
+        "channels": channels,
+        "frame-range": opts["frame_start"] is not None and opts["frame_end"] is not None,
+        "labels": opts["labels"],
+    })
+    logger.info("Extracting AOIs: Done")
+
+
+def subset(cd, config, opts, given):
+    """Write the AOIs listed in ``aoi_subset.txt`` (one line of
+    comma-separated indices) to ``subset/data.tpqr``. The labels are passed
+    on whole, not subset, as in the JAX package."""
+    from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData, load, save
+
+    path = Path(cd)
+    subset_path = path / "subset"
+    subset_path.mkdir(exist_ok=True)
+    data = load(path)
+    with open(path / "aoi_subset.txt") as f:
+        line = f.readline().rstrip("\n")
+    idx = [int(i.strip()) for i in line.split(",")]
+    save(CosmosDataset(
+        images=data.images[idx],
+        xy=data.xy[idx],
+        is_ontarget=data.is_ontarget[idx],
+        mask=data.mask[idx],
+        labels=data.labels,
+        offset=OffsetData(data.offset.samples, data.offset.weights),
+        time1=data.time1,
+        ttb=data.ttb,
+        name=data.name,
+        channels=data.channels,
+    ), subset_path)
+    logger.info("Created a new data file at `subset/data.tpqr`")
+
+
+def log(cd, config, opts, given):
+    """Page the workspace's log file ``.tapqir/loginfo``."""
+    import pydoc
+
+    pydoc.pager((Path(cd) / ".tapqir" / "loginfo").read_text())
+
+
+def show(cd, config, opts, given):
+    raise CliError("show (the AOI viewer) is not ported yet (ROADMAP Queue A item 9)")
+
+
+COMMANDS = {"glimpse": glimpse, "fit": fit, "stats": stats, "ttfb": ttfb,
+            "dwelltime": dwelltime, "subset": subset, "log": log, "show": show}
 
 
 def main(argv=None) -> int:

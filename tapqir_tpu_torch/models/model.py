@@ -1,5 +1,5 @@
 """Model base class: the SVI lifecycle in PyTorch (counterpart of
-tapqir_tpu/models/model.py, without the mesh and the profiler).
+tapqir_tpu/models/model.py, without the mesh).
 
 Parameters are a dict of unconstrained tensors; the optimizer is the JAX
 package's minibatch-sparse Adam in window space: only the subsampled AOI
@@ -18,7 +18,10 @@ Retained reference behaviors:
   extend the rolling series and log the metrics;
 * non-finite loss or parameters -> reload the last checkpoint, reseed,
   continue, at most MAX_CONSECUTIVE_RESTARTS times in a row;
-* device out-of-memory -> CudaOutOfMemoryError with batch-size advice.
+* device out-of-memory -> CudaOutOfMemoryError with batch-size advice;
+* :meth:`Model.profile_trace` traces a chunk of steps (``fit --profile``)
+  and leaves the model as it found it; its trace is a ``torch.profiler``
+  Chrome trace where the JAX package writes an XProf directory.
 
 Batched random restarts (``tapqir_tpu_torch.parallel.restarts``) step R
 chains at once with a leading chain axis on every parameter: the
@@ -475,6 +478,40 @@ class Model:
         for i in range(nsteps):
             losses[i] = self._sparse_step(gen)
         return losses
+
+    def profile_trace(self, num_steps: int = 20, log_dir=None) -> Path:
+        """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity)
+        of ``num_steps`` training steps, written as a Chrome trace
+        ``<log_dir>/<model>_trace.json`` (default ``log_dir``:
+        ``<run_path>/profile``); returns its path. A first chunk of
+        ``num_steps`` steps runs outside the trace, so that the kernels'
+        build and first launches stay out of it. The steps update the
+        parameters and the Adam state in place, so the parameters, the
+        moments, the per-row counts, the iteration and the seed are put
+        back afterwards: the model is left as it was found."""
+        log_dir = Path(log_dir) if log_dir else self.run_path / "profile"
+        log_dir.mkdir(parents=True, exist_ok=True)
+        trees = [self.params, self.opt_state["mu"], self.opt_state["nu"],
+                 self.opt_state["count"]]
+        saved = [{k: v.detach().clone() for k, v in tree.items()} for tree in trees]
+        iteration, seed = self.iter, self._seed
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        out = log_dir / f"{self.name}_trace.json"
+        try:
+            self._run_chunk(num_steps).cpu()  # warm-up; .cpu() waits for the card
+            with torch.profiler.profile(activities=acts) as prof:
+                self._run_chunk(num_steps).cpu()
+            prof.export_chrome_trace(str(out))
+        finally:
+            with torch.no_grad():
+                for tree, old in zip(trees, saved):
+                    for k, v in tree.items():
+                        v.copy_(old[k])
+            self.iter, self._seed = iteration, seed
+        logger.info(f"Saved a profiler trace of {num_steps} steps in {out}")
+        return out
 
     def run(self, num_iter: int = 0, progress_bar=None) -> None:
         """Run SVI until ``num_iter`` or convergence.

@@ -116,6 +116,14 @@ class CosmosDataset:
         return Px
 
     @property
+    def x(self) -> np.ndarray:
+        return self.xy[..., 0]
+
+    @property
+    def y(self) -> np.ndarray:
+        return self.xy[..., 1]
+
+    @property
     def median(self) -> np.ndarray:
         """Per-channel median pixel value (reference: dataset.py:134-138)."""
         if "median" not in self._cache:
@@ -123,6 +131,39 @@ class CosmosDataset:
                 [np.median(self.images[:, :, c]) for c in range(self.C)]
             )
         return self._cache["median"]
+
+    def _channel_quantile(self, q) -> np.ndarray:
+        return np.stack([np.quantile(self.images[:, :, c].astype(np.float32), q)
+                         for c in range(self.C)])
+
+    @property
+    def vmin(self) -> np.ndarray:
+        """Per-channel 5% quantile of the pixel values, as float32 (display
+        range; cached)."""
+        if "vmin" not in self._cache:
+            self._cache["vmin"] = self._channel_quantile(0.05)
+        return self._cache["vmin"]
+
+    @property
+    def vmax(self) -> np.ndarray:
+        """Per-channel 99% quantile of the pixel values, as float32 (display
+        range; cached)."""
+        if "vmax" not in self._cache:
+            self._cache["vmax"] = self._channel_quantile(0.99)
+        return self._cache["vmax"]
+
+    def fetch(self, ndx, fdx, cdx):
+        """Host-side batch gather (images, xy, is_ontarget) of AOIs ``ndx``
+        x frames ``fdx`` x channels ``cdx``, for host tools; the training
+        path gathers on the device."""
+        ndx = np.asarray(ndx)
+        fdx = np.asarray(fdx)
+        cdx = np.asarray(cdx)
+        return (
+            self.images[ndx[:, None, None], fdx[:, None], cdx],
+            self.xy[ndx[:, None, None], fdx[:, None], cdx],
+            self.is_ontarget[ndx],
+        )
 
     def __repr__(self):
         return (

@@ -202,7 +202,7 @@ def test_fit_prompts_for_options_not_given(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("command, extra, item", [
     ("fit", ["--mesh", "4x2"], 8),
-    ("fit", ["--profile", "3"], 9),
+    ("show", ["-n", "3", "--model", "cosmos"], 9),
     ("stats", ["--mesh", "auto"], 8),
 ])
 def test_unported_models_and_options_exit_nonzero(tmp_path, caplog, command, extra, item):

@@ -36,7 +36,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "tapqir_tpu_torch.main" in mods and "tapqir_tpu_torch.utils.stats" in mods
     assert {"tapqir_tpu_torch.models.crosstalk", "tapqir_tpu_torch.utils.imscroll",
             "tapqir_tpu_torch.utils.mle_analysis",
-            "tapqir_tpu_torch.parallel.restarts"} <= set(mods)
+            "tapqir_tpu_torch.parallel.restarts", "tapqir_tpu_torch.imscroll",
+            "tapqir_tpu_torch.imscroll.glimpse_reader",
+            "tapqir_tpu_torch.csrc.glimpse_native"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys

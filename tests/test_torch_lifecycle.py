@@ -347,3 +347,30 @@ def test_chip_smoke_kinetics_phase_tiny_on_cpu(tmp_path, monkeypatch):
     assert set(tables["koff-channel0"]) == {"A0", "koff0"}
     assert [f[0] for f in dwell["fits"]] == ["exp_mle", "exp_mle"]
     assert "cosmos+hmm_dwelltime-intervals-channel0.mat" in dwell["files"]
+
+
+def test_chip_smoke_ingest_phases_tiny_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phases 20-21 at a tiny size on the CPU: a 64 x 64
+    raw Glimpse folder of 12 frames and 8 AOIs through ``glimpse`` (crops
+    bitwise, both decoders bitwise), then ``fit``, ``fit --profile``,
+    ``stats``, ``subset`` and ``log`` on the ingested workspace."""
+    monkeypatch.setenv("CI", "true")
+    cs = _chip_smoke()
+    raw = cs.write_glimpse_folder(tmp_path / "raw", H=64, W=64, F=12, Nt=8,
+                                  offset=(0, 0, 8))
+    assert np.abs(raw["truth"] - raw["truth"][:, 6:7]).max() <= 2.0  # drift within 2 px
+    ws = tmp_path / "ws"
+    ws.mkdir()
+    ingest = cs.run_ingest(ws, raw)
+    assert ingest["checks"]["crops_bitwise_equal"] and ingest["checks"]["images"] == [
+        8, 12, 1, 14, 14]
+    assert ingest["decoders"]["frames"] == 12
+    assert set(ingest["stage_seconds"]) == {"parse", "decode", "crop", "histogram",
+                                            "assemble", "save"}
+    res = cs.run_ingested_cli(ws, nbatch=4, num_iter=3, n_profile=2, n_subset=5,
+                              device="cpu")
+    checks = cs.check_ingested_cli(res, num_iter=3, n_profile=2, device="cpu")
+    assert checks["launch_shape"] == ["summed_stats", 4, 4 * 12]
+    assert checks["subset"] == [5, 12, 1, 14, 14]
+    assert all(r["launches"] == dict.fromkeys(og.LAUNCHERS, 0) for r in res.values())
+    assert res["fit"]["model"].iter == 3 and res["profile"]["trace_bytes"] > 0

@@ -367,7 +367,7 @@ def test_jax_stats_reads_a_restarts_workspace(restarts_ws, tmp_path):
 
 @pytest.mark.parametrize("extra, item", [
     (["-R", "2", "--mesh", "auto"], 8),
-    (["-R", "2", "--profile", "3"], 9),
+    (["-R", "2", "--profile", "3", "--mesh", "auto"], 8),
 ])
 def test_restarts_with_unported_options_exit_nonzero(tmp_path, caplog, extra, item):
     argv = ["--cd", str(tmp_path), "fit", *extra, "--cpu", "--no-input"]
