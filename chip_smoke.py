@@ -126,7 +126,34 @@ one. Phases, each printing its findings; any failure is an exception:
     ``torch.profiler`` trace with exactly 5 device events of the summed
     kernel; the checkpoint's bytes and the parameters unchanged), ``stats``
     (phase 11's checks that need no labels), ``subset`` of 20 AOIs and
-    ``log`` with the pager captured.
+    ``log`` with the pager captured;
+22. the mesh (``parallel/sharding.py``: one process per shard, gloo, as
+    the ranks share this one card): cosmos on a 2x2 mesh of four ranks on
+    phase 7's saved data (428 AOIs x 395 frames per rank), ``use_mesh``,
+    5 untimed steps of each route, then ``run(20)`` dense and 20 steps
+    ``use_factored`` (exactly 20 `summed_stats` launches per rank at (4,
+    3950), then 20 `factored_stats`),
+    the replicas bitwise equal across ranks, one sharded step in float32
+    on the card within MESH_STEP_RTOL of float64 on the CPU, the checkpoint
+    gathered at the real Nt and reloaded bitwise by a single-device model,
+    and the sharded posteriors against single-device ``_probs_batch`` on
+    every block with the same draws; each rank first holds the summed and
+    factored kernels against their plain versions at its step shape
+    (:func:`mesh_cosmos_ranks`);
+23. cosmos+hmm on a 1x2 mesh (every AOI's 790 frames split over two
+    ranks, the chain scan, its boundary and start across them), 5 untimed
+    steps and 20 timed, and the frame-sharded scan against the global one;
+    crosstalk (M = 16) on a 2x1 mesh, 5 untimed and 20 timed dense steps
+    (:func:`mesh_hmm_crosstalk_ranks`);
+24. batched restarts on the 2x2 mesh through the command line's restarts,
+    in the processes of phase 22 (one launch for both): R = 2 chains x 20
+    steps (one launch per rank and step at (4, 7900)),
+    ``cosmos_restarts.json`` and the winner's checkpoint, then 5 more mesh
+    steps (:func:`mesh_restarts_ranks`). Phases 22-24 print steps/s,
+    launches per rank and step, ``all_reduce`` ms per step, the
+    checkpoint gather's and the sharded posteriors' seconds. On a machine
+    with more than one card, ``fit --mesh auto`` and ``stats --mesh auto``
+    then run through the command line, one rank per card over NCCL.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
@@ -138,8 +165,8 @@ ingest: by stage) and their peak device memory; every phase prints its
 wall time at the end.
 
 The second-to-last line is a JSON object with one entry per kernel, its
-launches summed over the paths 7-21; the last line is {"ok": true,
-"device": {...}}.
+launches summed over the paths 7-24 (over every rank in 22-24); the last
+line is {"ok": true, "device": {...}}.
 """
 
 import gc
@@ -848,6 +875,10 @@ def check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=10, num_particles=50):
     dev, F = model.device, model.data.F
     ndx = torch.arange(n_elbo, device=dev)
     win = {k: v.detach() for k, v in model.gather_windows(model.params, ndx, None).items()}
+    # both sides score AOIs 0..n_elbo-1 on that block of the data (the
+    # ELBO's plate scale takes Nt from the data it is given)
+    per_aoi = ("images", "xy", "is_ontarget", "mask")
+    block = {k: v[:n_elbo] if k in per_aoi else v for k, v in model._data_dev.items()}
     recorded = []
     packed = hmm_module.std_gamma_sample_packed
 
@@ -862,16 +893,15 @@ def check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=10, num_particles=50):
     hmm_module.std_gamma_sample_packed = recording
     try:
         with torch.no_grad():
-            elbo_dense = float(model.elbo_from_windows(win, gen, ndx, None, F,
-                                                       model._data_dev))
+            elbo_dense = float(model.elbo_from_windows(win, gen, ndx, None, F, block))
     finally:
         hmm_module.std_gamma_sample_packed = packed
     draws = recorded[0]
     model.use_factored = True
     try:
         with torch.no_grad():
-            elbo_fact = float(model.elbo_from_windows(win, None, ndx, None, F,
-                                                      model._data_dev, draws=draws))
+            elbo_fact = float(model.elbo_from_windows(win, None, ndx, None, F, block,
+                                                      draws=draws))
     finally:
         model.use_factored = False
     _sync(dev)
@@ -884,9 +914,7 @@ def check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=10, num_particles=50):
                                priors=model.priors)
     cpu.data, cpu._transforms = model.data, model._transforms
     cpu._build_constants()
-    per_aoi = ("images", "xy", "is_ontarget", "mask")
-    data = {k: (v[:n_elbo] if k in per_aoi else v).cpu() for k, v in model._data_dev.items()}
-    data = {k: v if k == "is_ontarget" else v.double() for k, v in data.items()}
+    data = {k: v.cpu() if k == "is_ontarget" else v.cpu().double() for k, v in block.items()}
     with torch.no_grad():
         elbo_cpu = float(cpu.elbo_from_windows(
             {k: cpu64(v) for k, v in win.items()}, None, torch.arange(n_elbo), None, F,
@@ -1132,6 +1160,10 @@ def check_crosstalk_card_vs_cpu(model, n_aoi=2, n_frames=128):
     ndx = torch.arange(n_aoi, device=dev)
     fidx = torch.arange(n_frames, device=dev)
     win = {k: v.detach() for k, v in model.gather_windows(model.params, ndx, fidx).items()}
+    # both sides score that batch on the block of AOIs 0..n_aoi-1 (the
+    # ELBO's plate scale takes Nt from the data it is given)
+    per_aoi = ("images", "xy", "is_ontarget", "mask")
+    block = {k: v[:n_aoi] if k in per_aoi else v for k, v in model._data_dev.items()}
     recorded = []
     packed = cosmos_module.std_gamma_sample_packed
 
@@ -1146,16 +1178,15 @@ def check_crosstalk_card_vs_cpu(model, n_aoi=2, n_frames=128):
     cosmos_module.std_gamma_sample_packed = recording
     try:
         with torch.no_grad():
-            elbo_dense = float(model.elbo_from_windows(win, gen, ndx, fidx, n_frames,
-                                                       model._data_dev))
+            elbo_dense = float(model.elbo_from_windows(win, gen, ndx, fidx, n_frames, block))
     finally:
         cosmos_module.std_gamma_sample_packed = packed
     draws = recorded[0]
     model.use_factored = True
     try:
         with torch.no_grad():
-            elbo_fact = float(model.elbo_from_windows(win, None, ndx, fidx, n_frames,
-                                                      model._data_dev, draws=draws))
+            elbo_fact = float(model.elbo_from_windows(win, None, ndx, fidx, n_frames, block,
+                                                      draws=draws))
     finally:
         model.use_factored = False
     _sync(dev)
@@ -1168,9 +1199,7 @@ def check_crosstalk_card_vs_cpu(model, n_aoi=2, n_frames=128):
                               priors=model.priors)
     cpu.data, cpu._transforms = model.data, model._transforms
     cpu._build_constants()
-    per_aoi = ("images", "xy", "is_ontarget", "mask")
-    data = {k: (v[:n_aoi] if k in per_aoi else v).cpu() for k, v in model._data_dev.items()}
-    data = {k: v if k == "is_ontarget" else v.double() for k, v in data.items()}
+    data = {k: v.cpu() if k == "is_ontarget" else v.cpu().double() for k, v in block.items()}
     with torch.no_grad():
         elbo_cpu = float(cpu.elbo_from_windows(
             {k: cpu64(v) for k, v in win.items()}, None, torch.arange(n_aoi),
@@ -1457,8 +1486,11 @@ def run_chain_kernels():
         ("factored", 2, XT_NB, XT_M, XT_KF, FACT_FWD_TOL, FACT_GRAD_TOL),
     ]
     # the hmm restart step (phase 19): R=4 chains x 10 AOIs x 790 frames,
-    # timed only (its arithmetic is checked at R=4 x 5120 above)
+    # and a rank's restart step on phase 24's 2x2 mesh: R=2 chains x 10 AOIs
+    # x its 395 frames; timed only (their arithmetic is checked at R=4 x
+    # 5120 above)
     cases.append(("summed", R4, 10 * 790, 4, 2, None, None))
+    cases.append(("summed", MESH_RESTARTS_R, 10 * 395, 4, 2, None, None))
     errs, timing = {}, {}
     for i, (form, R, nb, M, Kf, fwd_tol, grad_tol) in enumerate(cases):
         shape = f"M={M}" if form == "summed" else f"Kf={Kf} (M={M})"
@@ -2233,6 +2265,714 @@ def run_pixel_path(data, n_aoi=10, n_frames=512, K=2, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phases 22-24: the mesh, one process per shard, on one card
+# ---------------------------------------------------------------------------
+
+# steps of each mesh run (cut from the single-device phases' 200 for time:
+# each launch pays its ranks' start-up once), and the untimed steps before
+# a process's first timed run of a route (its kernels' first launches and
+# the groups' first collectives)
+MESH_ITER, MESH_RESTARTS_R, MESH_MORE_ITER, MESH_WARMUP = 20, 2, 5, 5
+# the sharded step in float32 on the card against the same step in float64
+# on the CPU: the loss and the whole gathered gradient (the norm of the
+# difference over the norm) relative; and each parameter's gradient apart
+# within MESH_PARAM_RTOL, loose enough for float32 sums that cancel (the
+# global proximity_loc's: ~1e-3) and far below the factor of a gradient
+# summed over a wrong group of ranks
+MESH_STEP_RTOL, MESH_PARAM_RTOL = 1e-4, 1e-2
+# particles of the sharded posterior check, and the sharded scan's float32
+# log prefix products against the global scan's (absolute, log units)
+MESH_PARTICLES, MESH_SCAN_TOL = 4, 1e-4
+
+
+def _per_rank(mesh, values):
+    """{name: [the value of rank 0, 1, ...]} from every rank's float
+    ``values`` (collective)."""
+    from tapqir_tpu_torch.parallel import sharding
+
+    names = sorted(values)
+    t = torch.tensor([float(values[k]) for k in names], dtype=torch.float64,
+                     device=mesh.device)
+    g = sharding.all_gather(t, mesh.world).cpu().numpy()
+    return {k: g[:, i].tolist() for i, k in enumerate(names)}
+
+
+class time_collectives:
+    """Within the block, ``seconds`` and ``calls``: the host time every
+    ``all_reduce`` of the mesh takes from a synchronised start (so the wait
+    for the other ranks counts, the kernels before it do not), while
+    ``active``."""
+
+    def __enter__(self):
+        from tapqir_tpu_torch.parallel import sharding
+
+        self.seconds, self.calls, self.longest, self.active = 0.0, 0, 0.0, True
+        self._orig = orig = sharding.all_reduce
+
+        def timed(t, axis):
+            if axis.size == 1 or not self.active:
+                return orig(t, axis)
+            _sync(t.device)
+            t0 = time.perf_counter()
+            orig(t, axis)
+            dt = time.perf_counter() - t0
+            self.seconds += dt
+            self.calls += 1
+            self.longest = max(self.longest, dt)
+            return t
+
+        sharding.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        from tapqir_tpu_torch.parallel import sharding
+
+        sharding.all_reduce = self._orig
+
+
+class checkpoints_apart:
+    """Within the block, ``model``'s checkpoints run with the collectives'
+    timer ``tc`` off; ``seconds``: their time."""
+
+    def __init__(self, model, tc):
+        self.model, self.tc, self.seconds = model, tc, 0.0
+
+    def __enter__(self):
+        save, dev = self.model.save_checkpoint, self.model.device
+
+        def timed_save(*args, **kwargs):
+            self.tc.active = False
+            _sync(dev)
+            t0 = time.perf_counter()
+            try:
+                return save(*args, **kwargs)
+            finally:
+                _sync(dev)
+                self.seconds += time.perf_counter() - t0
+                self.tc.active = True
+
+        self.model.save_checkpoint = timed_save
+        return self
+
+    def __exit__(self, *exc):
+        del self.model.save_checkpoint
+
+
+def _mesh_run(model, num_iter):
+    """``model.run(num_iter)`` on its mesh with the launch counts set to 0
+    just before and read just after: the run's seconds and those of its
+    checkpoints apart, launches per (kernel, shape), the steps'
+    collectives' seconds and calls, the last loss and the iteration."""
+    dev = model.device
+    _reset_launches()
+    with record_kernel_shapes() as rec, time_collectives() as tc, \
+            checkpoints_apart(model, tc) as ckpt:
+        _sync(dev)
+        t0 = time.perf_counter()
+        model.run(num_iter)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+    return {"seconds": seconds, "checkpoint_seconds": ckpt.seconds,
+            "step_seconds": seconds - ckpt.seconds, "launches": _read_launches(),
+            "counts": rec.counts, "allreduce_seconds": tc.seconds,
+            "allreduce_calls": tc.calls, "loss": model.iter_loss, "iter": model.iter}
+
+
+def _barrier(mesh):
+    """Every rank of the mesh waits here for the others (an all_reduce on
+    the world, and one on each mesh axis, whose groups then exist before a
+    timed run), so that no timed run counts another rank's untimed work."""
+    from tapqir_tpu_torch.parallel import sharding
+
+    for axis in (mesh.world, mesh.row, mesh.col):
+        sharding.all_reduce(torch.zeros(1, device=mesh.device), axis)
+    _sync(mesh.device)
+
+
+def _launches_over_ranks(mesh, *runs):
+    """The launches of every kernel in ``runs`` (of :func:`_mesh_run`),
+    summed over the ranks (collective)."""
+    total = {}
+    for run in runs:
+        for k, v in _per_rank(mesh, run["launches"]).items():
+            total[k] = total.get(k, 0) + int(sum(v))
+    return total
+
+
+def _replicas_equal(model, mesh):
+    """Whether every replicated parameter and Adam moment is bitwise equal
+    on every rank of the group it is replicated on (collective)."""
+    from tapqir_tpu_torch.parallel import sharding
+
+    specs = model.param_partition()
+    opt = model.opt_state
+    equal = True
+    for where in ("world", "row", "col"):
+        axis = getattr(mesh, where)
+        ts = [t for tree in (model.params, opt["mu"], opt["nu"]) for k, t in tree.items()
+              if sharding._replicated_on(specs[k]) == where]
+        if axis.size == 1 or not ts:
+            continue
+        slots = sharding.all_gather(torch.cat([t.reshape(-1) for t in ts]), axis)
+        equal &= all(torch.equal(slots[i], slots[0]) for i in range(axis.size))
+    return equal
+
+
+def mesh_step_card_vs_cpu(model, mesh, n_aoi=4, n_frames=64, nbatch=2, fbatch=32):
+    """One sharded step with a fixed batch per rank (rows from a generator
+    its mesh row shares, frames from its own) on the block of the rank's
+    first n_aoi AOIs x n_frames frames: the mesh's loss and this rank's
+    reduced gradients (``Model._mesh_loss_and_grads``) on the card in the
+    model's dtype against the same step in float64 on the CPU with the same
+    draws (recorded on the card), both sides reducing over the same process
+    group. Returns (on every rank) the loss's relative difference, the
+    whole gradient's over all ranks (norm of the difference over the norm),
+    the largest of each parameter's, and the losses."""
+    from tapqir_tpu_torch.distributions import core
+    from tapqir_tpu_torch.models import models
+
+    dev = model.device
+    n_l, f_l = model._data_dev["xy"].shape[:2]
+    n_aoi, n_frames = min(n_aoi, n_l), min(n_frames, f_l)
+    nbatch, fbatch = min(nbatch, n_aoi), min(fbatch, n_frames)
+    block = (torch.arange(n_aoi, device=dev), torch.arange(n_frames, device=dev))
+    per_aoi = ("is_ontarget", "mask")
+    data = {k: (v[:n_aoi, :n_frames] if k in ("images", "xy") else
+                v[:n_aoi] if k in per_aoi else v) for k, v in model._data_dev.items()}
+    rows = torch.Generator(device=dev)
+    rows.manual_seed(100 + mesh.aoi_index)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(200 + mesh.rank)
+    ndx = torch.randperm(n_aoi, generator=rows, device=dev)[:nbatch]
+    fidx = torch.sort(torch.randperm(n_frames, generator=gen, device=dev)[:fbatch])[0]
+
+    def twin(device, dtype, params, data):
+        m = models[model.name](S=model.S, K=model.K, device=device, dtype=dtype,
+                               priors=model.priors)
+        m.data, m._transforms, m._mesh = model.data, model._transforms, mesh
+        m.use_factored = getattr(model, "use_factored", False)
+        m._build_constants()
+        m.params, m._data_dev = params, data
+        return m
+
+    card = twin(dev, model.dtype, {k: v.contiguous() for k, v in
+                                   model.gather_windows(model.params, *block).items()}, data)
+    sampler, recorded = core.std_gamma_sample, []
+
+    def recording(conc, generator=None, draws=None):
+        out = sampler(conc, generator, draws)
+        recorded.append(out.detach())
+        return out
+
+    core.std_gamma_sample = recording
+    try:
+        loss_card, g_card = card._mesh_loss_and_grads(gen, batch=(ndx, fidx, fbatch))
+    finally:
+        core.std_gamma_sample = sampler
+    cpu = twin("cpu", "double", {k: v.detach().cpu().double() for k, v in card.params.items()},
+               {k: v.cpu() if k == "is_ontarget" else v.cpu().double() for k, v in data.items()})
+    loss_cpu, g_cpu = cpu._mesh_loss_and_grads(
+        None, batch=(ndx.cpu(), fidx.cpu(), fbatch), draws=recorded[0].cpu().double())
+    loss_err = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    diff = {k: g_card[k].cpu().double() - g for k, g in g_cpu.items()}
+    sq = {"d": sum(float(d.square().sum()) for d in diff.values()),
+          "g": sum(float(g.square().sum()) for g in g_cpu.values())}
+    worst = max(((float(diff[k].norm() / g.norm()), k) for k, g in g_cpu.items()
+                 if g.norm() > 0))
+    errs = _per_rank(mesh, {"loss": loss_err, "param": worst[0], **sq})
+    return {"loss_rel_err": max(errs["loss"]),
+            "grad_rel_err": math.sqrt(sum(errs["d"]) / sum(errs["g"])),
+            "worst_param_rel_err": max(errs["param"]), "worst_param_on_rank0": worst[1],
+            "loss_card": float(loss_card), "loss_cpu_f64": float(loss_cpu),
+            "images_per_rank": nbatch * fbatch * model.data.C}
+
+
+def _rank_kernel_checks(mesh, checks):
+    """The on-path kernels against their plain versions at this rank's
+    shapes: ``checks`` is a list of (label, form, kwargs) for
+    :func:`compare` ("summed") or :func:`compare_factored` ("factored")."""
+    out = {}
+    for i, (label, form, kw) in enumerate(checks):
+        seed = 60 + 10 * mesh.rank + i
+        if form == "summed":
+            out[label] = compare(kw["M"], kw["nb"], 256, 196, kw["J"], torch.float32, seed,
+                                 FWD_TOL, GRAD_TOL)
+        else:
+            out[label] = compare_factored(kw["Kf"], kw["nb"], 256, 196, kw["J"],
+                                          torch.float32, seed, FACT_FWD_TOL, FACT_GRAD_TOL)
+    return out
+
+
+def mesh_cosmos_ranks(mesh, ws, rws, nbatch=10, fbatch=512, num_iter=MESH_ITER,
+                      n_particles=MESH_PARTICLES, kernels=True, R=MESH_RESTARTS_R,
+                      more_iter=MESH_MORE_ITER, warmup=MESH_WARMUP):
+    """Phases 22 and 24 in one rank of a 2x2 mesh (one launch: phase 24
+    runs in processes that phase 22 warmed). Phase 22: cosmos from the
+    workspace ``ws`` (its saved data, a fresh fit) through ``use_mesh``,
+    ``warmup`` untimed steps of each route, then ``run(num_iter)`` dense
+    and ``num_iter`` steps ``use_factored``; the replicas' bitwise
+    equality; one sharded step on the card against float64 on the CPU
+    (:func:`mesh_step_card_vs_cpu`); a checkpoint, gathered at the real Nt
+    and reloaded by a single-device model on the first rank; and the
+    sharded posterior marginals against single-device ``_probs_batch`` on
+    every block with the same draws. ``kernels``: the summed and factored
+    kernels against their plain versions at this rank's step shapes first.
+    Phase 24: :func:`mesh_restarts_ranks` on the workspace ``rws``.
+    Returns (on the first rank) every rank's numbers of each phase."""
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.parallel import sharding
+
+    dev = mesh.device
+    t0 = time.perf_counter()
+    m = models["cosmos"](device=dev)
+    m.load(ws)
+    m.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+    m.use_mesh(mesh)
+    _sync(dev)
+    setup = time.perf_counter() - t0
+    n_l, f_l = m._data_dev["xy"].shape[:2]
+    nb = min(nbatch, n_l) * min(fbatch, f_l) * m.data.C
+    J = int(m._data_dev["offset_samples"].shape[0])
+    checks = _rank_kernel_checks(mesh, [("summed_stats", "summed", dict(M=4, nb=nb, J=J)),
+                                        ("factored_stats", "factored", dict(Kf=2, nb=nb, J=J))]
+                                 ) if kernels else {}
+    for factored in (False, True):
+        m.use_factored = factored
+        m.run(warmup)
+    m.use_factored = False
+    _barrier(mesh)
+    dense = _mesh_run(m, num_iter)
+    m.use_factored = True
+    _barrier(mesh)
+    fact = _mesh_run(m, num_iter)
+    m.use_factored = False
+    replicas = _replicas_equal(m, mesh)
+    step = mesh_step_card_vs_cpu(m, mesh)
+
+    _barrier(mesh)
+    t0 = time.perf_counter()
+    full = m.gather_tree(m.params)
+    gather_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.save_checkpoint()
+    _sync(dev)
+    ckpt_seconds = time.perf_counter() - t0
+
+    # the sharded posterior marginals, then (on the first rank) a
+    # single-device model from the checkpoint and its blocks
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(500 + mesh.rank)
+    with torch.no_grad():
+        draws = m._probs_draws(m.constrained(), torch.arange(n_l, device=dev),
+                               torch.arange(f_l, device=dev), n_particles, gen)
+    _barrier(mesh)
+    t0 = time.perf_counter()
+    z, th = m.compute_probs_arrays(num_particles=n_particles, draws=draws)
+    _sync(dev)
+    probs_seconds = time.perf_counter() - t0
+    slots = {k: sharding.all_gather(v.contiguous(), mesh.world) for k, v in draws.items()}
+    probs_err, reload = None, {}
+    if mesh.is_main:
+        r = models["cosmos"](device=dev)
+        r.load(ws)
+        r.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+        reload = {"iter": r.iter, "params_equal": all(
+            np.array_equal(r.params[k].cpu().numpy(), v) for k, v in full.items()),
+            "b_loc_shape": list(r.params["b_loc"].shape)}
+        probs_err = 0.0
+        pc = r.constrained()
+        ont = r._data_dev["is_ontarget"]
+        Nt, nf = m.data.Nt, mesh.shape["frame"]
+        for rank in range(mesh.size):
+            a, f = divmod(rank, nf)
+            rows = torch.arange(a * n_l, min((a + 1) * n_l, Nt), device=dev)
+            frames = torch.arange(f * f_l, (f + 1) * f_l, device=dev)
+            d = {k: v[rank] for k, v in slots.items()}
+            d["xs"], d["ys"] = d["xs"][:, :len(rows)], d["ys"][:, :len(rows)]
+            with torch.no_grad():
+                z_b, th_b = r._probs_batch(pc, rows, frames, r._data_dev, n_particles,
+                                           draws=d)
+            keep = ont[rows].to(z_b.dtype)
+            want_z = (z_b.permute(1, 2, 3, 0) * keep[:, None, None, None]).cpu().numpy()
+            want_th = (th_b * keep[None, :, None, None]).cpu().numpy()
+            rs, fs = slice(int(rows[0]), int(rows[-1]) + 1), slice(f * f_l, (f + 1) * f_l)
+            probs_err = max(probs_err, float(np.abs(z[rs, fs] - want_z).max()),
+                            float(np.abs(th[:, rs, fs] - want_th).max()))
+        del r
+    del m
+    restarts = mesh_restarts_ranks(mesh, rws, nbatch, fbatch, R, num_iter, more_iter)
+    per_rank = _per_rank(mesh, {
+        "setup_seconds": setup, "dense_seconds": dense["step_seconds"],
+        "factored_seconds": fact["step_seconds"],
+        "dense_checkpoint_seconds": dense["checkpoint_seconds"],
+        "dense_allreduce_seconds": dense["allreduce_seconds"],
+        "factored_allreduce_seconds": fact["allreduce_seconds"],
+        "dense_summed_stats": dense["counts"].get(("summed_stats", 4, nb), 0),
+        "dense_other_launches": sum(c for k, c in dense["counts"].items()
+                                    if k != ("summed_stats", 4, nb)),
+        "factored_launches": fact["counts"].get(("factored_stats", 2, 4, nb), 0),
+        "factored_other_launches": sum(c for k, c in fact["counts"].items()
+                                       if k != ("factored_stats", 2, 4, nb)),
+        "replicas_equal": replicas, "gather_seconds": gather_seconds,
+        "checkpoint_seconds": ckpt_seconds, "probs_seconds": probs_seconds,
+    })
+    cosmos = {"shape": dict(mesh.shape), "backend": mesh.backend,
+            "devices": mesh.mesh.devices, "warmup": warmup,
+            "local": [n_l, f_l], "nb": nb, "kernels": checks, "per_rank": per_rank,
+            "launches": _launches_over_ranks(mesh, dense, fact),
+            "losses": [dense["loss"], fact["loss"]],
+            "iters": [dense["iter"], fact["iter"]], "step": step, "reload": reload,
+            "probs_max_abs_err": probs_err, "z_shape": None if z is None else list(z.shape),
+            "allreduce_calls_per_step": dense["allreduce_calls"] / max(num_iter, 1)}
+    return {"22 mesh cosmos": cosmos, "24 mesh restarts": restarts}
+
+
+def mesh_hmm_crosstalk_ranks(mesh, hws, xws, nbatch=10, fbatch=512, num_iter=MESH_ITER,
+                             kernels=True, warmup=MESH_WARMUP):
+    """Phase 23 in one rank of two: cosmos+hmm from the workspace ``hws``
+    (a fresh, cold fit) on a 1x2 mesh, every AOI's frames split over the two
+    ranks, ``warmup`` untimed steps, ``run(num_iter)``; the frame-sharded
+    prefix scan of random (nbatch, F, C, 2, 2) log-transition matrices
+    against the global scan; then crosstalk from ``xws`` on a 2x1 mesh,
+    ``warmup`` untimed steps, ``run(num_iter)`` dense. ``kernels``: the
+    summed kernel against its plain version at each model's per-rank step
+    shape first."""
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.ops.scan import cumulative_logmatmulexp, sharded_cumulative_logmatmulexp
+    from tapqir_tpu_torch.parallel import sharding
+
+    dev = mesh.device
+    out = {"devices": mesh.mesh.devices, "backend": mesh.backend, "warmup": warmup}
+    fm = mesh.reshaped(1, 2)
+    h = models["cosmos+hmm"](device=dev)
+    h.load(hws)
+    h.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+    h.use_mesh(fm)
+    n_l, f_l = h._data_dev["xy"].shape[:2]
+    nb_h = min(nbatch, n_l) * f_l * h.data.C
+    J = int(h._data_dev["offset_samples"].shape[0])
+    out["hmm_kernels"] = _rank_kernel_checks(
+        fm, [("summed_stats", "summed", dict(M=4, nb=nb_h, J=J))]) if kernels else {}
+    h.run(warmup)
+    _barrier(fm)
+    hmm_run = _mesh_run(h, num_iter)
+    hmm_replicas = _replicas_equal(h, fm)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    F, C = h.data.F, h.data.C
+    logA = torch.log_softmax(torch.randn((nbatch, F, C, 2, 2), generator=g, device=dev), -1)
+    with torch.no_grad():
+        local = logA[:, fm.frame_index * f_l:(fm.frame_index + 1) * f_l].contiguous()
+        got = sharding.gather_blocks(sharded_cumulative_logmatmulexp(local, 1, fm.row),
+                                     (None, "frame", None, None, None), fm)
+        scan_err = float((got - cumulative_logmatmulexp(logA, 1)).abs().max())
+    out.update(hmm_local=[n_l, f_l], hmm_nb=nb_h, hmm_loss=hmm_run["loss"],
+               hmm_iter=hmm_run["iter"], scan_max_abs_err=scan_err,
+               hmm_counts={str(k): v for k, v in hmm_run["counts"].items()})
+    del h
+
+    am = mesh.reshaped(2, 1)
+    x = models["crosstalk"](device=dev)
+    x.load(xws)
+    x.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+    x.use_mesh(am)
+    n_l, f_l = x._data_dev["xy"].shape[:2]
+    nb_x = min(nbatch, n_l) * min(fbatch, f_l) * x.data.C
+    M_x = 1 << (x.K * x.Q)
+    J = int(x._data_dev["offset_samples"].shape[0])
+    out["crosstalk_kernels"] = _rank_kernel_checks(
+        am, [("summed_stats", "summed", dict(M=M_x, nb=nb_x, J=J))]) if kernels else {}
+    x.run(warmup)
+    _barrier(am)
+    xt_run = _mesh_run(x, num_iter)
+    xt_replicas = _replicas_equal(x, am)
+    out.update(crosstalk_local=[n_l, f_l], crosstalk_nb=nb_x, crosstalk_M=M_x,
+               crosstalk_loss=xt_run["loss"], crosstalk_iter=xt_run["iter"],
+               crosstalk_counts={str(k): v for k, v in xt_run["counts"].items()})
+    out["per_rank"] = _per_rank(mesh, {
+        "hmm_seconds": hmm_run["step_seconds"],
+        "hmm_allreduce_seconds": hmm_run["allreduce_seconds"],
+        "hmm_summed_stats": hmm_run["counts"].get(("summed_stats", 4, nb_h), 0),
+        "hmm_other_launches": sum(c for k, c in hmm_run["counts"].items()
+                                  if k != ("summed_stats", 4, nb_h)),
+        "hmm_replicas_equal": hmm_replicas, "scan_max_abs_err": scan_err,
+        "crosstalk_seconds": xt_run["step_seconds"],
+        "crosstalk_allreduce_seconds": xt_run["allreduce_seconds"],
+        "crosstalk_summed_stats": xt_run["counts"].get(("summed_stats", M_x, nb_x), 0),
+        "crosstalk_other_launches": sum(c for k, c in xt_run["counts"].items()
+                                        if k != ("summed_stats", M_x, nb_x)),
+        "crosstalk_replicas_equal": xt_replicas,
+    })
+    out["launches"] = _launches_over_ranks(mesh, hmm_run, xt_run)
+    return out
+
+
+def mesh_restarts_ranks(mesh, ws, nbatch=10, fbatch=512, R=MESH_RESTARTS_R,
+                        num_iter=MESH_ITER, more_iter=MESH_MORE_ITER):
+    """Phase 24 in one rank of a 2x2 mesh: cosmos from the workspace ``ws``
+    (a fresh fit) through the command line's restarts on the mesh
+    (``main._restarts`` -> ``fit_restarts_sharded``: R chains, num_iter
+    steps, ``cosmos_restarts.json`` and the winner's checkpoint), then
+    ``run(more_iter)`` of the winner on the mesh."""
+    from tapqir_tpu_torch import main as cli
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.parallel import sharding
+
+    dev = mesh.device
+    m = models["cosmos"](device=dev)
+    m.load(ws)
+    m.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+    n_l = -(-m.data.Nt // mesh.shape["aoi"])
+    f_l = m.data.F // mesh.shape["frame"]
+    nb = min(nbatch, n_l) * min(fbatch, f_l) * m.data.C
+    seen, fit = {}, sharding.fit_restarts_sharded
+    _barrier(mesh)
+
+    def timed(model, mesh_, **kwargs):
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses, best = fit(model, mesh_, **kwargs)
+        _sync(dev)
+        seen.update(seconds=time.perf_counter() - t0, losses=losses, best=best)
+        return losses, best
+
+    sharding.fit_restarts_sharded = timed
+    _reset_launches()
+    try:
+        with record_kernel_shapes() as rec, time_collectives() as tc, \
+                checkpoints_apart(m, tc):
+            cli._restarts(m, R, num_iter, mesh)
+    finally:
+        sharding.fit_restarts_sharded = fit
+    restarts = {"launches": _read_launches()}
+    iter_restarts = m.iter
+    more = _mesh_run(m, more_iter)
+    out = {"devices": mesh.mesh.devices, "backend": mesh.backend, "nb": nb, "R": R,
+           "iter_restarts": iter_restarts, "iter_after": more["iter"],
+           "losses": seen["losses"].tolist(), "best": seen["best"],
+           "more_loss": more["loss"]}
+    if mesh.is_main:
+        out["restarts_json"] = json.loads(
+            (Path(ws) / ".tapqir" / "cosmos_restarts.json").read_text())
+        with np.load(Path(ws) / ".tapqir" / "cosmos_model.tpqr") as z:
+            out["checkpoint_iter"] = json.loads(bytes(z["meta"]).decode())["iter"]
+            out["checkpoint_b_loc"] = list(z["p::b_loc"].shape)
+    out["per_rank"] = _per_rank(mesh, {
+        "restart_seconds": seen["seconds"], "restart_allreduce_seconds": tc.seconds,
+        "restart_allreduce_calls": tc.calls, "restart_allreduce_longest": tc.longest,
+        "restart_summed_stats": rec.counts.get(("summed_stats", 4, R * nb), 0),
+        "restart_other_launches": sum(c for k, c in rec.counts.items()
+                                      if k != ("summed_stats", 4, R * nb)),
+        "more_summed_stats": more["counts"].get(("summed_stats", 4, nb), 0),
+        "more_other_launches": sum(c for k, c in more["counts"].items()
+                                   if k != ("summed_stats", 4, nb)),
+        "more_seconds": more["step_seconds"],
+    })
+    out["launches"] = _launches_over_ranks(mesh, restarts, more)
+    return out
+
+
+def _mesh_workspace(src, name):
+    """A workspace ``src/name`` of its own on ``src``'s saved data (linked),
+    with its ``.tapqir`` folder."""
+    ws = Path(src) / name
+    (ws / ".tapqir").mkdir(parents=True)
+    (ws / "data.tpqr").symlink_to(Path(src) / "data.tpqr")
+    return ws
+
+
+def run_mesh_phases(tmp, xws, devices, nbatch=10, fbatch=512, num_iter=MESH_ITER,
+                    R=MESH_RESTARTS_R, more_iter=MESH_MORE_ITER, kernels=True,
+                    warmup=MESH_WARMUP, lap=None):
+    """Phases 22-24 in two :func:`~tapqir_tpu_torch.parallel.sharding.launch`
+    calls of their ranks on ``devices`` (four entries; one card repeated
+    shares it over gloo): cosmos then restarts on 2x2
+    (:func:`mesh_cosmos_ranks`), then cosmos+hmm on 1x2 and crosstalk on
+    2x1 (:func:`mesh_hmm_crosstalk_ranks`), on the saved data of phase 7
+    (``tmp``) and phase 14 (``xws``) in workspaces of their own. Returns
+    each phase's result, phases 22 and 23 with their launch's wall seconds
+    (the ranks' start-up included)."""
+    from tapqir_tpu_torch.parallel.sharding import launch, make_mesh
+
+    res = {}
+    t0 = time.perf_counter()
+    res.update(launch(make_mesh(2, 2, devices), mesh_cosmos_ranks,
+                      _mesh_workspace(tmp, "mesh"), _mesh_workspace(tmp, "mesh_restarts"),
+                      nbatch, fbatch, num_iter, MESH_PARTICLES, kernels, R, more_iter, warmup))
+    res["22 mesh cosmos"]["seconds"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("22+24 mesh cosmos, restarts")
+    t0 = time.perf_counter()
+    res["23 mesh hmm + crosstalk"] = launch(
+        make_mesh(2, 1, devices[:2]), mesh_hmm_crosstalk_ranks, _mesh_workspace(tmp, "mesh_hmm"),
+        _mesh_workspace(xws, "mesh"), nbatch, fbatch, num_iter, kernels, warmup)
+    res["23 mesh hmm + crosstalk"]["seconds"] = time.perf_counter() - t0
+    if lap is not None:
+        lap("23 mesh hmm + crosstalk")
+    return res
+
+
+def check_mesh_phases(res, num_iter=MESH_ITER, R=MESH_RESTARTS_R, more_iter=MESH_MORE_ITER,
+                      Nt=None, F=None, device="cuda"):
+    """Raise unless phases 22-24 hold: on every rank exactly ``num_iter``
+    launches of the step's kernel at the rank's shape and no other (dense
+    and factored, hmm, crosstalk; restarts: ``num_iter`` at R x the step's
+    images, then ``more_iter`` single-chain; none on the CPU, which takes
+    the plain versions), the replicas bitwise equal,
+    the sharded step within MESH_STEP_RTOL of float64 on the CPU, the
+    checkpoint at the real (Nt, F) reloaded bitwise by a single-device
+    model, the sharded posteriors within PROB_TOL of single-device blocks,
+    the sharded scan within MESH_SCAN_TOL of the global one, finite losses,
+    and the restarts' selection, file and iterations."""
+    # launches per rank of each run: none on the CPU
+    card = torch.device(device).type == "cuda"
+    n_run, n_more = (num_iter, more_iter) if card else (0, 0)
+    c = res["22 mesh cosmos"]
+    pr = c["per_rank"]
+    if any(v != n_run for v in pr["dense_summed_stats"] + pr["factored_launches"]) or \
+            any(pr["dense_other_launches"] + pr["factored_other_launches"]):
+        raise RuntimeError(f"phase 22: launches per rank {json.dumps(pr)} at nb={c['nb']}")
+    if not all(pr["replicas_equal"]):
+        raise RuntimeError(f"phase 22: replicated parameters differ across ranks {pr}")
+    if not (c["step"]["loss_rel_err"] <= MESH_STEP_RTOL
+            and c["step"]["grad_rel_err"] <= MESH_STEP_RTOL
+            and c["step"]["worst_param_rel_err"] <= MESH_PARAM_RTOL):
+        raise RuntimeError(f"phase 22: sharded step card vs CPU {c['step']}")
+    rl = c["reload"]
+    w = c["warmup"]
+    if not (rl["params_equal"] and rl["iter"] == 2 * (w + num_iter)
+            and (Nt is None or rl["b_loc_shape"][:2] == [Nt, F])):
+        raise RuntimeError(f"phase 22: checkpoint reload {rl}")
+    if not (c["probs_max_abs_err"] <= PROB_TOL and (Nt is None or c["z_shape"][0] == Nt)):
+        raise RuntimeError(f"phase 22: sharded posteriors {c['probs_max_abs_err']} "
+                           f"{c['z_shape']}")
+    if not np.isfinite(c["losses"]).all() or c["iters"] != [2 * w + num_iter,
+                                                          2 * (w + num_iter)]:
+        raise RuntimeError(f"phase 22: losses {c['losses']} iterations {c['iters']}")
+    h = res["23 mesh hmm + crosstalk"]
+    pr = h["per_rank"]
+    if any(v != n_run for v in pr["hmm_summed_stats"] + pr["crosstalk_summed_stats"]) or \
+            any(pr["hmm_other_launches"] + pr["crosstalk_other_launches"]):
+        raise RuntimeError(f"phase 23: launches per rank {json.dumps(pr)}")
+    if not (all(pr["hmm_replicas_equal"]) and all(pr["crosstalk_replicas_equal"])):
+        raise RuntimeError(f"phase 23: replicated parameters differ across ranks {pr}")
+    if not max(pr["scan_max_abs_err"]) <= MESH_SCAN_TOL:
+        raise RuntimeError(f"phase 23: sharded scan {pr['scan_max_abs_err']} > {MESH_SCAN_TOL}")
+    if not (np.isfinite([h["hmm_loss"], h["crosstalk_loss"]]).all()
+            and h["hmm_iter"] == h["crosstalk_iter"] == h["warmup"] + num_iter):
+        raise RuntimeError(f"phase 23: losses or iterations {h}")
+    r = res["24 mesh restarts"]
+    pr = r["per_rank"]
+    if any(v != n_run for v in pr["restart_summed_stats"]) or \
+            any(v != n_more for v in pr["more_summed_stats"]) or \
+            any(pr["restart_other_launches"] + pr["more_other_launches"]):
+        raise RuntimeError(f"phase 24: launches per rank {json.dumps(pr)} at nb={r['nb']}")
+    losses = np.asarray(r["losses"])
+    tail = max(1, min(50, num_iter // 10))
+    meta = r["restarts_json"]
+    if not (losses.shape == (R, num_iter) and np.isfinite(losses).all()
+            and r["best"] == int(np.argmin(losses[:, -tail:].mean(1))) == meta["best_chain"]
+            and meta["num_restarts"] == R and meta["restart_iter"] == num_iter
+            and np.allclose(meta["final_losses"], losses[:, -1])):
+        raise RuntimeError(f"phase 24: restarts {r['losses']} best {r['best']} file {meta}")
+    if not (r["iter_restarts"] == num_iter and r["iter_after"] == num_iter + more_iter
+            and r["checkpoint_iter"] == num_iter + more_iter
+            and np.isfinite(r["more_loss"])):
+        raise RuntimeError(f"phase 24: iterations {r}")
+    return {"phase22_launches_per_rank": num_iter, "replicas_equal": True,
+            "step": c["step"], "probs_max_abs_err": c["probs_max_abs_err"],
+            "scan_max_abs_err": max(h["per_rank"]["scan_max_abs_err"]),
+            "restarts_best": r["best"]}
+
+
+def run_mesh_cli(tmp, nbatch=10, fbatch=512, num_iter=MESH_ITER):
+    """On a machine with more than one card: ``fit --mesh auto`` then
+    ``stats --mesh auto`` in process on phase 7's saved data in a workspace
+    of its own, one rank per card (an AOI mesh over every card, NCCL).
+    Raises unless both exit 0 and write the fit's files; returns their
+    seconds and the mesh the option resolves to."""
+    from tapqir_tpu_torch import main as cli
+
+    ws = _mesh_workspace(tmp, "mesh_cli")
+    mesh = cli._resolve_mesh(ws, "auto")
+    fit = run_cli(ws, ["fit", "--model", "cosmos", "-n", str(nbatch), "-f", str(fbatch),
+                       "-it", str(num_iter), "--mesh", "auto", "--no-input"])
+    stats = run_cli(ws, ["stats", "--mesh", "auto", "--no-input"])
+    files = [f for f in ("cosmos_params.tpqr", "cosmos_summary.csv", ".tapqir/cosmos_model.tpqr")
+             if not (ws / f).exists()]
+    if fit["code"] or stats["code"] or files:
+        raise RuntimeError(f"mesh command line: fit exit {fit['code']}, stats exit "
+                           f"{stats['code']}, missing {files}")
+    return {"mesh": repr(mesh), "fit_seconds": fit["seconds"],
+            "stats_seconds": stats["seconds"]}
+
+
+def print_mesh_phases(res, checks, cli_res, name, smi):
+    """Phases 22-24's lines, each number beside the card and its power
+    limit."""
+    c, h, r = (res[k] for k in ("22 mesh cosmos", "23 mesh hmm + crosstalk",
+                                "24 mesh restarts"))
+    pr = c["per_rank"]
+    for route in ("dense", "factored"):
+        s_max = max(pr[f"{route}_seconds"])
+        ar = 1e3 * max(pr[f"{route}_allreduce_seconds"]) / MESH_ITER
+        print(f"[mesh-cosmos] {route}: 2x2 mesh, 4 ranks on {c['devices']} over {c['backend']} "
+              f"on {name} ({smi}): {c['local'][0]} AOIs x {c['local'][1]} frames per rank, "
+              f"{MESH_ITER} steps (after {c['warmup']} untimed of each route; run less its "
+              f"checkpoint) in {s_max:.3f} s = "
+              f"{MESH_ITER / s_max:.3f} steps/s (slowest rank); one launch per rank and step "
+              f"at nb={c['nb']}; all_reduce {ar:.3f} ms per step (slowest rank, "
+              f"{c['allreduce_calls_per_step']:.1f} calls per step); per rank "
+              f"{json.dumps(pr[f'{route}_seconds'])} s", flush=True)
+    print(f"[mesh-cosmos] run's checkpoint {max(pr['dense_checkpoint_seconds']):.3f} s; "
+          f"checkpoint gather (params) {max(pr['gather_seconds']):.3f} s, "
+          f"save_checkpoint (params + moments, gathered and written) "
+          f"{max(pr['checkpoint_seconds']):.3f} s, sharded posteriors ({MESH_PARTICLES} "
+          f"particles) {max(pr['probs_seconds']):.3f} s, ranks' set-up "
+          f"{max(pr['setup_seconds']):.1f} s, launch wall (phases 22 and 24) "
+          f"{c['seconds']:.1f} s on {name} "
+          f"({smi}); step card vs CPU {json.dumps(c['step'])} (tolerances {MESH_STEP_RTOL}, "
+          f"per parameter {MESH_PARAM_RTOL}); "
+          f"reload {json.dumps(c['reload'])}; posteriors max abs err "
+          f"{c['probs_max_abs_err']:.3g} (tolerance {PROB_TOL}); kernels at the rank's "
+          f"shape {json.dumps(c['kernels'])}", flush=True)
+    hp = h["per_rank"]
+    for label, key, nb in (("cosmos+hmm 1x2", "hmm", h["hmm_nb"]),
+                           (f"crosstalk 2x1 M={h['crosstalk_M']}", "crosstalk",
+                            h["crosstalk_nb"])):
+        s_max = max(hp[f"{key}_seconds"])
+        ar = 1e3 * max(hp[f"{key}_allreduce_seconds"]) / MESH_ITER
+        print(f"[mesh-{key}] {label}, 2 ranks on {h['devices']} over {h['backend']} on {name} "
+              f"({smi}): {MESH_ITER} steps (after {h['warmup']} untimed) in {s_max:.3f} s = "
+              f"{MESH_ITER / s_max:.3f} steps/s; "
+              f"one launch per rank and step at nb={nb}; all_reduce {ar:.3f} ms per step; "
+              f"kernels at the rank's shape {json.dumps(h[f'{key}_kernels'])}", flush=True)
+    print(f"[mesh-hmm] sharded scan max abs err {max(hp['scan_max_abs_err']):.3g} (tolerance "
+          f"{MESH_SCAN_TOL}); launch wall {h['seconds']:.1f} s", flush=True)
+    rp = r["per_rank"]
+    s_max = max(rp["restart_seconds"])
+    print(f"[mesh-restarts] R={r['R']} chains on the 2x2 mesh on {name} ({smi}): "
+          f"{MESH_ITER} restart steps in {s_max:.3f} s = {MESH_ITER / s_max:.3f} steps/s; "
+          f"one launch per rank and step at nb={r['R']} x {r['nb']}; all_reduce "
+          f"{1e3 * max(rp['restart_allreduce_seconds']) / MESH_ITER:.3f} ms per step; best "
+          f"chain {r['best']}; then {MESH_MORE_ITER} steps in {max(rp['more_seconds']):.3f} s; "
+          f"iteration {r['iter_after']}; in phase 22's launch; per rank: restart seconds "
+          f"{json.dumps(rp['restart_seconds'])}, all_reduce seconds "
+          f"{json.dumps(rp['restart_allreduce_seconds'])} in "
+          f"{json.dumps(rp['restart_allreduce_calls'])} calls, the longest "
+          f"{json.dumps(rp['restart_allreduce_longest'])} s", flush=True)
+    print(f"[mesh] checks {json.dumps(checks)}", flush=True)
+    if cli_res is None:
+        print(f"[mesh-cli] {torch.cuda.device_count()} card: no layout of one rank per card "
+              f"(NCCL) to run; fit/stats --mesh auto take the single-device path here",
+              flush=True)
+    else:
+        print(f"[mesh-cli] fit/stats --mesh auto over {cli_res['mesh']} on {name} ({smi}): "
+              f"{json.dumps(cli_res)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
 
@@ -2781,6 +3521,18 @@ def main():
                        *bound_ms(x, a, g, ev, stats=True)]
     floor[hmm_row] = mufu_floor_ms(x[:, :ev], g, M)
     del x, a
+    # a rank's step on phase 22's 2x2 mesh: 10 AOIs x its 395 frames
+    nb_mesh = 10 * 395
+    x, a, _, _, _ = kernel_inputs(M, nb_mesh, EVP, ev, J, f32, 3, "cuda")
+    x[:, ev:] = 91.0
+    a[..., ev:] = 1.0
+    _, p_grad = plain_pair(summed_plain(x), [a, rate], [1, None],
+                           torch.ones((M, nb_mesh), device="cuda"))
+    mesh_row = f"summed_stats nb={nb_mesh}"
+    timing[mesh_row] = [time_ms(lambda: og.summed_stats(x, a, r1, g, w, ev), 50), p_grad,
+                        *bound_ms(x, a, g, ev, stats=True)]
+    floor[mesh_row] = mufu_floor_ms(x[:, :ev], g, M)
+    del x, a
     torch.cuda.empty_cache()
 
     # the crosstalk step: 16 configs over nb = 10 AOIs x 512 frames x 2
@@ -2818,6 +3570,7 @@ def main():
     del xp, ap, a2
 
     for Kf_t, nb_t, row, chunks in ((Kf, nb, "factored_stats", 1),
+                                    (Kf, nb_mesh, f"factored_stats nb={nb_mesh}", 1),
                                     (XT_KF, XT_NB, f"factored_stats Kf={XT_KF} nb={XT_NB}", 4)):
         xf, base, deltas, mtab, _, _, _ = factored_inputs(Kf_t, nb_t, EVP, ev, J, f32, 0,
                                                           "cuda")
@@ -2832,8 +3585,8 @@ def main():
             [base, deltas, rate], [0, 1, None], torch.ones((len(masks), nb_t), device="cuda"),
             chunks=chunks)
         timing[row] = [ms_fact, p_grad, *bound_factored_ms(xf, deltas, g, len(masks), ev)]
+        floor.setdefault(row, mufu_floor_ms(xf[:, :ev], g, len(masks)))
         if chunks > 1:
-            floor[row] = mufu_floor_ms(xf[:, :ev], g, len(masks))
             floor_issued[row] = mufu_floor_ms(xf[:, :ev], g, len(masks),
                                               -(-len(masks) // KERNEL_CHUNK))
         del xf, base, deltas
@@ -2980,7 +3733,14 @@ def main():
             r.pop("model")  # the models' device data must not outlive the phase
         del ingested
         gc.collect()
+        torch.cuda.empty_cache()
         lap("21 ingested CLI")
+
+        # phases 22-24: the mesh, its ranks sharing this one card over gloo;
+        # on more cards, the command line's mesh over NCCL
+        mesh_res = run_mesh_phases(tmp, xws, ["cuda:0"] * 4, lap=lap)
+        mesh_checks = check_mesh_phases(mesh_res, Nt=856, F=790)
+        mesh_cli = run_mesh_cli(tmp) if torch.cuda.device_count() > 1 else None
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -3088,6 +3848,7 @@ def main():
           f"offset_gamma_summed_kernel; launches {ingested_prof['launches']}; command "
           f"seconds {json.dumps(ingested_seconds)}", flush=True)
     print(f"[ingested-cli] checks {json.dumps(ingested_checks)}", flush=True)
+    print_mesh_phases(mesh_res, mesh_checks, mesh_cli, name, smi)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -3106,14 +3867,15 @@ def main():
                     bound_by=by, library_ms=None)
 
     perr = pixel_errs[M]
-    # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18, 19
-    # and 21 (phases 11, 16 and 20 launch none; 13, 15 and 17 compare the
-    # card with the CPU or the kernels with their plain versions)
+    # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18, 19,
+    # 21 and 22-24 (every rank's mesh runs; phases 11, 16 and 20 launch
+    # none; 13, 15 and 17 compare the card with the CPU or the kernels with
+    # their plain versions, as do the ranks before their runs)
     paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"], xt_fit["launches"],
              xt_fact["launches"], cli_restarts["launches"], cli_restarts["stats"]["launches"],
              *(res["launches"] for res in api.values()), ingested_fit["launches"],
-             ingested_prof["launches"])
-    total = {k: sum(r[k] for r in paths) for k in dl}
+             ingested_prof["launches"], *(r["launches"] for r in mesh_res.values()))
+    total = {k: sum(r.get(k, 0) for r in paths) for k in dl}
     kernels = [
         entry("summed_fwd", 365, total["summed_fwd"], errs["forward_nograd"]),
         entry("summed_stats", 384, total["summed_stats"],

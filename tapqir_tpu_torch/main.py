@@ -20,6 +20,13 @@ files, so either package's CLI continues a workspace the other wrote.
 * ``stats`` loads the checkpoint's parameters and computes the stats:
   p(specific), credible intervals, SNR / chi2 and, with ground-truth
   labels, MCC, recall and precision;
+* ``fit`` and ``stats`` take ``--mesh``: ``auto`` (the default) shards over
+  every visible card as an AOI mesh when there is more than one card, and
+  runs on one device otherwise; ``none``, ``off`` and ``1x1`` mean one
+  device; ``AxB`` is an explicit (aoi, frame) mesh, B dividing F, of at
+  most as many shards as cards. A mesh runs one process per card
+  (``parallel/sharding.py``); ``stats`` shards only the posterior
+  marginals. ``--cpu`` ignores ``--mesh``, as the JAX command does;
 * ``ttfb`` fits the time-to-first-binding model (ka, kns, Af) to z samples
   of a fit's posterior, per channel;
 * ``dwelltime`` fits K-exponential mixtures to the bound and unbound dwell
@@ -29,10 +36,11 @@ files, so either package's CLI continues a workspace the other wrote.
 * ``log`` pages ``.tapqir/loginfo``.
 
 Options of ``fit`` and ``stats`` not given on the command line are asked for
-on the terminal unless ``--no-input``. Commands run on the CUDA card;
-``--cpu`` asks for the CPU, and without a card and without ``--cpu`` a
-command exits non-zero. Options that are not ported yet exit non-zero with a
-message naming the ROADMAP item that ports them. Plots need matplotlib;
+on the terminal unless ``--no-input``, in this process before any mesh
+starts. Commands run on the CUDA card; ``--cpu`` asks for the CPU, and
+without a card and without ``--cpu`` a command exits non-zero, as does a
+mesh rank that fails. ``show`` is not ported yet and exits non-zero with a
+message naming the ROADMAP item that ports it. Plots need matplotlib;
 without it (or with the ``CI`` environment variable set) they are skipped
 with a logged warning, as in the JAX package.
 """
@@ -50,16 +58,11 @@ import torch
 from tapqir_tpu_torch.device import resolve_device
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
 from tapqir_tpu_torch.logger import init_logger
+from tapqir_tpu_torch.parallel.sharding import MeshError, launch, make_mesh
 from tapqir_tpu_torch.utils.config import dump_config, load_config
 from tapqir_tpu_torch.utils.stats import hpdi, write_summary
 
 AVAIL_MODELS = ["cosmos", "crosstalk", "cosmos+hmm"]
-
-# what the JAX package's fit / stats accept that the port does not run yet,
-# with the ROADMAP Queue A item that ports it
-NOT_PORTED = {
-    "mesh": "--mesh is not ported yet (ROADMAP Queue A item 8)",
-}
 
 # glimpse's per-channel options, in the order of a channel's config keys:
 # flag (= "--" + config key), option name, help
@@ -163,7 +166,8 @@ def _parser():
                        help="Save parameters in matlab format")
         p.add_argument("--dtype", choices=["float32", "double"], default=S,
                        help="Floating point precision")
-        p.add_argument("--mesh", type=str, default=S, help="Multi-device mesh")
+        p.add_argument("--mesh", type=str, default=S,
+                       help="Multi-card mesh: 'auto' (default), 'none', or 'AxB'")
         p.add_argument("--no-input", action="store_true", default=S,
                        help="Disable interactive prompt.")
 
@@ -268,7 +272,7 @@ def _defaults(command, config):
             "frame_sampling": "random", "num_iter": 0, "k_max": 2,
             "num_restarts": 1, "restart_iter": 2000, "profile": 0,
             "matlab": bool(config.get("matlab", False)), "dtype": "float32",
-            "warm_start": None, "overwrite": True, "no_input": False,
+            "warm_start": None, "mesh": "auto", "overwrite": True, "no_input": False,
         }
     if command == "glimpse":
         return {
@@ -294,7 +298,7 @@ def _defaults(command, config):
         "nbatch_size": config.get("nbatch-size", 10),
         "fbatch_size": config.get("fbatch-size", 512),
         "k_max": config.get("k-max", 2), "matlab": False, "dtype": "float32",
-        "no_input": False,
+        "mesh": "auto", "no_input": False,
     }
 
 
@@ -337,20 +341,48 @@ def _make_prompter(given):
     return ask
 
 
-def _refuse_unported(given):
-    for name in NOT_PORTED:
-        if name in given:
-            raise CliError(NOT_PORTED[name])
-
-
-def _make_model(model, S, k_max, cpu, dtype, priors):
+def _make_model(model, S, k_max, cpu, dtype, priors, device=None):
+    """The model on ``device`` (a mesh rank's), else on the card, or on the
+    CPU with ``cpu``."""
     from tapqir_tpu_torch.models import models
 
-    try:
-        device = resolve_device("cpu" if cpu else None)
-    except RuntimeError as err:
-        raise CliError(str(err)) from err
+    if device is None:
+        try:
+            device = resolve_device("cpu" if cpu else None)
+        except RuntimeError as err:
+            raise CliError(str(err)) from err
     return models[model](S=S, K=k_max, device=device, dtype=dtype, priors=priors)
+
+
+def _resolve_mesh(cd, mesh_opt):
+    """The ("aoi", "frame") mesh of ``--mesh`` over the visible cards, or
+    None for one device (JAX: ``_resolve_mesh``): "auto" is an AOI mesh over
+    every card when there is more than one; "none", "off" and "1x1" are one
+    device; "AxB" needs B to divide F (the frame axis is not padded; AOI
+    counts are) and A x B cards."""
+    if mesh_opt in (None, "none", "off", "1x1"):
+        return None
+    n_cards = torch.cuda.device_count()
+    if mesh_opt == "auto":
+        if n_cards <= 1:
+            return None
+        logger.info(f"Auto mesh: {n_cards} aoi x 1 frame over {n_cards} devices")
+        return make_mesh(n_cards, 1)
+    try:
+        n_a, n_f = (int(x) for x in mesh_opt.lower().split("x"))
+    except ValueError:
+        raise CliError(f"--mesh must be 'auto', 'none' or 'AxB', got {mesh_opt!r}") from None
+    if n_a * n_f <= 1:
+        return None
+    from tapqir_tpu_torch.utils.dataset import load
+
+    F = load(cd).F
+    if F % n_f:
+        raise CliError(f"mesh frame axis {n_f} must divide F={F} (the frame axis is not "
+                       "padded); AOI counts are padded automatically")
+    if n_a * n_f > n_cards:
+        raise CliError(f"need {n_a * n_f} devices, have {n_cards}")
+    return make_mesh(n_a, n_f)
 
 
 # ---------------------------------------------------------------------------
@@ -358,17 +390,23 @@ def _make_model(model, S, k_max, cpu, dtype, priors):
 # ---------------------------------------------------------------------------
 
 
+def _cosmos_fit_for_warm_start(cd, asked):
+    """Whether the workspace holds a cosmos fit to warm-start from;
+    ``asked`` (``--warm-start``) requires one."""
+    cosmos_ckpt = Path(cd) / ".tapqir" / "cosmos_model.tpqr"
+    if not cosmos_ckpt.exists() and asked:
+        raise CliError(
+            f"--warm-start requires a cosmos fit in this workspace ({cosmos_ckpt} "
+            "not found); run `fit --model cosmos` first"
+        )
+    return cosmos_ckpt.exists()
+
+
 def _warm_start(cd, model, asked):
     """cosmos -> cosmos+hmm warm start: by default for a fresh hmm fit when
     the workspace holds a cosmos fit; ``asked`` (``--warm-start``) requires
     that fit and warm-starts a resumed hmm fit too."""
-    cosmos_ckpt = Path(cd) / ".tapqir" / "cosmos_model.tpqr"
-    if not cosmos_ckpt.exists():
-        if asked:
-            raise CliError(
-                f"--warm-start requires a cosmos fit in this workspace ({cosmos_ckpt} "
-                "not found); run `fit --model cosmos` first"
-            )
+    if not _cosmos_fit_for_warm_start(cd, asked):
         return
     if model.iter == 0 or asked:
         logger.info("Warm-starting cosmos+hmm from the cosmos fit (--no-warm-start "
@@ -376,30 +414,84 @@ def _warm_start(cd, model, asked):
         model.warm_start_from_cosmos()
 
 
-def _restarts(model, num_restarts, restart_iter):
+def _restarts(model, num_restarts, restart_iter, mesh=None):
     """R chains for ``restart_iter`` steps, the best kept: the selection in
     ``<model>_restarts.json``, the winner checkpointed before ``run``
-    continues it."""
+    continues it. On a mesh every chain shards the data
+    (``fit_restarts_sharded``) and the first rank writes the files."""
     from tapqir_tpu_torch.parallel.restarts import fit_restarts
+    from tapqir_tpu_torch.parallel.sharding import fit_restarts_sharded
 
     logger.info(f"Running {num_restarts} batched random restarts ...")
+    kwargs = dict(
+        num_restarts=num_restarts, num_iter=restart_iter,
+        progress=lambda it, loss: logger.info(f"restarts @{it}: best -ELBO {loss:.1f}"),
+    )
     try:
-        losses, best = fit_restarts(
-            model, num_restarts=num_restarts, num_iter=restart_iter,
-            progress=lambda it, loss: logger.info(f"restarts @{it}: best -ELBO {loss:.1f}"),
-        )
+        if mesh is None:
+            losses, best = fit_restarts(model, **kwargs)
+        else:
+            losses, best = fit_restarts_sharded(model, mesh, **kwargs)
     except torch.cuda.OutOfMemoryError as err:
         raise CudaOutOfMemoryError() from err
     logger.info(f"Selected restart #{best}")
-    with open(model.run_path / f"{model.name}_restarts.json", "w") as fh:
-        json.dump({
-            "num_restarts": num_restarts,
-            "restart_iter": restart_iter,
-            "best_chain": int(best),
-            "final_losses": [float(x) for x in losses[:, -1]],
-        }, fh)
+    if mesh is None or mesh.is_main:
+        with open(model.run_path / f"{model.name}_restarts.json", "w") as fh:
+            json.dump({
+                "num_restarts": num_restarts,
+                "restart_iter": restart_iter,
+                "best_chain": int(best),
+                "final_losses": [float(x) for x in losses[:, -1]],
+            }, fh)
     model.save_checkpoint()
     logger.info("Continuing the winning chain ...")
+
+
+def _fit_model(cd, opts, m, mesh=None):
+    """Load, initialize and fit ``m``, then compute the stats; on a mesh
+    (every rank calls this with its ``RankMesh``) the fit and the
+    posterior marginals are sharded."""
+    m.frame_sampling = opts["frame_sampling"]
+    m.load(cd)
+    m.init(opts["learning_rate"], opts["nbatch_size"], opts["fbatch_size"])
+    if opts["model"] == "cosmos+hmm" and opts["warm_start"] is not False:
+        _warm_start(cd, m, opts["warm_start"])
+    if opts["profile"]:
+        out = m.profile_trace(num_steps=opts["profile"])
+        logger.info(f"Profiler trace written to {out}")
+        return
+    if opts["num_restarts"] > 1:
+        _restarts(m, opts["num_restarts"], opts["restart_iter"], mesh)
+    elif mesh is not None:
+        m.use_mesh(mesh)
+    m.run(opts["num_iter"])
+    logger.info("Fitting the data: Done")
+
+    logger.info("Computing stats ...")
+    m.compute_stats(save_matlab=opts["matlab"])
+    logger.info("Computing stats: Done")
+
+
+def _fit_on_mesh(mesh, cd, opts, priors):
+    """``fit`` in one rank of a mesh (the first rank logs)."""
+    if mesh.is_main:
+        init_logger(cd)
+    m = _make_model(opts["model"], opts["S"], opts["k_max"], False, opts["dtype"], priors,
+                    device=mesh.device)
+    _fit_model(cd, opts, m, mesh)
+
+
+def _stats_on_mesh(mesh, cd, opts, priors, lr):
+    """``stats`` in one rank of a mesh: the posterior marginals sharded."""
+    if mesh.is_main:
+        init_logger(cd)
+    m = _make_model(opts["model"], opts["S"], opts["k_max"], False, opts["dtype"], priors,
+                    device=mesh.device)
+    m.load(cd)
+    m.init(lr, opts["nbatch_size"], opts["fbatch_size"])
+    m.load_checkpoint(param_only=True)
+    m.use_mesh(mesh)
+    m.compute_stats(save_matlab=opts["matlab"])
 
 
 def fit(cd, config, opts, given):
@@ -421,7 +513,6 @@ def fit(cd, config, opts, given):
                              "Save parameters in matlab format?", is_bool=True)
         opts["overwrite"] = ask("overwrite", opts["overwrite"],
                                 "Overwrite default values?", is_bool=True)
-    _refuse_unported(given)
 
     if opts["overwrite"]:
         config.update({
@@ -438,25 +529,17 @@ def fit(cd, config, opts, given):
         save_config(cd, config)
 
     logger.info("Fitting the data ...")
+    # --cpu ignores --mesh, and --profile profiles one device, as in the JAX
+    # package
+    mesh = None if opts["cpu"] or opts["profile"] else _resolve_mesh(cd, opts["mesh"])
+    if mesh is not None:
+        if opts["model"] == "cosmos+hmm" and opts["warm_start"]:
+            _cosmos_fit_for_warm_start(cd, True)
+        launch(mesh, _fit_on_mesh, cd, opts, config.get("priors"))
+        return
     m = _make_model(opts["model"], opts["S"], opts["k_max"], opts["cpu"], opts["dtype"],
                     config.get("priors"))
-    m.frame_sampling = opts["frame_sampling"]
-    m.load(cd)
-    m.init(opts["learning_rate"], opts["nbatch_size"], opts["fbatch_size"])
-    if opts["model"] == "cosmos+hmm" and opts["warm_start"] is not False:
-        _warm_start(cd, m, opts["warm_start"])
-    if opts["profile"]:
-        out = m.profile_trace(num_steps=opts["profile"])
-        logger.info(f"Profiler trace written to {out}")
-        return
-    if opts["num_restarts"] > 1:
-        _restarts(m, opts["num_restarts"], opts["restart_iter"])
-    m.run(opts["num_iter"])
-    logger.info("Fitting the data: Done")
-
-    logger.info("Computing stats ...")
-    m.compute_stats(save_matlab=opts["matlab"])
-    logger.info("Computing stats: Done")
+    _fit_model(cd, opts, m)
 
 
 def stats(cd, config, opts, given):
@@ -469,9 +552,14 @@ def stats(cd, config, opts, given):
                               "Run computations on the accelerator?", is_bool=True)
         opts["matlab"] = ask("matlab", opts["matlab"],
                              "Save parameters in matlab format?", is_bool=True)
-    _refuse_unported(given)
 
     logger.info("Computing stats ...")
+    mesh = None if opts["cpu"] else _resolve_mesh(cd, opts["mesh"])
+    if mesh is not None:
+        launch(mesh, _stats_on_mesh, cd, opts, config.get("priors"),
+               config.get("learning-rate", 0.005))
+        logger.info("Computing stats: Done")
+        return
     m = _make_model(opts["model"], opts["S"], opts["k_max"], opts["cpu"], opts["dtype"],
                     config.get("priors"))
     m.load(cd)
@@ -812,5 +900,8 @@ def main(argv=None) -> int:
         return 1
     except CudaOutOfMemoryError:
         logger.exception("Failed to fit the data")
+        return 1
+    except MeshError as err:
+        logger.error(str(err))
         return 1
     return 0

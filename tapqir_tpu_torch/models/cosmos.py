@@ -64,6 +64,7 @@ from tapqir_tpu_torch.infer.discrete import (
     safe_log,
 )
 from tapqir_tpu_torch.models.model import Model
+from tapqir_tpu_torch.parallel import sharding
 
 DEFAULT_PRIORS = {
     "background_mean_std": 1000.0,
@@ -195,23 +196,26 @@ class cosmos(Model):
         }
 
     # -- ELBO -----------------------------------------------------------------
-    def _draw_batch(self, generator, chains=None):
+    def _draw_batch(self, generator, chains=None, row_generator=None):
         """(ndx, fidx, f): ``n`` AOI rows without replacement and, when
         frames are subsampled, ``f`` frame indices - a sorted uniform subset
         (``frame_sampling="random"``) or a cyclic contiguous window at a
-        random offset ("window"). ``fidx`` is None when f == F.
+        random offset ("window"). ``fidx`` is None when f == F. Nt and F are
+        those of the device data: on a mesh, the rank's block.
 
         ``chains`` = R draws R batches at once, each chain its own rows (R,
         n) and frames (R, f): a permutation per chain from one (R, Nt) and
-        one (R, F) uniform draw."""
-        Nt, F = self.data.Nt, self.data.F
+        one (R, F) uniform draw. ``row_generator``, when given, draws the
+        rows (on a mesh: the one the frame shards of a mesh row share)."""
+        Nt, F = self._data_dev["xy"].shape[:2]
         n = min(self.nbatch_size, Nt)
         f = min(self.fbatch_size, F)
         dev = self.device
+        rows = generator if row_generator is None else row_generator
         if chains is None:
-            ndx = torch.randperm(Nt, generator=generator, device=dev)[:n]
+            ndx = torch.randperm(Nt, generator=rows, device=dev)[:n]
         else:
-            ndx = _chain_perms(chains, Nt, generator, dev)[:, :n]
+            ndx = _chain_perms(chains, Nt, rows, dev)[:, :n]
         if f == F:
             return ndx, None, f
         if self.frame_sampling == "random":
@@ -233,19 +237,25 @@ class cosmos(Model):
         return self.elbo_from_windows(win, generator, ndx, fidx, f, data, draws)
 
     def elbo_from_windows(self, win, generator, ndx, fidx, f_b, data,
-                          draws=None):
+                          draws=None, n_shards=1, frame_shards=1):
         """ELBO from pre-gathered unconstrained parameter windows; the
         optimizer step differentiates this function, so its gradients are
         window-shaped. With a chain axis (windows (R, ...), ``ndx`` (R, n),
-        ``fidx`` (R, f)) it is each chain's ELBO, (R,)."""
-        Nt, F = self.data.Nt, self.data.F
+        ``fidx`` (R, f)) it is each chain's ELBO, (R,).
+
+        The plate scales take Nt and F from ``data``: on a mesh, the rank's
+        padded block. There the global term is divided by ``n_shards`` so
+        that the sum over the ranks counts it once, and the per-AOI term by
+        ``frame_shards``, as every frame shard of a row scores it."""
+        Nt, F = data["xy"].shape[:2]
         n = ndx.shape[-1]
         scale = (Nt / n) * (F / f_b)
         scale_n = Nt / n
         local, aoi_term, global_term = self._elbo_terms(
             win, generator, ndx, fidx, f_b, data, draws
         )
-        return global_term + aoi_term * scale_n + local * scale
+        return (global_term / n_shards + aoi_term * scale_n / frame_shards
+                + local * scale)
 
     def _elbo_terms(self, win, generator, ndx, fidx, f_b, data, draws=None):
         """(sum of local per-(n,f,c) terms, sum of per-AOI terms, global
@@ -632,7 +642,16 @@ class cosmos(Model):
         generator seeded with 0 (the JAX package's ``PRNGKey(0)``), so two
         calls return equal arrays. ``draws``, an iterable of one
         :meth:`_probs_batch` draws dict per block in block order, replaces
-        the samples."""
+        the samples.
+
+        On a mesh (collective) each rank evaluates its whole block at once
+        with its own particles (a generator seeded with 1 + its rank
+        unless ``generator``; ``draws``: the block's one draws dict) and
+        zeroes the off-target rows, and the blocks are gathered: the first
+        rank returns the arrays at the real AOI count, the others None
+        (JAX: ``make_sharded_probs_fn``)."""
+        if self._mesh is not None:
+            return self._compute_probs_sharded(num_particles, generator, draws)
         if generator is None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
@@ -658,6 +677,30 @@ class cosmos(Model):
                     theta_probs[:, n0:n1, f0:f1] = th_p
         return (z_probs.cpu().numpy().astype(np.float64),
                 theta_probs.cpu().numpy().astype(np.float64))
+
+    def _compute_probs_sharded(self, num_particles, generator, draws):
+        mesh = self._mesh
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(1 + mesh.rank)
+        data = self._data_dev
+        n_l, f_l = data["xy"].shape[:2]
+        dev = self.device
+        with torch.no_grad():
+            z_p, th_p = self._probs_batch(
+                self.constrained(), torch.arange(n_l, device=dev),
+                torch.arange(f_l, device=dev), data, num_particles, generator, draws)
+            # off-target AOIs are never scored: zero them, as the blocks do
+            ont = data["is_ontarget"].to(z_p.dtype)
+            z = z_p.permute(1, 2, 3, 0) * ont[:, None, None, None]
+            th = th_p * ont[None, :, None, None]
+            z = sharding.gather_blocks(z, ("aoi", "frame", None, None), mesh)
+            th = sharding.gather_blocks(th, (None, "aoi", "frame", None), mesh)
+        if not mesh.is_main:
+            return None, None
+        Nt = self.data.Nt  # the mesh's AOI padding sliced off
+        return (z[:Nt].cpu().numpy().astype(np.float64),
+                th[:, :Nt].cpu().numpy().astype(np.float64))
 
     # -- posterior summaries ------------------------------------------------------
     @property

@@ -58,7 +58,8 @@ from tapqir_tpu_torch.infer.discrete import (
     select_ontarget,
 )
 from tapqir_tpu_torch.models.cosmos import _chain_perms, cosmos
-from tapqir_tpu_torch.ops.scan import cumulative_logmatmulexp
+from tapqir_tpu_torch.ops.scan import cumulative_logmatmulexp, sharded_cumulative_logmatmulexp
+from tapqir_tpu_torch.parallel.sharding import shift_from_previous
 
 logger = logging.getLogger(__name__)
 
@@ -73,6 +74,9 @@ class hmm(cosmos):
     name = "cosmos+hmm"
     # the z-chain couples frames: a step takes every frame of its AOIs
     frame_coupled = True
+    # the posteriors come from the whole chain: compute_stats leaves a mesh
+    # first, as the JAX package's hmm has no sharded posteriors
+    shards_posteriors = False
 
     def __init__(self, S=1, K=2, device=None, dtype="float32", priors=None):
         super().__init__(S=S, K=K, Q=None, device=device, dtype=dtype,
@@ -124,23 +128,34 @@ class hmm(cosmos):
         )
 
     # -- ELBO -----------------------------------------------------------------
-    def _draw_batch(self, generator, chains=None):
+    def _draw_batch(self, generator, chains=None, row_generator=None):
         """(ndx, None, F): ``n`` AOI rows without replacement and every
-        frame; ``chains`` = R: rows (R, n), each chain its own."""
-        Nt, F = self.data.Nt, self.data.F
+        frame of the device data (on a mesh: the rank's block), the rows
+        from ``row_generator`` when given (the mesh row's, so that every
+        frame shard of a row takes the same AOIs); ``chains`` = R: rows (R,
+        n), each chain its own."""
+        Nt, F = self._data_dev["xy"].shape[:2]
         n = min(self.nbatch_size, Nt)
+        rows = generator if row_generator is None else row_generator
         if chains is None:
-            ndx = torch.randperm(Nt, generator=generator, device=self.device)[:n]
+            ndx = torch.randperm(Nt, generator=rows, device=self.device)[:n]
         else:
-            ndx = _chain_perms(chains, Nt, generator, self.device)[:, :n]
+            ndx = _chain_perms(chains, Nt, rows, self.device)[:, :n]
         return ndx, None, F
 
     def elbo_from_windows(self, win, generator, ndx, fidx, f_b, data,
-                          draws=None):
+                          draws=None, n_shards=1, frame_shards=1, frame_axis=None):
         """ELBO from pre-gathered unconstrained windows (AOI rows ``ndx``,
-        every frame); local and per-AOI terms are scaled by Nt / n. With a
-        leading chain axis (windows (R, ...), ``ndx`` (R, n)) it is each
-        chain's ELBO, (R,)."""
+        every frame); local and per-AOI terms are scaled by Nt / n, Nt that
+        of ``data``. With a leading chain axis (windows (R, ...), ``ndx``
+        (R, n)) it is each chain's ELBO, (R,).
+
+        On a mesh the global term is divided by ``n_shards`` and the per-AOI
+        term by ``frame_shards`` (see cosmos); with the frames sharded,
+        ``frame_axis`` is the mesh row: the prefix scan runs over it
+        (``sharded_cumulative_logmatmulexp``), the pair of the previous
+        shard's last frame and this shard's first arrives shifted by one
+        shard, and only the first frame shard scores the chain's start."""
         S, K = self.S, self.K
         P = self.data.P
         priors = self.priors
@@ -150,7 +165,7 @@ class hmm(cosmos):
         n = ndx.shape[-1]
         lead = tuple(ndx.shape[:-1])  # (R,) with a chain axis, else ()
         c = len(lead)
-        scale_n = self.data.Nt / n
+        scale_n = data["xy"].shape[0] / n
         tf = self._transforms
         const = self._const
 
@@ -223,7 +238,7 @@ class hmm(cosmos):
             - affine_beta_log_prob(
                 prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
             )
-        )
+        ) / n_shards
 
         # per-AOI Delta sites (MAP background hyper-parameters)
         bm = pc("background_mean_loc")[..., 0, :]  # (*lead, n, C)
@@ -237,15 +252,30 @@ class hmm(cosmos):
         # z-chain: marginals gamma_f from the prefix products
         A = pc("z_trans")  # (*lead, n, F, C, 1+S, 1+S), rows q(z_f | z_{f-1})
         logA = torch.log(A)
-        gamma = torch.exp(cumulative_logmatmulexp(logA, -4)[..., 0, :])  # (*lead, n, F, C, 1+S)
+        if frame_axis is None:
+            alphas = cumulative_logmatmulexp(logA, -4)
+        else:  # the global prefix products of this shard's frames
+            alphas = sharded_cumulative_logmatmulexp(logA, -4, frame_axis)
+        gamma = torch.exp(alphas[..., 0, :])  # (*lead, n, F, C, 1+S)
         lp_init = log_probs_z(init, ont)  # (*lead, n, Q, 1+S)
         lp_trans = select_ontarget(safe_log(expand_offtarget(trans)), ont)  # (*lead, n, Q, 1+S, 1+S)
         q0 = A[..., 0, :, 0, :]  # (*lead, n, C, 1+S): the chain's start
         init_term = (q0 * (lp_init - torch.log(q0))).sum((-2, -1))  # (*lead, n)
         xi = gamma[..., :-1, :, :, None] * A[..., 1:, :, :, :]  # (*lead, n, F-1, C, 1+S, 1+S)
-        chain_term = init_term + (
+        chain_term = (
             xi * (lp_trans.unsqueeze(-4) - logA[..., 1:, :, :, :])
         ).sum((-4, -3, -2, -1))
+        if frame_axis is None:
+            chain_term = init_term + chain_term
+        else:
+            # the pair (the previous shard's last frame, this shard's first);
+            # every shard takes the shift, so that the collectives of the
+            # backward pass match, and the first keeps the chain's start
+            gamma_prev = shift_from_previous(gamma[..., -1, :, :], frame_axis)
+            bxi = gamma_prev[..., None] * A[..., 0, :, :, :]  # (*lead, n, C, 1+S, 1+S)
+            boundary = (bxi * (lp_trans - logA[..., 0, :, :, :])).sum((-3, -2, -1))
+            first = torch.tensor(frame_axis.rank == 0, device=init_term.device)
+            chain_term = torch.where(first, init_term, boundary) + chain_term
 
         lp_b = gamma_log_prob(b, (bm / bs)[..., None, :] ** 2, (bm / bs**2)[..., None, :])
         lq_b = gamma_log_prob(b, b_loc * b_beta, b_beta)
@@ -307,7 +337,7 @@ class hmm(cosmos):
         ).sum(0)  # (*lead, 1+S, n, F, Q)
         frames_term = (torch.movedim(gamma, -1, -4) * ell).sum(-4) + lp_b - lq_b  # (*lead, n, F, C)
         local_sum = (frames_term.sum((-2, -1)) + chain_term) * mask
-        return global_term + (aoi_term + local_sum.sum(-1)) * scale_n
+        return global_term + (aoi_term / frame_shards + local_sum.sum(-1)) * scale_n
 
     # -- posteriors ---------------------------------------------------------------
     @property

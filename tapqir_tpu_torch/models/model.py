@@ -1,5 +1,5 @@
 """Model base class: the SVI lifecycle in PyTorch (counterpart of
-tapqir_tpu/models/model.py, without the mesh).
+tapqir_tpu/models/model.py).
 
 Parameters are a dict of unconstrained tensors; the optimizer is the JAX
 package's minibatch-sparse Adam in window space: only the subsampled AOI
@@ -30,6 +30,17 @@ chain's ELBO in one pass (one kernel launch), and updates the (R, ...)
 parameters with the JAX package's dense ``optax.adam`` (every row decays
 every step); :meth:`Model.adopt_chain` hands the winner to the sparse step.
 
+On an ("aoi", "frame") mesh (``parallel/sharding.py``: one process per
+shard), :meth:`Model.use_mesh` pads the AOI axis with masked dead rows to a
+multiple of the mesh's, keeps this rank's block of the data, of every
+per-AOI / per-frame parameter and of its Adam moments, and switches to the
+dense step of the JAX package's mesh: the rank's ELBO with ``n_shards`` and
+``frame_shards``, the gradients summed over the axes each parameter is
+replicated on, and ``optax.adam`` with one step count. ``run``'s decisions
+(the NaN guard, convergence, a new seed) are taken from all-reduced values,
+so no rank takes a branch the others do not; checkpoints are gathered to the
+first rank and written by it at the real AOI count.
+
 Checkpoints (``.tapqir/<model>_model.tpqr``) use the JAX package's npz keys
 (``p::``, ``mu::``, ``nu::``, ``count::``, ``rng::key``, ``meta``), so each
 package resumes the other's checkpoints.
@@ -47,6 +58,8 @@ import torch
 from tapqir_tpu_torch import __version__ as tapqir_version
 from tapqir_tpu_torch.device import resolve_device, resolve_dtype
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
+from tapqir_tpu_torch.parallel import sharding
+from tapqir_tpu_torch.parallel.restarts import _derived_seed
 from tapqir_tpu_torch.utils.dataset import load as load_dataset
 from tapqir_tpu_torch.utils.stats import read_summary, save_stats
 
@@ -108,6 +121,12 @@ class Model:
     # the full state is written; set on an instance to change them
     checkpoint_interval = CHECKPOINT_INTERVAL
     full_checkpoint_every = 1
+    # the rank's view of an ("aoi", "frame") mesh (use_mesh), the masked
+    # dead AOI rows it padded, and whether compute_stats shards the
+    # posterior marginals over it
+    _mesh = None
+    _aoi_pad = 0
+    shards_posteriors = True
 
     def __init__(
         self,
@@ -239,6 +258,8 @@ class Model:
             self.opt_state = self._init_opt_state()
         # resume continues the seed stream from the checkpoint
         self._seed = seed if seed is not None else 0
+        if self._mesh is not None:  # a reload of run's NaN guard
+            self._apply_mesh()
 
     def _build_constants(self):
         """Constant tables the ELBO reads every step, made once on the
@@ -425,7 +446,7 @@ class Model:
         return loss.detach()
 
     def _restart_step(self, params, mu, nu, t, lr, generator, batch=None,
-                      draws=None):
+                      draws=None, row_generator=None):
         """One SVI step of R chains at once (JAX: ``one_step`` of
         ``fit_restarts`` under ``vmap``): each chain's batch, every chain's
         ELBO in one pass, gradients of the (R, ...) parameters, then the
@@ -436,17 +457,24 @@ class Model:
 
         ``batch`` = (ndx (R, n), fidx (R, f) or None, f) and ``draws`` (R,
         N) replace the random batch and draws. Returns the (R,) losses on
-        the device."""
+        the device. On a mesh the rows come from ``row_generator``, the
+        losses are summed over the mesh and the gradients over the axes
+        each parameter is replicated on."""
         data = self._data_dev
         R = next(iter(params.values())).shape[0]
         if batch is None:
-            batch = self._draw_batch(generator, chains=R)
+            batch = self._draw_batch(generator, chains=R, row_generator=row_generator)
         ndx, fidx, f_b = batch
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         win = self.gather_chain_windows(leaves, ndx, fidx)
         losses = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, data,
-                                         draws=draws)
+                                         draws=draws, **self._mesh_elbo_kwargs())
         grads = torch.autograd.grad(losses.sum(), list(leaves.values()))
+        if self._mesh is not None:
+            specs = sharding.restart_param_specs(self.param_partition())
+            losses, g = sharding.reduce_gradients(self._mesh, specs, losses.detach(),
+                                                  dict(zip(leaves, grads)))
+            grads = [g[k] for k in leaves]
         with torch.no_grad():
             _dense_adam(list(params.values()), list(grads), list(mu.values()),
                         list(nu.values()), t, lr)
@@ -456,28 +484,233 @@ class Model:
         """The restart handoff (JAX: the end of ``fit_restarts`` and
         ``_coerce_opt_state``): chain ``best`` of the (R, ...) parameters
         and Adam moments becomes the model's, and every per-row step count
-        (``g``, ``a``, ``af``) is the restarts' step count ``count``."""
+        (``g``, ``a``, ``af``) is the restarts' step count ``count`` (on a
+        mesh: the one count of its dense Adam)."""
         self.params = {k: v[best].clone() for k, v in params.items()}
-        fresh = self._init_opt_state()
+        if self._mesh is None:
+            counts = {k: torch.full_like(v, count)
+                      for k, v in self._init_opt_state()["count"].items()}
+        else:
+            self._mesh_t = int(count)
+            counts = {"g": torch.full((), count, dtype=torch.int32, device=self.device)}
         self.opt_state = {
             "mu": {k: v[best].clone() for k, v in mu.items()},
             "nu": {k: v[best].clone() for k, v in nu.items()},
-            "count": {k: torch.full_like(v, count) for k, v in fresh["count"].items()},
+            "count": counts,
         }
 
     def _next_seed(self) -> int:
         self._seed = (self._seed * _SEED_MULT + _SEED_INC) % (1 << 64)
         return self._seed
 
-    def _run_chunk(self, nsteps: int) -> torch.Tensor:
-        """``nsteps`` SVI steps with one generator seeded from the seed
-        stream; returns the (nsteps,) device tensor of losses."""
+    def _generators(self, seed):
+        """(generator, row generator) seeded from ``seed``: one generator,
+        and no row generator, off a mesh; on a mesh a generator of the
+        rank's own and a row generator shared by the frame shards of its
+        mesh row, which draws the AOI rows."""
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(self._next_seed())
+        mesh = self._mesh
+        if mesh is None:
+            gen.manual_seed(seed)
+            return gen, None
+        gen.manual_seed(_derived_seed(seed, 1 + mesh.rank))
+        row = torch.Generator(device=self.device)
+        row.manual_seed(_derived_seed(seed, (1 << 32) + mesh.aoi_index))
+        return gen, row
+
+    def _run_chunk(self, nsteps: int) -> torch.Tensor:
+        """``nsteps`` SVI steps with the generators of one seed of the seed
+        stream; returns the (nsteps,) device tensor of losses."""
+        gen, row = self._generators(self._next_seed())
         losses = torch.empty((nsteps,), dtype=self.dtype, device=self.device)
         for i in range(nsteps):
-            losses[i] = self._sparse_step(gen)
+            if self._mesh is None:
+                losses[i] = self._sparse_step(gen)
+            else:
+                losses[i] = self._mesh_step(gen, row)
         return losses
+
+    # -- the mesh ----------------------------------------------------------------
+    def mesh_aoi_padding(self, mesh) -> int:
+        """The AOI count padded to a multiple of the mesh's "aoi" axis."""
+        n_aoi = int(mesh.shape["aoi"])
+        return -(-self.data.Nt // n_aoi) * n_aoi
+
+    def pad_for_mesh(self, mesh) -> None:
+        """Pad the AOI axis of the parameters, the Adam state and the device
+        data with masked dead rows, so that any AOI count shards over the
+        mesh (JAX: ``pad_for_mesh``). Dead rows carry ``mask = 0``, which
+        zeroes every per-AOI term of the ELBO, images at offset.max + 1
+        (finite masked log-probs) and the last real row's parameters. The
+        frame axis is never padded (the hmm chain would score dead frames):
+        the mesh's frame axis must divide F. Idempotent."""
+        Nt, F = self.data.Nt, self.data.F
+        n_frame = int(mesh.shape["frame"])
+        if F % n_frame:
+            raise ValueError(
+                f"mesh frame axis {n_frame} must divide F={F} (the frame axis is "
+                "not padded); use an AOI-only mesh"
+            )
+        pad = self.mesh_aoi_padding(mesh) - Nt
+        if pad == 0:
+            return
+        wspec = self._window_spec()
+
+        def pad_edge(v, ax):
+            if v.shape[ax] != Nt:  # already padded
+                return v
+            edge = v.narrow(ax, Nt - 1, 1)
+            return torch.cat([v, edge.expand(*v.shape[:ax], pad, *v.shape[ax + 1:])], ax)
+
+        def pad_tree(tree):
+            return {k: pad_edge(v, wspec[k][0]) if k in wspec else v for k, v in tree.items()}
+
+        self.params = pad_tree(self.params)
+        opt = self.opt_state
+        counts = dict(opt["count"])
+        if "a" in counts and counts["a"].shape[0] == Nt:
+            counts["a"] = torch.nn.functional.pad(counts["a"], (0, pad))
+        if "af" in counts and counts["af"].shape[0] == Nt * F:
+            counts["af"] = torch.nn.functional.pad(counts["af"], (0, pad * F))
+        self.opt_state = {"mu": pad_tree(opt["mu"]), "nu": pad_tree(opt["nu"]),
+                          "count": counts}
+
+        d = self._data_dev
+        if d["mask"].shape[0] == Nt:
+            imgs = d["images"]
+            pad_val = float(d["offset_samples"].max()) + 1.0
+            self._data_dev = dict(
+                d,
+                images=torch.cat([imgs, torch.full((pad,) + tuple(imgs.shape[1:]), pad_val,
+                                                   dtype=imgs.dtype, device=imgs.device)]),
+                xy=pad_edge(d["xy"], 0),
+                is_ontarget=torch.nn.functional.pad(d["is_ontarget"], (0, pad)),
+                mask=torch.nn.functional.pad(d["mask"], (0, pad)),  # zeros: dead rows
+            )
+        self._aoi_pad = pad
+        logger.info(f"Padded {Nt} AOIs with {pad} masked dead rows for the "
+                    f"{dict(mesh.shape)} mesh")
+
+    def _unpad_aoi(self, tree):
+        """A parameter-shaped dict of full arrays with the mesh's AOI padding
+        sliced off."""
+        Nt = self.data.Nt
+        wspec = self._window_spec()
+        return {k: v.narrow(wspec[k][0], 0, Nt) if k in wspec and v.shape[wspec[k][0]] > Nt
+                else v for k, v in tree.items()}
+
+    def use_mesh(self, mesh) -> None:
+        """Train on an ("aoi", "frame") mesh (JAX: ``use_mesh``): ``mesh``
+        is this rank's :class:`~tapqir_tpu_torch.parallel.sharding.RankMesh`
+        (every rank of the mesh calls this, after :meth:`init`). Pads the
+        AOI axis (:meth:`pad_for_mesh`), keeps this rank's block of the
+        data, the parameters and their Adam moments, takes the replicated
+        ones from the first rank of their group so that every replica
+        starts bitwise equal, and switches ``run`` to the dense mesh step
+        (``optax.adam`` with one step count, the sparse per-row count
+        ``g``). ``run``'s NaN reload re-applies the mesh."""
+        self._mesh = mesh
+        self._apply_mesh()
+
+    def _apply_mesh(self):
+        mesh = self._mesh
+        self.pad_for_mesh(mesh)
+        specs = self.param_partition()
+        dspec = sharding.data_partition()
+        opt = self.opt_state
+        self._mesh_t = int(opt["count"]["g"])
+        self.params = {k: sharding.shard_block(v, specs[k], mesh) for k, v in self.params.items()}
+        self.opt_state = {
+            "mu": {k: sharding.shard_block(v, specs[k], mesh) for k, v in opt["mu"].items()},
+            "nu": {k: sharding.shard_block(v, specs[k], mesh) for k, v in opt["nu"].items()},
+            "count": {"g": torch.full((), self._mesh_t, dtype=torch.int32, device=self.device)},
+        }
+        self._data_dev = {k: sharding.shard_block(v, dspec[k], mesh)
+                          for k, v in self._data_dev.items()}
+        with torch.no_grad():
+            sharding.sync_replicated([self.params, self.opt_state["mu"], self.opt_state["nu"]],
+                                     specs, mesh)
+
+    def _mesh_elbo_kwargs(self):
+        """The ELBO's mesh arguments: ``n_shards`` and ``frame_shards``, and
+        for a frame-coupled model (hmm) the mesh row as ``frame_axis``."""
+        mesh = self._mesh
+        if mesh is None:
+            return {}
+        kwargs = {"n_shards": mesh.size, "frame_shards": mesh.shape["frame"]}
+        if getattr(self, "frame_coupled", False) and mesh.shape["frame"] > 1:
+            kwargs["frame_axis"] = mesh.row
+        return kwargs
+
+    def _mesh_loss_and_grads(self, generator, row_generator=None, batch=None, draws=None):
+        """The mesh's loss (summed over the ranks) and this rank's gradients
+        (summed over the axes each parameter is replicated on) of one step
+        (JAX: ``make_sharded_grads_fn``); ``batch`` and ``draws`` replace the
+        rank's random batch and draws. Gradients are dense and taken as they
+        are, as the JAX package's mesh step takes them."""
+        if batch is None:
+            batch = self._draw_batch(generator, row_generator=row_generator)
+        ndx, fidx, f_b = batch
+        leaves = {k: v.detach().requires_grad_(True) for k, v in self.params.items()}
+        win = self.gather_windows(leaves, ndx, fidx)
+        loss = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, self._data_dev,
+                                       draws=draws, **self._mesh_elbo_kwargs())
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return sharding.reduce_gradients(self._mesh, self.param_partition(), loss.detach(),
+                                         dict(zip(leaves, grads)))
+
+    def _mesh_step(self, generator, row_generator=None, batch=None, draws=None):
+        """One step on the mesh: :meth:`_mesh_loss_and_grads`, then the dense
+        Adam of ``optax.adam`` on this rank's parameters. Returns the loss
+        summed over the mesh, a 0-dim device tensor."""
+        loss, grads = self._mesh_loss_and_grads(generator, row_generator, batch, draws)
+        opt = self.opt_state
+        self._mesh_t += 1
+        opt["count"]["g"].fill_(self._mesh_t)
+        names = list(self.params)
+        with torch.no_grad():
+            _dense_adam([self.params[k] for k in names], [grads[k] for k in names],
+                        [opt["mu"][k] for k in names], [opt["nu"][k] for k in names],
+                        self._mesh_t, self.lr)
+        return loss
+
+    def gather_tree(self, tree):
+        """The full arrays, at the real AOI count, of a parameter-shaped
+        dict of this rank's blocks, as numpy arrays on the first rank (None
+        on the others). Collective: every rank calls it."""
+        specs = self.param_partition()
+        out = {}
+        with torch.no_grad():
+            for k, v in tree.items():
+                full = sharding.gather_blocks(v, specs[k], self._mesh)
+                if self._mesh.is_main:
+                    out[k] = self._unpad_aoi({k: full})[k].cpu().numpy()
+        return out if self._mesh.is_main else None
+
+    def leave_mesh(self) -> bool:
+        """Gather the parameters and Adam moments to the first rank and
+        continue there on one device (the full data at the real AOI count,
+        per-row step counts equal to the mesh's count); the other ranks are
+        done with the model. Collective. Returns True on the first rank."""
+        opt = self.opt_state
+        trees = [self.gather_tree(t) for t in (self.params, opt["mu"], opt["nu"])]
+        main = self._mesh.is_main
+        self._mesh, self._aoi_pad = None, 0
+        if not main:
+            self.params = self.opt_state = self._data_dev = None
+            return False
+
+        def dev(tree):
+            return {k: torch.as_tensor(v).to(self.device).contiguous() for k, v in tree.items()}
+
+        self.params = dev(trees[0])
+        self._data_dev = self._data_device_arrays()
+        self.opt_state = {
+            "mu": dev(trees[1]), "nu": dev(trees[2]),
+            "count": {k: torch.full_like(v, self._mesh_t)
+                      for k, v in self._init_opt_state()["count"].items()},
+        }
+        return True
 
     def profile_trace(self, num_steps: int = 20, log_dir=None) -> Path:
         """A ``torch.profiler`` trace (CPU and, on the card, CUDA activity)
@@ -583,6 +816,9 @@ class Model:
                 self.init(lr=self.lr, nbatch_size=self.nbatch_size,
                           fbatch_size=self.fbatch_size)
                 new_seed = random.randint(0, 100)
+                if self._mesh is not None:  # the first rank's seed on every rank
+                    new_seed = int(sharding.from_first(
+                        torch.tensor([new_seed], device=self.device), self._mesh.world)[0])
                 self._seed = new_seed
                 logger.warning(
                     f"Iteration #{self.iter} restarting with a new seed: {new_seed}."
@@ -610,11 +846,16 @@ class Model:
         host transfer per array. ``save_full=False`` runs only the finite
         check, the rolling convergence series and the metrics log, and
         writes no file (``Model.run`` passes it per
-        ``full_checkpoint_every``)."""
+        ``full_checkpoint_every``). Collective on a mesh: the finite check
+        counts every rank's parameters, the convergence verdict is the
+        first rank's, and the first rank writes the gathered state."""
         with torch.no_grad():
             finite = torch.stack(
                 [torch.isfinite(v).all() for v in self.params.values()]
-            ).cpu().numpy()
+            ).to(self.dtype)
+            if self._mesh is not None:
+                finite = sharding.all_reduce(finite, self._mesh.world) == self._mesh.size
+            finite = finite.cpu().numpy() > 0
             for ok, k in zip(finite, self.params):
                 if not bool(ok):
                     raise ValueError(f"Iteration #{self.iter}. Detected NaN values in {k}")
@@ -646,22 +887,38 @@ class Model:
             )
             if crit:
                 self.converged = True
+        if self._mesh is not None:
+            self.converged = bool(sharding.from_first(
+                torch.tensor([float(self.converged)], device=self.device),
+                self._mesh.world)[0])
 
         if save_full:
             self._write_checkpoint()
-        self._log_metrics(small_h)
+        if self._mesh is None or self._mesh.is_main:
+            self._log_metrics(small_h)
         logger.debug(f"Iteration #{self.iter}: Successful.")
 
     def _write_checkpoint(self):
         """Write the parameters, the optimizer state, the seed and the
-        convergence state to ``.tapqir/<model>_model.tpqr``."""
-        self.run_path.mkdir(parents=True, exist_ok=True)
+        convergence state to ``.tapqir/<model>_model.tpqr``. On a mesh the
+        arrays are gathered at the real AOI count (collective) and the
+        first rank writes them, with the dense Adam's one ``count`` as the
+        JAX package's mesh writes it."""
         opt = self.opt_state
+        trees = (("p", self.params), ("mu", opt["mu"]), ("nu", opt["nu"]))
         flat = {}
-        for prefix, tree in (("p", self.params), ("mu", opt["mu"]), ("nu", opt["nu"]),
-                             ("count", opt["count"])):
+        if self._mesh is not None:
+            trees = [(prefix, self.gather_tree(tree)) for prefix, tree in trees]
+            if not self._mesh.is_main:
+                return
+            flat["count"] = np.asarray(self._mesh_t, np.int32)
+        else:
+            trees = [(prefix, {k: v.detach().cpu().numpy() for k, v in tree.items()})
+                     for prefix, tree in trees + (("count", opt["count"]),)]
+        self.run_path.mkdir(parents=True, exist_ok=True)
+        for prefix, tree in trees:
             for k, v in tree.items():
-                flat[f"{prefix}::{k}"] = v.detach().cpu().numpy()
+                flat[f"{prefix}::{k}"] = v
         flat["rng::key"] = seed_to_key(self._seed)
         meta = {
             "iter": self.iter,
@@ -740,7 +997,17 @@ class Model:
     # -- stats -------------------------------------------------------------------
     def compute_stats(self, CI: float = 0.95, save_matlab: bool = False):
         """Credible intervals and summary statistics, written into the
-        analysis folder (see :func:`tapqir_tpu_torch.utils.stats.save_stats`)."""
+        analysis folder (see :func:`tapqir_tpu_torch.utils.stats.save_stats`).
+        On a mesh (collective) the posterior marginals of a model with
+        ``shards_posteriors`` are computed shard by shard, then the model
+        leaves the mesh (:meth:`leave_mesh`) and the first rank writes the
+        statistics; the others return None."""
+        if self._mesh is not None:
+            probs = self.compute_probs_arrays() if self.shards_posteriors else None
+            if not self.leave_mesh():
+                return None
+            if probs is not None:
+                self._probs_cache = probs
         summary = save_stats(self, self.path, CI=CI, save_matlab=save_matlab)
         logger.debug("Computing stats: Successful.")
         return summary

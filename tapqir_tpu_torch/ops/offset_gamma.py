@@ -252,6 +252,13 @@ class _Launcher:
                 torch.empty(stats_shape, dtype=like.dtype, device=like.device))
 
     def _launch(self, lib, like, *args):
+        # the library launches on the runtime's current device: a tensor on
+        # another card would be read by the wrong one
+        if like.device.index != torch.cuda.current_device():
+            raise RuntimeError(
+                f"{self.entry}: the tensors are on {like.device} but the current device is "
+                f"cuda:{torch.cuda.current_device()}; call torch.cuda.set_device first"
+            )
         suffix = "f32" if like.dtype == torch.float32 else "f64"
         fn = getattr(lib, f"{self.entry}_{suffix}")
         err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)

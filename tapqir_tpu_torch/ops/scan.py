@@ -6,11 +6,18 @@ doubling scan: ceil(log2 F) levels, each ONE batched ``logmatmulexp`` over
 every frame at once, so F=790 frames cost 10 levels of whole-tensor ops and
 no loop over frames. Every level is out of place, so autograd differentiates
 it like any other op.
+
+With the frame axis sharded over a mesh row,
+:func:`sharded_cumulative_logmatmulexp` promotes each shard's local prefix
+products to the global ones: a local scan, the gather of the shards' block
+totals, and the product of the totals before the shard.
 """
 
 import torch
 
-__all__ = ["logmatmulexp", "cumulative_logmatmulexp"]
+from tapqir_tpu_torch.parallel.sharding import all_gather
+
+__all__ = ["logmatmulexp", "cumulative_logmatmulexp", "sharded_cumulative_logmatmulexp"]
 
 
 def logmatmulexp(a, b):
@@ -30,3 +37,28 @@ def cumulative_logmatmulexp(log_mats, axis):
         x = torch.cat([x[:d], logmatmulexp(x[:-d], x[d:])], 0)
         d *= 2
     return torch.movedim(x, 0, axis)
+
+
+def sharded_cumulative_logmatmulexp(log_mats_local, axis, frame_axis):
+    """The global prefix products of a frame axis sharded over the ranks of
+    ``frame_axis`` (a mesh row of ``parallel/sharding.py``), each rank
+    passing its local (..., F_local, ..., S, S) slice along ``axis`` and
+    receiving its local slice of the global products (JAX:
+    ``sharded_cumulative_logmatmulexp``): the local scan, the gather of
+    every shard's block total, the product of the totals of the shards
+    before this one (the identity on the first, as log(I + tiny)), and that
+    product times each local prefix. Differentiable: the gather's backward
+    sums the other shards' cotangents of this shard's total."""
+    local = cumulative_logmatmulexp(log_mats_local, axis)
+    total = local.select(axis, -1)
+    totals = all_gather(total, frame_axis)
+    S = log_mats_local.shape[-1]
+    dt = log_mats_local.dtype
+    eye = torch.eye(S, dtype=dt, device=log_mats_local.device)
+    prefix = torch.log(eye + torch.finfo(dt).tiny).expand(total.shape)
+    # every shard takes every total (the later ones with weight zero), so
+    # that the gather's backward runs, and its collective meets, on every one
+    for k in range(frame_axis.size - 1):
+        before = torch.tensor(k < frame_axis.rank, device=prefix.device)
+        prefix = torch.where(before, logmatmulexp(prefix, totals[k]), prefix)
+    return logmatmulexp(prefix.unsqueeze(axis), local)

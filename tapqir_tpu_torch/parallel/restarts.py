@@ -53,7 +53,9 @@ def fit_restarts(model, num_restarts=4, num_iter=2000, lr=None, perturb=0.0,
     """Run ``num_restarts`` SVI chains for ``num_iter`` steps at once and keep
     the best.
 
-    The model must be loaded and initialized (``model.init(...)``). On
+    The model must be loaded and initialized (``model.init(...)``); on a
+    mesh (``parallel.sharding.fit_restarts_sharded``) ``params`` are this
+    rank's blocks and the losses are summed over the mesh. On
     return ``model.params`` and ``model.opt_state`` hold the winning chain
     (its per-row step counts set to ``num_iter``), ``model.iter`` has grown
     by ``num_iter`` and ``model.iter_loss`` is the winner's last loss.
@@ -79,8 +81,7 @@ def fit_restarts(model, num_restarts=4, num_iter=2000, lr=None, perturb=0.0,
         params = stack_params(model.params, num_restarts, perturb, seed)
     mu = {k: torch.zeros_like(v) for k, v in params.items()}
     nu = {k: torch.zeros_like(v) for k, v in params.items()}
-    gen = torch.Generator(device=model.device)
-    gen.manual_seed(_derived_seed(seed, 1))
+    gen, row_gen = model._generators(_derived_seed(seed, 1))
 
     losses_all, done = [], 0
     while done < num_iter:
@@ -91,7 +92,7 @@ def fit_restarts(model, num_restarts=4, num_iter=2000, lr=None, perturb=0.0,
             losses[:, i] = model._restart_step(
                 params, mu, nu, step + 1, lr, gen,
                 batch=None if batches is None else batches[step],
-                draws=None if draws is None else draws[step],
+                draws=None if draws is None else draws[step], row_generator=row_gen,
             )
         host = losses.cpu().numpy()  # one sync per chunk
         losses_all.append(host)

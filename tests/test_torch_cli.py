@@ -120,12 +120,12 @@ def test_jax_stats_reads_a_port_workspace(port_ws, tmp_path):
 
 def test_python_dash_m_runs_the_cli(tmp_path):
     proc = subprocess.run(
-        [sys.executable, "-m", "tapqir_tpu_torch", "--cd", str(tmp_path), "stats",
-         "--mesh", "auto", "--no-input"],
+        [sys.executable, "-m", "tapqir_tpu_torch", "--cd", str(tmp_path), "show",
+         "--no-input"],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 1, proc.stderr
-    assert "Queue A item 8" in proc.stdout
+    assert "Queue A item 9" in proc.stdout
     assert (tmp_path / ".tapqir" / "config.yaml").exists()
 
 
@@ -205,10 +205,39 @@ def test_fit_prompts_for_options_not_given(tmp_path, monkeypatch):
     ("show", ["-n", "3", "--model", "cosmos"], 9),
     ("stats", ["--mesh", "auto"], 8),
 ])
-def test_unported_models_and_options_exit_nonzero(tmp_path, caplog, command, extra, item):
-    argv = ["--cd", str(tmp_path), command, *extra, "--cpu", "--no-input"]
-    assert cli.main(argv) == 1
-    assert f"ROADMAP Queue A item {item}" in caplog.text
+def test_unported_models_and_options_exit_nonzero(tmp_path, caplog, port_ws, monkeypatch,
+                                                  command, extra, item):
+    """``show`` (ROADMAP Queue A item 9) is not ported: it exits 1 naming
+    the item. ``--mesh`` (item 8) is: with ``--cpu`` the JAX command ignores
+    it, so ``fit`` and ``stats`` with ``--cpu --mesh`` run on one device and
+    write the files of ``port_ws``'s commands, with the same arrays."""
+    if item == 9:
+        argv = ["--cd", str(tmp_path), command, *extra, "--cpu", "--no-input"]
+        assert cli.main(argv) == 1
+        assert f"ROADMAP Queue A item {item}" in caplog.text
+        return
+    monkeypatch.setenv("CI", "true")
+    ws = port_ws[0]
+    if command == "fit":
+        _dataset(tmp_path)
+        argv = ["--cd", str(tmp_path), "fit", "--model", "cosmos", "-S", "1",
+                "--learning-rate", "0.005", "--nbatch-size", "2", "--fbatch-size", "5",
+                "--num-iter", "2"]
+        checked = (".tapqir/cosmos_model.tpqr", "p::")
+    else:
+        tmp_path = Path(shutil.copytree(ws, tmp_path / "ws"))
+        (tmp_path / "cosmos_params.tpqr").unlink()
+        argv = ["--cd", str(tmp_path), "stats", "--model", "cosmos", "--nbatch-size", "2",
+                "--fbatch-size", "5", "--matlab"]
+        checked = ("cosmos_params.tpqr", "")
+    assert cli.main([*argv, *extra, "--cpu", "--no-input"]) == 0
+    assert "Mesh" not in caplog.text  # no mesh was started
+    assert _files_exist(tmp_path)
+    with np.load(tmp_path / checked[0]) as got, np.load(ws / checked[0]) as want:
+        keys = [k for k in want.files if k.startswith(checked[1]) and k != "meta"]
+        assert keys and set(keys) <= set(got.files)
+        for k in keys:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 @pytest.mark.parametrize("command", ["fit", "stats"])
@@ -218,6 +247,40 @@ def test_missing_card_without_cpu_exits_nonzero(tmp_path, caplog, monkeypatch, c
     assert cli.main(["--cd", str(tmp_path), command, "--no-input"]) == 1
     assert "no CUDA device is available" in caplog.text
     assert not (tmp_path / ".tapqir" / "cosmos_model.tpqr").exists()
+
+
+@pytest.mark.parametrize("command", ["fit", "stats"])
+def test_mesh_beyond_the_cards_exits_nonzero(tmp_path, caplog, monkeypatch, command):
+    """``AxB`` with more shards than cards exits 1 with the JAX package's
+    message (which the JAX command raises as an assertion), before any rank
+    starts."""
+    _dataset(tmp_path, N=2, F=4)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert cli.main(["--cd", str(tmp_path), command, "--mesh", "2x2", "--no-input"]) == 1
+    assert "need 4 devices, have 2" in caplog.text
+    assert not (tmp_path / ".tapqir" / "cosmos_model.tpqr").exists()
+
+
+def test_mesh_frame_axis_must_divide_f(tmp_path, caplog, monkeypatch):
+    _dataset(tmp_path, N=2, F=5)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert cli.main(["--cd", str(tmp_path), "fit", "--mesh", "1x2", "--no-input"]) == 1
+    assert "mesh frame axis 2 must divide F=5" in caplog.text
+    assert cli.main(["--cd", str(tmp_path), "fit", "--mesh", "two", "--no-input"]) == 1
+    assert "--mesh must be 'auto', 'none' or 'AxB'" in caplog.text
+
+
+@pytest.mark.parametrize("cards, mesh", [(0, "auto"), (1, "auto"), (4, "none"), (4, "1x1")])
+def test_mesh_auto_on_one_card_takes_the_single_device_path(monkeypatch, cards, mesh):
+    """``auto`` with at most one card, and ``none`` / ``1x1`` with any,
+    resolve to no mesh (the single-device path); ``auto`` with more cards
+    is an AOI mesh over all of them, ``AxB`` the mesh asked for."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    assert cli._resolve_mesh(None, mesh) is None
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    auto = cli._resolve_mesh(None, "auto")
+    assert auto.shape == {"aoi": 4, "frame": 1}
+    assert auto.devices == [f"cuda:{i}" for i in range(4)] and auto.backend == "nccl"
 
 
 def test_bad_workspace_and_missing_data(tmp_path, caplog):

@@ -36,7 +36,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "tapqir_tpu_torch.main" in mods and "tapqir_tpu_torch.utils.stats" in mods
     assert {"tapqir_tpu_torch.models.crosstalk", "tapqir_tpu_torch.utils.imscroll",
             "tapqir_tpu_torch.utils.mle_analysis",
-            "tapqir_tpu_torch.parallel.restarts", "tapqir_tpu_torch.imscroll",
+            "tapqir_tpu_torch.parallel.restarts", "tapqir_tpu_torch.parallel.sharding",
+            "tapqir_tpu_torch.imscroll",
             "tapqir_tpu_torch.imscroll.glimpse_reader",
             "tapqir_tpu_torch.csrc.glimpse_native"} <= set(mods)
     code = textwrap.dedent(
@@ -61,6 +62,30 @@ def test_port_imports_without_jax_or_the_jax_package():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_mesh_rank_workers_import_no_jax():
+    """The mesh tests' rank functions (tests/_torch_mesh_worker.py) and
+    chip_smoke.py's, imported in every spawned rank, load neither JAX nor
+    the JAX package."""
+    code = textwrap.dedent(
+        """
+        import sys
+        sys.path[:0] = ["tests", "."]
+        for blocked in ("jax", "tapqir_tpu"):
+            sys.modules[blocked] = None  # importing it raises ImportError
+        import _torch_mesh_worker, chip_smoke
+        assert callable(_torch_mesh_worker.run_cases)
+        assert callable(chip_smoke.mesh_cosmos_ranks)
+        assert not any(k == "jax" or k.startswith(("jax.", "tapqir_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 

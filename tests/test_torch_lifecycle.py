@@ -5,6 +5,7 @@ at a tiny size on the CPU."""
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 import jax
@@ -374,3 +375,29 @@ def test_chip_smoke_ingest_phases_tiny_on_cpu(tmp_path, monkeypatch):
     assert checks["subset"] == [5, 12, 1, 14, 14]
     assert all(r["launches"] == dict.fromkeys(og.LAUNCHERS, 0) for r in res.values())
     assert res["fit"]["model"].iter == 3 and res["profile"]["trace_bytes"] > 0
+
+
+def test_chip_smoke_mesh_phases_tiny_on_cpu(tmp_path, monkeypatch, capsys):
+    """chip_smoke.py's phases 22-24 at a tiny size on CPU ranks (gloo): the
+    cosmos 2x2 mesh with its replica, card-vs-CPU step, checkpoint and
+    posterior checks, cosmos+hmm on 1x2 with the sharded scan, crosstalk
+    on 2x1, and restarts on 2x2 through the command line's restarts; the
+    CPU launches no kernel."""
+    monkeypatch.setenv("CI", "true")  # no rastergram
+    cs = _chip_smoke()
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)  # the ranks import it by name
+    cs.prepare_dataset(tmp_path, Nt=8, F=12, P=14, J=7, device="cpu", n_chunk=2)
+    xws = tmp_path / "crosstalk"
+    xws.mkdir()
+    cs.prepare_dataset(xws, Nt=8, F=12, P=14, J=7, device="cpu", n_chunk=2, C=2,
+                       params=cs.XTALK_PARAMS)
+    res = cs.run_mesh_phases(tmp_path, xws, ["cpu"] * 4, nbatch=2, fbatch=4, num_iter=2,
+                             R=2, more_iter=1, kernels=False, warmup=1)
+    checks = cs.check_mesh_phases(res, num_iter=2, R=2, more_iter=1, Nt=8, F=12,
+                                  device="cpu")
+    assert checks["replicas_equal"] and res["22 mesh cosmos"]["local"] == [4, 6]
+    assert res["23 mesh hmm + crosstalk"]["hmm_local"] == [8, 6]
+    for r in res.values():
+        assert not any(r["launches"].values())
+    cs.print_mesh_phases(res, checks, None, "cpu", "no card")
+    assert "[mesh-restarts]" in capsys.readouterr().out

@@ -369,8 +369,30 @@ def test_jax_stats_reads_a_restarts_workspace(restarts_ws, tmp_path):
     (["-R", "2", "--mesh", "auto"], 8),
     (["-R", "2", "--profile", "3", "--mesh", "auto"], 8),
 ])
-def test_restarts_with_unported_options_exit_nonzero(tmp_path, caplog, extra, item):
-    argv = ["--cd", str(tmp_path), "fit", *extra, "--cpu", "--no-input"]
-    assert cli.main(argv) == 1
-    assert f"ROADMAP Queue A item {item}" in caplog.text
-    assert not (tmp_path / ".tapqir" / "cosmos_restarts.json").exists()
+def test_restarts_with_unported_options_exit_nonzero(tmp_path, caplog, monkeypatch,
+                                                     restarts_ws, extra, item):
+    """``--mesh`` (ROADMAP Queue A item 8) is ported, and with ``--cpu`` the
+    JAX command ignores it: ``-R 2 --mesh auto --cpu`` runs the
+    single-device restarts of ``restarts_ws`` and writes the same selection
+    and checkpoint; with ``--profile`` it profiles one device and writes no
+    restarts, as without ``--mesh``."""
+    monkeypatch.setenv("CI", "true")
+    save(simulate("cosmos", N=2, F=5, C=1, P=14, seed=0, params=PARAMS, device="cpu"),
+         tmp_path)
+    argv = ["--cd", str(tmp_path), "fit", "--model", "cosmos", "-S", "1", "--nbatch-size",
+            "2", "--fbatch-size", "5", "--restart-iter", "4", "--num-iter", "3", *extra,
+            "--cpu", "--no-input"]
+    assert cli.main(argv) == 0
+    assert "Mesh" not in caplog.text  # no mesh was started
+    run = tmp_path / ".tapqir"
+    if "--profile" in extra:
+        assert (run / "profile" / "cosmos_trace.json").exists()
+        assert not (run / "cosmos_restarts.json").exists()
+        return
+    ws = restarts_ws[0] / ".tapqir"
+    assert (json.loads((run / "cosmos_restarts.json").read_text())
+            == json.loads((ws / "cosmos_restarts.json").read_text()))
+    with np.load(run / "cosmos_model.tpqr") as got, np.load(ws / "cosmos_model.tpqr") as want:
+        for k in want.files:
+            if k != "meta":
+                np.testing.assert_array_equal(got[k], want[k], err_msg=k)
