@@ -153,14 +153,22 @@ one. Phases, each printing its findings; any failure is an exception:
     launches per rank and step, ``all_reduce`` ms per step, the
     checkpoint gather's and the sharded posteriors' seconds. On a machine
     with more than one card, ``fit --mesh auto`` and ``stats --mesh auto``
-    then run through the command line, one rank per card over NCCL.
+    then run through the command line, one rank per card over NCCL;
+25. the AOI viewer (``gui.py``) on phase 21's workspace, on the host
+    (:func:`run_viewer`): an ``AoiViewerState`` to its clamps, zoomed and
+    through every key binding, three AOIs excluded, ``save_data`` and the
+    mask read back, ``aoi_subset.txt`` and ``subset`` on it (the kept AOIs'
+    images bit for bit), ``build_fov_state`` on phase 20's raw folder, and
+    ``show -n 0``: the PNG where matplotlib is installed, else a non-zero
+    exit naming it (the JAX command raises ModuleNotFoundError); no kernel
+    launch.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
 of the logs the kernels issue at M=16 (one per chunk of 4 configs). The
 kernels' launch counts are set to 0 just before each of the paths 7-16 and
 read just after it, and so before and after phases 18 and 19 and each
-command of phases 20-21. Phases 10-21 print their seconds (stats and
+command of phases 20-21 and 25. Phases 10-21 print their seconds (stats and
 ingest: by stage) and their peak device memory; every phase prints its
 wall time at the end.
 
@@ -2973,6 +2981,121 @@ def print_mesh_phases(res, checks, cli_res, name, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 25: the AOI viewer on phase 21's workspace
+# ---------------------------------------------------------------------------
+
+# the browser's frame window, and the AOIs phase 25 excludes (clipped to Nt)
+VIEWER_WINDOW, VIEWER_EXCLUDED = 15, (1, 100, 500)
+
+
+def run_viewer(workdir, H=GLIMPSE_FOV, W=GLIMPSE_FOV, window=VIEWER_WINDOW,
+               excluded=VIEWER_EXCLUDED, device="cuda"):
+    """Phase 25 on phase 21's ingested and fitted workspace ``workdir``
+    (``gui.py``): an ``AoiViewerState`` driven to its clamps, zoomed and
+    through every key binding; a few AOIs excluded, ``save_data`` and the
+    mask read back from ``data.tpqr``; ``aoi_subset.txt`` written and
+    ``subset`` run on it, its ``subset/data.tpqr`` holding exactly the kept
+    AOIs; ``build_fov_state`` on the raw folder of phase 20 (frames of H x
+    W); and ``show -n 0``, which writes the PNG where matplotlib is
+    installed and otherwise exits non-zero naming it, as the JAX command
+    does. The kernels' launch counts are set to 0 before and read after.
+    Raises on any failed check; returns the numbers checked."""
+    import importlib.util
+
+    from tapqir_tpu_torch import gui
+    from tapqir_tpu_torch.utils.dataset import load
+
+    workdir = Path(workdir)
+    _reset_launches()
+    t0 = time.perf_counter()
+    m = gui._load_model_with_stats(workdir, "cosmos")
+    load_seconds = time.perf_counter() - t0
+    if m.device.type != "cpu":
+        raise RuntimeError(f"the viewer's model is on {m.device}, not on the CPU")
+    s = gui.AoiViewerState(m, window=window)
+    Nt, F = s.data.Nt, s.data.F
+
+    def expect(label, got, want):
+        if got != want:
+            raise RuntimeError(f"viewer {label}: {got!r}, expected {want!r}")
+
+    expect("clamps", [s.set_aoi(-5), s.set_aoi(Nt + 10), s.set_frame(-3),
+                      s.set_frame(F + 100), s.f2], [0, Nt - 1, 0, F - window, F])
+    s.set_frame(F - window)
+    expect("zoom", [s.toggle("zoom"), s.span, s.f1, s.f2],
+           [True, 4 * window, max(0, F - 4 * window), F])
+    expect("zoom back", [s.toggle("zoom", False), s.span, s.f1],
+           [False, window, max(0, F - 4 * window)])
+    s.set_aoi(1)
+    s.set_frame(0)
+    was_excluded = s.is_excluded()
+    keys = [("ArrowUp", "n", 2), ("ArrowDown", "n", 1), ("ArrowRight", "f1", window),
+            ("ArrowLeft", "f1", 0), ("z", "zoom", True), ("z", "zoom", False),
+            ("o", "show_targets", True), ("n", "show_nonspecific", False),
+            ("e", "is_excluded", not was_excluded), ("e", "is_excluded", was_excluded)]
+    for key, attr, want in keys:
+        consumed = s.handle_key(key)
+        value = getattr(s, attr)
+        expect(f"key {key}", (consumed, value() if callable(value) else value), (True, want))
+    expect("unbound key", s.handle_key("q"), False)
+
+    excl = sorted({min(n, Nt - 1) for n in excluded} | set(s.excluded_aois().tolist()))
+    for n in excl:
+        s.toggle_exclude(excluded=True, n=n)
+    kept = s.included_aois()
+    expect("excluded AOIs", s.excluded_aois().tolist(), excl)
+    t0 = time.perf_counter()
+    s.save_data()
+    save_seconds = time.perf_counter() - t0
+    mask = load(workdir).mask
+    if not np.array_equal(mask, s.data.mask) or mask.sum() != Nt - len(excl):
+        raise RuntimeError("data.tpqr's mask after save_data is not the viewer's")
+    subset_file = s.write_aoi_subset()
+    expect("aoi_subset.txt", subset_file.read_text(), ", ".join(map(str, kept)) + "\n")
+    counts = [_read_launches()]  # each command sets the counts to 0 and reads them
+    sub = run_cli(workdir, ["subset"], device)
+    _reset_launches()
+    if sub["code"] != 0:
+        raise RuntimeError(f"subset exited with {sub['code']}")
+    data = load(workdir / "subset")
+    if data.Nt != len(kept) or not np.array_equal(data.images, s.data.images[kept]):
+        raise RuntimeError(f"subset/data.tpqr holds {data.Nt} AOIs, not the {len(kept)} kept")
+    del data
+
+    fov = gui.build_fov_state(workdir)
+    if fov is None:
+        raise RuntimeError("build_fov_state found no raw folder in phase 21's workspace")
+    expect("FOV", [fov.fov.F, fov.fov.dtypes, dict(fov.show), fov.set_frame(-1),
+                   fov.set_frame(10**6), fov.toggle("offset"), fov.visible_dtypes,
+                   fov.fov[int(fov.fov.frames[0])].shape],
+           [F, ["ontarget", "offtarget"], {"ontarget": True, "offtarget": True,
+                                           "offset": False},
+            0, F - 1, True, ["ontarget", "offtarget", "offset"], (H, W)])
+
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    png = workdir / "cosmos_aoi0-channel0.png"
+    counts.append(_read_launches())
+    show = run_cli(workdir, ["show", "-n", "0"], device)
+    log_text = (workdir / ".tapqir" / "loginfo").read_text()
+    if matplotlib:
+        if show["code"] != 0 or not png.is_file() or "Saved AOI viewer figure in" not in log_text:
+            raise RuntimeError(f"show exited with {show['code']}, PNG written: {png.is_file()}")
+    elif show["code"] == 0 or png.exists() or "show needs matplotlib" not in log_text:
+        raise RuntimeError(f"show without matplotlib exited with {show['code']}, PNG "
+                           f"written: {png.exists()}")
+    counts += [sub["launches"], show["launches"]]
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    if any(launches.values()):
+        raise RuntimeError(f"the viewer launched kernels: {launches}")
+    return {"matplotlib": matplotlib, "show_exit": show["code"],
+            "png_bytes": png.stat().st_size if png.exists() else 0,
+            "aois": Nt, "frames": F, "excluded": excl, "subset_aois": len(kept),
+            "fov_frames": fov.fov.F, "load_seconds": load_seconds,
+            "save_data_seconds": save_seconds, "subset_seconds": sub["seconds"],
+            "show_seconds": show["seconds"], "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
 
@@ -3741,6 +3864,10 @@ def main():
         mesh_res = run_mesh_phases(tmp, xws, ["cuda:0"] * 4, lap=lap)
         mesh_checks = check_mesh_phases(mesh_res, Nt=856, F=790)
         mesh_cli = run_mesh_cli(tmp) if torch.cuda.device_count() > 1 else None
+
+        # phase 25: the AOI viewer on phase 21's workspace (no kernel)
+        viewer = run_viewer(gws)
+        lap("25 viewer")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -3849,6 +3976,9 @@ def main():
           f"seconds {json.dumps(ingested_seconds)}", flush=True)
     print(f"[ingested-cli] checks {json.dumps(ingested_checks)}", flush=True)
     print_mesh_phases(mesh_res, mesh_checks, mesh_cli, name, smi)
+    print(f"[viewer] {'with' if viewer['matplotlib'] else 'without'} matplotlib: show -n 0 "
+          f"exit {viewer['show_exit']} ({viewer['png_bytes']} bytes of PNG); on {name} "
+          f"({smi}), the viewer on the host: {json.dumps(viewer)}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -3868,7 +3998,7 @@ def main():
 
     perr = pixel_errs[M]
     # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18, 19,
-    # 21 and 22-24 (every rank's mesh runs; phases 11, 16 and 20 launch
+    # 21 and 22-24 (every rank's mesh runs; phases 11, 16, 20 and 25 launch
     # none; 13, 15 and 17 compare the card with the CPU or the kernels with
     # their plain versions, as do the ranks before their runs)
     paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"], xt_fit["launches"],

@@ -5,11 +5,16 @@ from tapqir_tpu_torch.distributions.core import (  # noqa: F401
     affine_beta_log_prob,
     affine_beta_sample,
     beta_log_prob,
+    beta_sample,
     bernoulli_log_prob,
     dirichlet_log_prob,
+    dirichlet_sample,
     exponential_log_prob,
+    exponential_sample,
     gamma_log_prob,
+    gamma_sample,
     halfnormal_log_prob,
+    halfnormal_sample,
 )
 from tapqir_tpu_torch.distributions.ksmogn import (  # noqa: F401
     KSMOGN,

@@ -133,6 +133,15 @@ def gamma_mean(concentration, rate):
     return concentration / rate
 
 
+def gamma_entropy(concentration, rate):
+    return (
+        concentration
+        - _log(rate)
+        + torch.lgamma(concentration)
+        + (1.0 - concentration) * torch.digamma(concentration)
+    )
+
+
 # ---------------------------------------------------------------------------
 # HalfNormal(scale), Exponential(rate)
 # ---------------------------------------------------------------------------
@@ -144,8 +153,36 @@ def halfnormal_log_prob(x, scale):
     return _HALF_LOG_2_OVER_PI - _log(scale) - 0.5 * (x / scale) ** 2
 
 
+def halfnormal_sample(scale, shape=None, generator=None, draws=None):
+    """|N(0, 1)| * scale of ``shape`` (default: the scale's); ``draws`` are
+    the standard normal draws of that shape."""
+    scale = torch.as_tensor(scale)
+    if shape is None:
+        shape = scale.shape
+    if draws is None:
+        draws = torch.randn(shape, generator=generator, dtype=scale.dtype,
+                            device=scale.device)
+    else:
+        draws = draws.to(dtype=scale.dtype, device=scale.device).reshape(shape)
+    return torch.abs(draws) * scale
+
+
 def exponential_log_prob(x, rate):
     return _log(rate) - rate * x
+
+
+def exponential_sample(rate, shape=None, generator=None, draws=None):
+    """Exp(1) / rate of ``shape`` (default: the rate's); ``draws`` are the
+    Exp(1) draws of that shape."""
+    rate = torch.as_tensor(rate)
+    if shape is None:
+        shape = rate.shape
+    if draws is None:
+        draws = torch.empty(shape, dtype=rate.dtype, device=rate.device).exponential_(
+            generator=generator)
+    else:
+        draws = draws.to(dtype=rate.dtype, device=rate.device).reshape(shape)
+    return draws / rate
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +241,30 @@ def affine_beta_sample(mean, sample_size, low, high, generator=None, shape=None,
     *shape) standard-Gamma pair), the Beta clipped strictly inside (0, 1)."""
     c1, c0 = affine_beta_concentrations(mean, sample_size, low, high)
     return low + (high - low) * beta_sample(c1, c0, shape, generator, draws)
+
+
+def affine_beta_mean(mean, sample_size, low, high):
+    del sample_size, low, high
+    return mean
+
+
+def affine_beta_sample_stacked(means, sizes, lows, highs, generator=None, draws=None):
+    """Several AffineBeta sites from one :func:`std_gamma_sample` call over
+    the stacked (2 * n_sites, ...) concentrations: every site's c1, then
+    every site's c0. ``means`` / ``sizes`` are per-site tensors of one
+    shape, ``lows`` / ``highs`` per-site scalars; ``draws`` replaces the
+    stacked standard-Gamma draws. Returns one sample per site, each Beta
+    clipped strictly inside (0, 1)."""
+    n_sites = len(means)
+    c1s, c0s = [], []
+    for mean, size, low, high in zip(means, sizes, lows, highs):
+        c1, c0 = affine_beta_concentrations(mean, size, low, high)
+        shape = torch.as_tensor(size).shape
+        c1s.append(torch.as_tensor(c1).expand(shape))
+        c0s.append(torch.as_tensor(c0).expand(shape))
+    g = std_gamma_sample(torch.stack(c1s + c0s), generator, draws)
+    return [low + (high - low) * beta_from_gamma_pair(g[i], g[i + n_sites])
+            for i, (low, high) in enumerate(zip(lows, highs))]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Command-line interface: ``python -m tapqir_tpu_torch [--cd DIR]
-glimpse|fit|stats|ttfb|dwelltime|subset|log`` (counterpart of the workspace
-and of these commands of tapqir_tpu/main.py).
+glimpse|fit|stats|ttfb|dwelltime|subset|show|log`` (counterpart of the
+workspace and of the commands of tapqir_tpu/main.py).
 
 Every command runs inside an analysis folder (``--cd``, default: the
 working directory) that holds ``.tapqir/`` (config.yaml, loginfo, model
@@ -33,14 +33,17 @@ files, so either package's CLI continues a workspace the other wrote.
   times of those samples (koff, kon), per channel;
 * ``subset`` writes the AOIs listed in ``aoi_subset.txt`` to
   ``subset/data.tpqr``;
+* ``show`` renders the AOI viewer's figure of one AOI to
+  ``<model>_aoi<n>-channel0.png`` (``gui.py``; needs matplotlib, and exits
+  non-zero naming it where it is missing); the interactive viewer is
+  ``python -m tapqir_tpu_torch.gui``;
 * ``log`` pages ``.tapqir/loginfo``.
 
 Options of ``fit`` and ``stats`` not given on the command line are asked for
 on the terminal unless ``--no-input``, in this process before any mesh
 starts. Commands run on the CUDA card; ``--cpu`` asks for the CPU, and
 without a card and without ``--cpu`` a command exits non-zero, as does a
-mesh rank that fails. ``show`` is not ported yet and exits non-zero with a
-message naming the ROADMAP item that ports it. Plots need matplotlib;
+mesh rank that fails. The plots of the other commands need matplotlib;
 without it (or with the ``CI`` environment variable set) they are skipped
 with a logged warning, as in the JAX package.
 """
@@ -255,10 +258,13 @@ def _parser():
     sub.add_parser("subset", help="Write the AOIs listed in aoi_subset.txt to "
                                   "subset/data.tpqr")
     sub.add_parser("log", help="Show logging info")
-    # takes any arguments (none is an option here), so that it always
-    # reaches the message naming the ROADMAP item
-    show = sub.add_parser("show", prefix_chars="+", help="AOI viewer (not ported yet)")
-    show.add_argument("args", nargs="*")
+    show = sub.add_parser("show", help="Render the AOI viewer's figure of one AOI to a PNG")
+    show.add_argument("--model", choices=AVAIL_MODELS, default=S, help="Tapqir model")
+    show.add_argument("-n", dest="n", type=int, default=S, help="AOI index to display")
+    show.add_argument("--f1", type=int, default=S, help="First frame")
+    show.add_argument("--f2", type=int, default=S, help="Last frame")
+    show.add_argument("--num-frames", type=int, default=S,
+                      help="Number of AOI images shown in the strip")
     return parser
 
 
@@ -285,8 +291,10 @@ def _defaults(command, config):
             **{dest: [] for _, dest, _ in GLIMPSE_CHANNEL_OPTIONS},
             "overwrite": True, "no_input": False,
         }
-    if command in ("subset", "log", "show"):
+    if command in ("subset", "log"):
         return {}
+    if command == "show":
+        return {"model": "cosmos", "n": 0, "f1": 0, "f2": None, "num_frames": 15}
     fitted = {"model": config.get("model", "cosmos"), "S": config.get("S", 1),
               "k_max": config.get("k-max", 2), "cpu": False}
     if command == "ttfb":
@@ -874,7 +882,17 @@ def log(cd, config, opts, given):
 
 
 def show(cd, config, opts, given):
-    raise CliError("show (the AOI viewer) is not ported yet (ROADMAP Queue A item 9)")
+    """Render the AOI viewer's figure of AOI ``-n`` (frames ``--f1`` to
+    ``--f2``, ``--num-frames`` images in the strip) from the saved fit to
+    ``<model>_aoi<n>-channel0.png``."""
+    from tapqir_tpu_torch.gui import render_aoi_figure
+
+    try:
+        out = render_aoi_figure(cd, opts["model"], opts["n"], opts["f1"], opts["f2"],
+                                opts["num_frames"])
+    except ModuleNotFoundError as err:  # the JAX command raises it
+        raise CliError(f"show needs {err.name}: {err}") from err
+    logger.info(f"Saved AOI viewer figure in {out}")
 
 
 COMMANDS = {"glimpse": glimpse, "fit": fit, "stats": stats, "ttfb": ttfb,

@@ -2,7 +2,7 @@
 CPU: fit then stats on a small workspace, workspaces handed between the
 JAX package's CLI and the port's in both directions, ``config.yaml``
 against PyYAML both ways, the prompts, and the non-zero exits for the
-options not ported and for a missing card."""
+options the JAX commands lack and for a missing card."""
 
 import builtins
 import shutil
@@ -119,13 +119,14 @@ def test_jax_stats_reads_a_port_workspace(port_ws, tmp_path):
 
 
 def test_python_dash_m_runs_the_cli(tmp_path):
+    """``show`` in an empty workspace exits 1 on the missing data file, as
+    the JAX command does."""
     proc = subprocess.run(
-        [sys.executable, "-m", "tapqir_tpu_torch", "--cd", str(tmp_path), "show",
-         "--no-input"],
+        [sys.executable, "-m", "tapqir_tpu_torch", "--cd", str(tmp_path), "show"],
         cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 1, proc.stderr
-    assert "Queue A item 9" in proc.stdout
+    assert "Failed to load data file" in proc.stdout
     assert (tmp_path / ".tapqir" / "config.yaml").exists()
 
 
@@ -207,14 +208,22 @@ def test_fit_prompts_for_options_not_given(tmp_path, monkeypatch):
 ])
 def test_unported_models_and_options_exit_nonzero(tmp_path, caplog, port_ws, monkeypatch,
                                                   command, extra, item):
-    """``show`` (ROADMAP Queue A item 9) is not ported: it exits 1 naming
-    the item. ``--mesh`` (item 8) is: with ``--cpu`` the JAX command ignores
-    it, so ``fit`` and ``stats`` with ``--cpu --mesh`` run on one device and
-    write the files of ``port_ws``'s commands, with the same arrays."""
+    """``show`` takes the JAX command's options only: ``--cpu`` and
+    ``--no-input`` are usage errors (exit 2, as click's), and without them
+    it exits 1 on the missing data file, as the JAX command does.
+    ``--mesh``: with ``--cpu`` the JAX command ignores it, so ``fit`` and
+    ``stats`` with ``--cpu --mesh`` run on one device and write the files of
+    ``port_ws``'s commands, with the same arrays."""
     if item == 9:
-        argv = ["--cd", str(tmp_path), command, *extra, "--cpu", "--no-input"]
-        assert cli.main(argv) == 1
-        assert f"ROADMAP Queue A item {item}" in caplog.text
+        for flags in (["--cpu", "--no-input"], ["--no-input"], ["--cpu"]):
+            with pytest.raises(SystemExit) as err:
+                cli.main(["--cd", str(tmp_path), command, *extra, *flags])
+            assert err.value.code == 2
+            result = CliRunner().invoke(jax_app, ["--cd", str(tmp_path), command, *extra,
+                                                  *flags])
+            assert result.exit_code == 2 and "No such option" in result.output
+        assert cli.main(["--cd", str(tmp_path), command, *extra]) == 1
+        assert "Failed to load data file" in caplog.text
         return
     monkeypatch.setenv("CI", "true")
     ws = port_ws[0]

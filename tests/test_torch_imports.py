@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package
-(nor click, PyYAML, pandas, scikit-learn or tqdm, which the card's machine
-may lack), its entry points default to the CUDA card and never fall back to the CPU
+(nor click, PyYAML, pandas, scikit-learn, tqdm, matplotlib, ipywidgets or
+IPython at module level, which the card's machine may lack), its entry points default to the CUDA card and never fall back to the CPU
 unasked, and its kernel wrapper takes the plain path only for CPU tensors."""
 
 import pkgutil
@@ -39,12 +39,12 @@ def test_port_imports_without_jax_or_the_jax_package():
             "tapqir_tpu_torch.parallel.restarts", "tapqir_tpu_torch.parallel.sharding",
             "tapqir_tpu_torch.imscroll",
             "tapqir_tpu_torch.imscroll.glimpse_reader",
-            "tapqir_tpu_torch.csrc.glimpse_native"} <= set(mods)
+            "tapqir_tpu_torch.csrc.glimpse_native", "tapqir_tpu_torch.gui"} <= set(mods)
     code = textwrap.dedent(
         f"""
         import importlib, sys
         for blocked in ("jax", "tapqir_tpu", "click", "yaml", "pandas", "sklearn",
-                        "tqdm"):
+                        "tqdm", "matplotlib", "ipywidgets", "IPython"):
             sys.modules[blocked] = None  # importing it raises ImportError
         for name in {mods!r}:
             importlib.import_module(name)

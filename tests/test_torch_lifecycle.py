@@ -377,6 +377,32 @@ def test_chip_smoke_ingest_phases_tiny_on_cpu(tmp_path, monkeypatch):
     assert res["fit"]["model"].iter == 3 and res["profile"]["trace_bytes"] > 0
 
 
+def test_chip_smoke_viewer_phase_tiny_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 25 at a tiny size on the CPU, on a workspace
+    made as phases 20-21 make theirs: the viewer's checks with matplotlib
+    (show writes the PNG), then again without it (show exits 1 naming it),
+    and no kernel launched either time."""
+    monkeypatch.setenv("CI", "true")
+    cs = _chip_smoke()
+    raw = cs.write_glimpse_folder(tmp_path / "raw", H=64, W=64, F=12, Nt=8,
+                                  offset=(0, 0, 8))
+    ws = tmp_path / "ws"
+    ws.mkdir()
+    assert cs.run_ingest(ws, raw)["code"] == 0
+    assert cs.run_cli(ws, ["fit", "-n", "4", "-f", "12", "-it", "2", "--no-input"],
+                      device="cpu")["code"] == 0
+    res = cs.run_viewer(ws, H=64, W=64, window=3, excluded=(1, 5, 100), device="cpu")
+    assert res["matplotlib"] and res["show_exit"] == 0 and res["png_bytes"] > 0
+    assert (res["aois"], res["frames"], res["excluded"], res["subset_aois"]) == (
+        8, 12, [1, 5, 7], 5)
+    assert res["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    (ws / "cosmos_aoi0-channel0.png").unlink()
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    res = cs.run_viewer(ws, H=64, W=64, window=3, excluded=(2,), device="cpu")
+    assert not res["matplotlib"] and res["show_exit"] == 1 and res["png_bytes"] == 0
+    assert res["excluded"] == [1, 2, 5, 7]  # the saved exclusions are kept
+
+
 def test_chip_smoke_mesh_phases_tiny_on_cpu(tmp_path, monkeypatch, capsys):
     """chip_smoke.py's phases 22-24 at a tiny size on CPU ranks (gloo): the
     cosmos 2x2 mesh with its replica, card-vs-CPU step, checkpoint and
