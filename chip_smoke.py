@@ -161,19 +161,26 @@ one. Phases, each printing its findings; any failure is an exception:
     images bit for bit), ``build_fov_state`` on phase 20's raw folder, and
     ``show -n 0``: the PNG where matplotlib is installed, else a non-zero
     exit naming it (the JAX command raises ModuleNotFoundError); no kernel
-    launch.
+    launch;
+26. the convergence scripts' paths for 200 steps each
+    (:func:`run_convergence_scripts`): ``scripts/elife_convergence_torch.py``
+    for cosmos on phase 7's saved dataset in a workspace of its own, ending
+    in its stats and its JSON line, then ``scripts/recovery_torch.py``'s
+    cosmos path on the golden's dataset with the bar against the JAX fits;
+    checked for what holds at any budget (finite -ELBO, LL <= Mean <= UL,
+    MCC in [-1, 1], the bar's fields), no recovery bound.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
 of the logs the kernels issue at M=16 (one per chunk of 4 configs). The
 kernels' launch counts are set to 0 just before each of the paths 7-16 and
-read just after it, and so before and after phases 18 and 19 and each
-command of phases 20-21 and 25. Phases 10-21 print their seconds (stats and
+read just after it, and so before and after phases 18 and 19, each
+command of phases 20-21 and 25, and each script of phase 26. Phases 10-21 print their seconds (stats and
 ingest: by stage) and their peak device memory; every phase prints its
 wall time at the end.
 
 The second-to-last line is a JSON object with one entry per kernel, its
-launches summed over the paths 7-24 (over every rank in 22-24); the last
+launches summed over the paths 7-24 (over every rank in 22-24) and 26; the last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -3095,6 +3102,100 @@ def run_viewer(workdir, H=GLIMPSE_FOV, W=GLIMPSE_FOV, window=VIEWER_WINDOW,
             "show_seconds": show["seconds"], "launches": launches}
 
 
+# phase 26: the convergence scripts' paths for a short budget, where no
+# recovery bound can hold yet
+CONVERGENCE_ITER = 200
+
+
+def _load_script(name):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_convergence_scripts(workdir, num_iter=CONVERGENCE_ITER, device="cuda",
+                            dataset_shape=None):
+    """Phase 26: ``scripts/elife_convergence_torch.py``'s path for cosmos on
+    the dataset phase 7 saved in ``workdir`` (linked into a workspace of its
+    own; ``dataset_shape`` is its ``build_dataset`` shape when it is not the
+    eLife one), ending in its stats and its JSON line, then
+    ``scripts/recovery_torch.py``'s cosmos path on the golden's dataset,
+    each for ``num_iter`` steps, the launch counts set to 0 just before each
+    and read just after."""
+    elife, rec = _load_script("elife_convergence_torch"), _load_script("recovery_torch")
+    ews = Path(workdir) / "elife"
+    ews.mkdir()
+    (ews / "data.tpqr").symlink_to(Path(workdir) / "data.tpqr")
+    _reset_launches()
+    t0 = time.perf_counter()
+    line = elife.main(["--model", "cosmos", "--iters", str(num_iter), "--out", str(ews)],
+                      device=device, dataset_shape=dataset_shape)
+    _sync(device)
+    elife_seconds = time.perf_counter() - t0
+    elife_launches = _read_launches()
+    rows = [ln.split(",") for ln in
+            (ews / ".tapqir" / "logs" / "cosmos" / "metrics.csv").read_text().splitlines()]
+    col = rows[0].index("-ELBO")
+    with np.load(ews / "cosmos_params.tpqr") as z:
+        intervals = {p: {s: z[f"{p}/{s}"].tolist() for s in ("Mean", "LL", "UL")}
+                     for p in ("gain", "pi", "lamda", "proximity")}
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    recovery = rec.run("cosmos", num_iter, device)
+    _sync(device)
+    recovery_seconds = time.perf_counter() - t0
+    return {
+        "elife": line, "elife_seconds": elife_seconds, "elife_launches": elife_launches,
+        "elife_losses": [float(r[col]) for r in rows[1:]], "elife_intervals": intervals,
+        "recovery": recovery, "recovery_seconds": recovery_seconds,
+        "recovery_launches": _read_launches(), "not_decidable": rec.NOT_DECIDABLE,
+        "bar_components": 2 * len(rec.BAR_PARAMS) + 1,
+    }
+
+
+def _ordered(summary):
+    """Whether LL <= Mean <= UL holds everywhere in {param: {Mean, LL, UL}}."""
+    return all(np.all(np.asarray(s["LL"]) <= np.asarray(s["Mean"]))
+               and np.all(np.asarray(s["Mean"]) <= np.asarray(s["UL"]))
+               for s in summary.values())
+
+
+def check_convergence_scripts(res, num_iter=CONVERGENCE_ITER, device="cuda"):
+    """Raise unless phase 26 held what holds at any budget: finite -ELBO,
+    LL <= Mean <= UL, MCC in [-1, 1], the bar's fields computed, and (on the
+    card) every step through the summed kernel. Gates no recovery bound."""
+    line, rec = res["elife"], res["recovery"]
+    if line["iters"] != num_iter or line["iters_this_invocation"] != num_iter:
+        raise RuntimeError(f"phase 26: eLife run took {line['iters']} steps")
+    if not (res["elife_losses"] and np.isfinite(res["elife_losses"]).all()):
+        raise RuntimeError(f"phase 26: eLife run's -ELBO {res['elife_losses']}")
+    if not _ordered(res["elife_intervals"]):
+        raise RuntimeError(f"phase 26: eLife intervals {res['elife_intervals']}")
+    if not -1 <= line["summary"]["MCC"] <= 1:
+        raise RuntimeError(f"phase 26: eLife MCC {line['summary']['MCC']}")
+    check = rec["crosscheck"]
+    if rec["iters"] != num_iter or not math.isfinite(rec["loss"]):
+        raise RuntimeError(f"phase 26: recovery took {rec['iters']} steps, -ELBO {rec['loss']}")
+    if not all(_ordered({p: s for p, s in check[k].items() if isinstance(s, dict)})
+               for k in ("port", "jax0", "jax1")):
+        raise RuntimeError(f"phase 26: recovery intervals {check['port']}")
+    if not all(-1 <= m <= 1 for m in check["mcc"].values()):
+        raise RuntimeError(f"phase 26: MCC {check['mcc']}")
+    allowed = {"pass", "fail", res["not_decidable"]}
+    if (len(check["verdicts"]) != res["bar_components"]
+            or not set(check["verdicts"].values()) <= allowed
+            or set(check["port_vs_jax0"]) != set(check["verdicts"])):
+        raise RuntimeError(f"phase 26: the bar {check['verdicts']}")
+    if torch.device(device).type == "cuda":
+        for label in ("elife", "recovery"):
+            if res[f"{label}_launches"]["summed_stats"] < num_iter:
+                raise RuntimeError(f"phase 26: {label} launches {res[f'{label}_launches']}")
+
+
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
@@ -3868,6 +3969,12 @@ def main():
         # phase 25: the AOI viewer on phase 21's workspace (no kernel)
         viewer = run_viewer(gws)
         lap("25 viewer")
+
+        # phase 26: the convergence scripts' paths, 200 steps each
+        convergence = run_convergence_scripts(tmp, device="cuda")
+        check_convergence_scripts(convergence)
+        gc.collect()
+        lap("26 convergence scripts")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -3979,6 +4086,16 @@ def main():
     print(f"[viewer] {'with' if viewer['matplotlib'] else 'without'} matplotlib: show -n 0 "
           f"exit {viewer['show_exit']} ({viewer['png_bytes']} bytes of PNG); on {name} "
           f"({smi}), the viewer on the host: {json.dumps(viewer)}", flush=True)
+    cv = convergence
+    print(f"[convergence] elife_convergence_torch --model cosmos --iters {CONVERGENCE_ITER} "
+          f"on phase 7's data in {cv['elife_seconds']:.3f} s on {name} ({smi}): fit "
+          f"{cv['elife']['wall_fit_s']:.3f} s = {cv['elife']['steps_per_sec_sustained']:.3f} "
+          f"steps/s, stats {cv['elife']['wall_stats_s']:.3f} s; launches "
+          f"{cv['elife_launches']}; logged -ELBO {cv['elife_losses']}; intervals "
+          f"{json.dumps(cv['elife_intervals'])}", flush=True)
+    print(f"[convergence] recovery_torch cosmos, {CONVERGENCE_ITER} steps on the golden's "
+          f"data in {cv['recovery_seconds']:.3f} s on {name} ({smi}); launches "
+          f"{cv['recovery_launches']}; {json.dumps(cv['recovery'])}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")
@@ -3998,13 +4115,14 @@ def main():
 
     perr = pixel_errs[M]
     # launches over every path driven: phases 7, 8, 9, 10, 12, 14, 18, 19,
-    # 21 and 22-24 (every rank's mesh runs; phases 11, 16, 20 and 25 launch
+    # 21, 22-24 (every rank's mesh runs) and 26 (phases 11, 16, 20 and 25 launch
     # none; 13, 15 and 17 compare the card with the CPU or the kernels with
     # their plain versions, as do the ranks before their runs)
     paths = (dl, fl, pl, cli_fit["launches"], cli_hmm["launches"], xt_fit["launches"],
              xt_fact["launches"], cli_restarts["launches"], cli_restarts["stats"]["launches"],
              *(res["launches"] for res in api.values()), ingested_fit["launches"],
-             ingested_prof["launches"], *(r["launches"] for r in mesh_res.values()))
+             ingested_prof["launches"], *(r["launches"] for r in mesh_res.values()),
+             cv["elife_launches"], cv["recovery_launches"])
     total = {k: sum(r.get(k, 0) for r in paths) for k in dl}
     kernels = [
         entry("summed_fwd", 365, total["summed_fwd"], errs["forward_nograd"]),

@@ -1,8 +1,9 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
-(nor click, PyYAML, pandas, scikit-learn, tqdm, matplotlib, ipywidgets or
+"""The PyTorch port stands alone: it and its scripts import neither JAX nor the
+JAX package (nor click, PyYAML, pandas, scikit-learn, tqdm, matplotlib, ipywidgets or
 IPython at module level, which the card's machine may lack), its entry points default to the CUDA card and never fall back to the CPU
 unasked, and its kernel wrapper takes the plain path only for CPU tensors."""
 
+import ast
 import pkgutil
 import subprocess
 import sys
@@ -79,6 +80,49 @@ def test_mesh_rank_workers_import_no_jax():
         import _torch_mesh_worker, chip_smoke
         assert callable(_torch_mesh_worker.run_cases)
         assert callable(chip_smoke.mesh_cosmos_ranks)
+        assert not any(k == "jax" or k.startswith(("jax.", "tapqir_tpu."))
+                       for k, v in sys.modules.items() if v is not None)
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+PORT_SCRIPTS = sorted({p.name for p in (ROOT / "scripts").glob("*_torch.py")}
+                      | {"profile_torch_step.py", "time_kernel_sources.py"})
+
+
+def _imported_modules(path):
+    """Every module a script names in an import statement, at any depth."""
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            names.add(node.module)
+    return names
+
+
+@pytest.mark.parametrize("script", PORT_SCRIPTS)
+def test_port_scripts_import_no_jax(script):
+    """The port's scripts (``scripts/*_torch.py`` and the kernel and step
+    profilers) name neither JAX nor the JAX package in any import, also
+    inside their functions, and load with both blocked."""
+    assert "elife_convergence_torch.py" in PORT_SCRIPTS
+    path = ROOT / "scripts" / script
+    named = _imported_modules(path)
+    assert not {n for n in named if n.split(".")[0] in ("jax", "tapqir_tpu")}, named
+    code = textwrap.dedent(
+        f"""
+        import importlib.util, sys
+        sys.path.insert(0, ".")
+        for blocked in ("jax", "tapqir_tpu"):
+            sys.modules[blocked] = None  # importing it raises ImportError
+        spec = importlib.util.spec_from_file_location("script", {str(path)!r})
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
         assert not any(k == "jax" or k.startswith(("jax.", "tapqir_tpu."))
                        for k, v in sys.modules.items() if v is not None)
         print("ok")
