@@ -168,7 +168,15 @@ one. Phases, each printing its findings; any failure is an exception:
     in its stats and its JSON line, then ``scripts/recovery_torch.py``'s
     cosmos path on the golden's dataset with the bar against the JAX fits;
     checked for what holds at any budget (finite -ELBO, LL <= Mean <= UL,
-    MCC in [-1, 1], the bar's fields), no recovery bound.
+    MCC in [-1, 1], the bar's fields), no recovery bound;
+27. the global guide sites in float32 on the card against float64 on the
+    CPU (:func:`run_global_sites`): for cosmos, crosstalk and cosmos+hmm,
+    every global site set at a concentration of 1e6 and of 1e8 (the eLife
+    fit's gain site reached ~1.2e8), the gradient of the ELBO's global term
+    with respect to the unconstrained global parameters, single-chain and
+    chain-batched (R=2), with the same batch and draws on both sides,
+    within GLOBAL_SITE_TOL of float64 (tests/test_torch_global_sites.py's
+    tolerance); its launches compare, and are not counted.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
@@ -3196,6 +3204,130 @@ def check_convergence_scripts(res, num_iter=CONVERGENCE_ITER, device="cuda"):
                 raise RuntimeError(f"phase 26: {label} launches {res[f'{label}_launches']}")
 
 
+# phase 27: the global guide sites' gradients in float32 on the card against
+# float64 on the CPU, at the concentrations an eLife-scale fit reaches
+GLOBAL_SITE_CONCS = (1e6, 1e8)
+GLOBAL_SITE_TOL = 1e-4  # |g32 - g64| <= tol * max(|g64|, 1), as the CPU test
+GLOBAL_SITE_CHAINS = 2
+
+
+def global_site_values(name, conc, Q):
+    """Constrained values of every global parameter of model ``name`` that
+    put each global site's total concentration at ``conc``."""
+    v = {
+        "gain_loc": np.array(7.0), "gain_beta": np.array(conc / 7.0),
+        "lamda_loc": np.full((Q,), 0.15), "lamda_beta": np.full((Q,), conc / 0.15),
+        "proximity_loc": np.array(0.2), "proximity_size": np.array(conc),
+    }
+    if name == "cosmos+hmm":
+        v["init_mean"] = np.tile([0.85, 0.15], (Q, 1))
+        v["init_size"] = np.full((Q, 1), conc)
+        v["trans_mean"] = np.tile([[0.9, 0.1], [0.2, 0.8]], (Q, 1, 1))
+        v["trans_size"] = np.full((Q, 2, 1), conc)
+    else:
+        v["pi_mean"] = np.tile([0.85, 0.15], (Q, 1))
+        v["pi_size"] = np.full((Q, 1), conc)
+    if name == "crosstalk":
+        v["alpha_mean"] = np.asarray(XTALK_PARAMS["alpha"])
+        v["alpha_size"] = np.full((Q, 1), conc)
+    return v
+
+
+def global_term_grads(model, params, batch, chains, draws=None, generator=None):
+    """The gradients of ``model``'s ELBO global term with respect to its
+    unconstrained global parameters (float64 numpy arrays) at ``params``
+    (numpy, float32 values), and the packed draws it used: the ELBO with
+    every AOI row masked out, whose local and per-AOI terms and their
+    gradients are then zero."""
+    from tapqir_tpu_torch.distributions import core
+
+    names = [k for k, axes in model.param_partition().items() if not axes]
+    tree = {k: torch.as_tensor(v, dtype=model.dtype, device=model.device)
+            for k, v in params.items()}
+    for k in names:
+        tree[k].requires_grad_(True)
+    ndx, fidx, f = batch
+    win = (model.gather_windows(tree, ndx, fidx) if chains is None
+           else model.gather_chain_windows(tree, ndx, fidx))
+    data = dict(model._data_dev)
+    data["mask"] = torch.zeros_like(data["mask"])
+    sampler, recorded = core.std_gamma_sample, []
+
+    def recording(conc, gen=None, drw=None):
+        out = sampler(conc, gen, drw)
+        recorded.append(out.detach())
+        return out
+
+    core.std_gamma_sample = recording
+    try:
+        elbo = model.elbo_from_windows(win, generator, ndx, fidx, f, data, draws=draws)
+    finally:
+        core.std_gamma_sample = sampler
+    if not bool(torch.isfinite(elbo).all()):
+        raise RuntimeError(f"phase 27: {model.name} global term {elbo}")
+    grads = torch.autograd.grad(elbo.sum(), [tree[k] for k in names])
+    return ({k: g.detach().to("cpu", torch.float64).numpy() for k, g in zip(names, grads)},
+            recorded[0])
+
+
+def run_global_sites(device="cuda", concs=GLOBAL_SITE_CONCS, tol=GLOBAL_SITE_TOL,
+                     Nt=4, F=8):
+    """Phase 27: for cosmos, crosstalk and cosmos+hmm on a small simulated
+    dataset, every global site at each concentration of ``concs``, the
+    gradient of the ELBO's global term in float32 on ``device`` against
+    float64 on the CPU, single-chain and with GLOBAL_SITE_CHAINS chains,
+    with the card's batch and packed draws on both sides. Returns the
+    largest error per case; raises if one exceeds ``tol``."""
+    from tapqir_tpu_torch.models import models
+
+    out = {}
+    for name in ("cosmos", "crosstalk", "cosmos+hmm"):
+        params = XTALK_PARAMS if name == "crosstalk" else SIM_PARAMS
+        data = make_dataset(Nt, F, C=2 if name == "crosstalk" else 1, device="cpu",
+                            n_chunk=1, params=params)
+        pair = []
+        for dev, dtype in ((device, "float"), ("cpu", "double")):
+            m = models[name](device=dev, dtype=dtype)
+            m.data = data
+            m.nbatch_size = 2
+            m.fbatch_size = F if name == "cosmos+hmm" else 4
+            m.init_parameters()
+            m._data_dev = m._data_device_arrays()
+            m._build_constants()
+            pair.append(m)
+        card, cpu = pair
+        rng = np.random.default_rng(0)
+        base = {k: v.cpu().numpy().astype(np.float64) for k, v in card.params.items()}
+        for conc in concs:
+            for chains in (None, GLOBAL_SITE_CHAINS):
+                p = {}
+                for k, v in base.items():
+                    lead = () if chains is None else (chains,)
+                    p[k] = (np.broadcast_to(v, lead + v.shape)
+                            + 0.1 * rng.standard_normal(lead + v.shape))
+                for k, val in global_site_values(name, conc, card.Q).items():
+                    u = card._transforms[k].inverse(torch.as_tensor(val, dtype=torch.float64))
+                    p[k] = np.broadcast_to(u.numpy(), p[k].shape)
+                p = {k: np.asarray(v, np.float32).astype(np.float64) for k, v in p.items()}
+                gen = torch.Generator(device=device)
+                gen.manual_seed(int(conc) % 1000 + (chains or 0))
+                ndx, fidx, f = card._draw_batch(gen, chains=chains)
+                g32, draws = global_term_grads(card, p, (ndx, fidx, f), chains,
+                                                generator=gen)
+                cbatch = (ndx.cpu(), None if fidx is None else fidx.cpu(), f)
+                g64, _ = global_term_grads(cpu, p, cbatch, chains,
+                                            draws=draws.to("cpu", torch.float64))
+                err = {k: float((np.abs(g32[k] - g64[k])
+                                 / np.maximum(np.abs(g64[k]), 1.0)).max()) for k in g64}
+                worst = max(err, key=err.get)
+                label = f"{name} c={conc:.0e} {'single' if chains is None else f'R={chains}'}"
+                out[label] = {"max_err": err[worst], "param": worst}
+                if not err[worst] <= tol:
+                    raise RuntimeError(f"phase 27: {label}: float32 on {device} vs float64 "
+                                       f"on the CPU {err} > {tol}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
@@ -3975,6 +4107,10 @@ def main():
         check_convergence_scripts(convergence)
         gc.collect()
         lap("26 convergence scripts")
+
+        # phase 27: the global guide sites, float32 on the card vs float64
+        global_sites = run_global_sites("cuda")
+        lap("27 global sites")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -4096,6 +4232,9 @@ def main():
     print(f"[convergence] recovery_torch cosmos, {CONVERGENCE_ITER} steps on the golden's "
           f"data in {cv['recovery_seconds']:.3f} s on {name} ({smi}); launches "
           f"{cv['recovery_launches']}; {json.dumps(cv['recovery'])}", flush=True)
+    print(f"[global-sites] float32 on {name} ({smi}) vs float64 on the CPU, gradients of "
+          f"the ELBO's global term (tolerance {GLOBAL_SITE_TOL} of max(|g64|, 1)): "
+          f"{json.dumps(global_sites)}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")

@@ -12,7 +12,9 @@ workspace's ``data.tpqr`` already has that shape and labels. The fit uses
 the reference's documented defaults (lr 5e-3, 10 AOIs x 512 frames per
 step, every frame for cosmos+hmm; ``--iters 0`` runs to the rolling
 convergence criterion, at most 100k steps), resumes from the workspace's
-checkpoint, and writes the full state every 10th checkpoint.
+checkpoint, and writes the full state every 10th checkpoint. ``--row-every
+N`` splits ``--iters`` into runs of N steps, each followed by the statistics
+and a JSON line, in one process (a long fit's rows without reloading).
 
 ``--model`` selects the simulated family: cosmos (C=1), crosstalk (C=2
 dyes, alpha bleed-through) or cosmos+hmm (C=1, kon 0.02 / koff 0.2; the fit
@@ -27,7 +29,11 @@ MCC / Recall / Precision against the labels, SNR, the global parameters'
 intervals) and the script prints one JSON line with the JAX script's keys;
 ``device`` is the card's name and ``nvidia_smi`` the card's name and power
 limit as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-gives them.
+gives them. Each line is followed on standard error by the extremes of the
+global parameters over every checkpoint of the workspace's ``metrics.csv``.
+A fit that ends with a global parameter's unconstrained value at the
+exp(+-30) clamp of its transform has diverged: the script says so on
+standard error and exits 1 after its line.
 
 Run:  python3 scripts/elife_convergence_torch.py [--model M] [--iters 0] [--out DIR]
 (needs a card; ``main(argv, device="cpu")`` and ``build_dataset(...,
@@ -55,6 +61,9 @@ SIM_PARAMS = {
     "proximity": 0.2, "offset": 90.0, "height": 3000, "background": 150,
 }
 FULL_CHECKPOINT_EVERY = 10
+EXP_CLAMP = 30.0  # the exponent clamp of constraints.positive / greater_than
+# the posterior marginals cosmos and cosmos+hmm keep once computed
+POSTERIOR_CACHES = ("_probs_cache", "_z_probs_cache", "_theta_probs_cache")
 # samples and MLE steps of the kinetics commands, as the JAX script runs them
 KINETICS = {"ttfb": (500, 5000), "dwelltime": (200, 5000)}
 SUMMARY_ROWS = ("gain", "pi", "alpha", "init", "trans", "lamda", "proximity", "SNR",
@@ -183,12 +192,40 @@ def _summary_means(summary):
     return means
 
 
+def clamped_globals(model):
+    """Names of the global parameters whose unconstrained value is at the
+    +-30 exponent clamp of their transform (``positive``,
+    ``greater_than``): a fit that reaches it has diverged."""
+    out = []
+    for name, axes in model.param_partition().items():
+        tname = model._transforms[name].name
+        if axes or not (tname == "positive" or tname.startswith("greater_than")):
+            continue
+        if bool((model.params[name].abs() >= EXP_CLAMP).any()):
+            out.append(name)
+    return out
+
+
+def metrics_extremes(path):
+    """{column: (min, max)} over every checkpoint row of a ``metrics.csv``,
+    and whether every -ELBO is finite."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    cols = np.array(rows[1:], dtype=np.float64)
+    ext = {name: (float(cols[:, i].min()), float(cols[:, i].max()))
+           for i, name in enumerate(rows[0]) if name != "iter"}
+    return ext, bool(np.isfinite(cols[:, rows[0].index("-ELBO")]).all())
+
+
 def _parser():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="cosmos",
                     choices=["cosmos", "crosstalk", "cosmos+hmm"])
     ap.add_argument("--iters", type=int, default=0,
                     help="0 = run to convergence (max 100k)")
+    ap.add_argument("--row-every", type=int, default=0,
+                    help="with --iters N: the statistics and a JSON line every this "
+                         "many steps")
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--frame-sampling", default="random", choices=["random", "window"],
                     help="frame minibatch scheme (independent subsets vs cyclic window)")
@@ -237,11 +274,31 @@ def main(argv=None, device="cuda:0", dataset_shape=None):
     model.full_checkpoint_every = FULL_CHECKPOINT_EVERY
 
     print(f"[elife] device: {kind} ({smi})", file=sys.stderr, flush=True)
+    step = args.row_every if args.row_every > 0 and args.iters > 0 else args.iters
+    end = model.iter + args.iters
+    while True:
+        result = _fit_and_report(model, data, args, min(step, end - model.iter), kind, smi)
+        print(json.dumps(result), flush=True)
+        ext, finite = metrics_extremes(out / ".tapqir" / "logs" / fit_name / "metrics.csv")
+        print(f"[elife] checkpoints to {model.iter}: -ELBO finite={finite}; (min, max) "
+              f"{json.dumps(ext)}", file=sys.stderr, flush=True)
+        clamped = clamped_globals(model)
+        if clamped:
+            print(f"[elife] diverged: {', '.join(clamped)} at the exp(+-{EXP_CLAMP:g}) clamp "
+                  f"at iteration {model.iter}", file=sys.stderr, flush=True)
+            raise SystemExit(1)
+        if args.iters <= 0 or model.iter >= end:
+            return result
+
+
+def _fit_and_report(model, data, args, num_iter, kind, smi):
+    """``model.run(num_iter)``, the statistics, and the JSON line's object."""
+    fit_name = model.name
     iters0 = model.iter
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.run(args.iters)
+    model.run(num_iter)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     wall_fit = time.perf_counter() - t0
@@ -251,6 +308,8 @@ def main(argv=None, device="cuda:0", dataset_shape=None):
           f"{wall_fit:.1f} s ({done_now / wall_fit:.3f} steps/s sustained), "
           f"converged={model.converged}", file=sys.stderr, flush=True)
 
+    for cache in POSTERIOR_CACHES:  # a row's statistics are of the fit as it is now
+        model.__dict__.pop(cache, None)
     t1 = time.perf_counter()
     summary = model.compute_stats(CI=0.95)
     wall_stats = time.perf_counter() - t1
@@ -276,9 +335,8 @@ def main(argv=None, device="cuda:0", dataset_shape=None):
         "summary": _summary_means(summary),
     }
     if fit_name == "cosmos+hmm":
-        result["kinetics"] = recover_kinetics(out, device)
+        result["kinetics"] = recover_kinetics(model.path, model.device)
         result["kinetics"]["truth"] = {"kon": 0.02, "koff": 0.2}
-    print(json.dumps(result), flush=True)
     return result
 
 

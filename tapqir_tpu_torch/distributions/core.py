@@ -77,17 +77,37 @@ def std_gamma_sample_packed(concs, generator=None, draws=None, batch_dims=0):
 
     With ``batch_dims`` = 1 every tensor has a leading chain axis (R, ...)
     and each chain's sites are packed apart, in the same order: one draw of
-    (R, N) from the one generator, and ``draws`` is (R, N)."""
+    (R, N) from the one generator, and ``draws`` is (R, N).
+
+    The draw is made in the narrowest dtype of ``concs``. Wider tensors (a
+    float32 model's float64 global sites) are drawn with the rest, from
+    their concentration rounded to that dtype; their samples are the draw
+    (or ``draws``) in their own dtype, and their pathwise gradient is taken
+    in it, in one more :class:`_StdGammaDraw` for all of them."""
     lead = tuple(concs[0].shape[:batch_dims])
     shapes = [c.shape for c in concs]
-    flat = torch.cat([c.reshape(lead + (-1,)) for c in concs], -1)
-    g = std_gamma_sample(flat, generator, draws)
-    out, o = [], 0
-    for s in shapes:
-        n = math.prod(s[batch_dims:])
-        out.append(g[..., o:o + n].reshape(s))
-        o += n
-    return out
+    dt = min((c.dtype for c in concs), key=lambda d: torch.finfo(d).bits)
+    flats = [c.reshape(lead + (-1,)) for c in concs]
+    g = std_gamma_sample(
+        torch.cat([f if f.dtype == dt else f.detach().to(dt) for f in flats], -1),
+        generator, draws)
+    pieces, o = [], 0
+    for f in flats:
+        pieces.append(slice(o, o + f.shape[-1]))
+        o += f.shape[-1]
+    out = [g[..., s] for s in pieces]
+    wide = [i for i, f in enumerate(flats) if f.dtype != dt]
+    if wide:
+        wdt = flats[wide[0]].dtype
+        src = g.detach() if draws is None else draws.to(g.device).reshape(g.shape)
+        z = torch.cat([src[..., pieces[i]] for i in wide], -1).to(wdt)
+        gw = _StdGammaDraw.apply(torch.cat([flats[i] for i in wide], -1), z)
+        o = 0
+        for i in wide:
+            n = flats[i].shape[-1]
+            out[i] = gw[..., o:o + n]
+            o += n
+    return [a.reshape(s) for a, s in zip(out, shapes)]
 
 
 def beta_from_gamma_pair(g1, g0):

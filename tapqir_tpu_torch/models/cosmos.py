@@ -261,8 +261,6 @@ class cosmos(Model):
         """(sum of local per-(n,f,c) terms, sum of per-AOI terms, global
         term) for the batch, each (R,) with a chain axis."""
         priors = self.priors
-        P = self.data.P
-        prox_high = (P + 1) / math.sqrt(12)
         tf = self._transforms
         lead = tuple(ndx.shape[:-1])  # (R,) with a chain axis, else ()
         c = len(lead)
@@ -295,31 +293,15 @@ class cosmos(Model):
         size = gk("size")
         qm = gk("m_probs")
 
-        gain, pi, lamda, prox, b, h, w, xs, ys, extras = self._sample_sites(
-            generator, pc, b_loc, b_beta, h_loc, h_beta,
+        g = self._global_values(win)
+        sites, b, h, w, xs, ys = self._sample_sites(
+            generator, g.__getitem__, b_loc, b_beta, h_loc, h_beta,
             w_mean, w_size, x_mean, y_mean, size, draws, c,
         )
-        gain_conc = pc("gain_loc") * pc("gain_beta")
-        pi_conc = pc("pi_mean") * pc("pi_size")
-        lamda_conc = pc("lamda_loc") * pc("lamda_beta")
-
-        global_term = (
-            halfnormal_log_prob(gain, priors["gain_std"])
-            - gamma_log_prob(gain, gain_conc, pc("gain_beta"))
-            + (
-                dirichlet_log_prob(pi, self._const["pi_prior"])
-                - dirichlet_log_prob(pi, pi_conc)
-            ).sum(-1)
-            + (
-                exponential_log_prob(lamda, priors["lamda_rate"])
-                - gamma_log_prob(lamda, lamda_conc, pc("lamda_beta"))
-            ).sum(-1)
-            + exponential_log_prob(prox, priors["proximity_rate"])
-            - affine_beta_log_prob(
-                prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
-            )
-        )
-        global_term = self._extra_global_terms(pc, extras, global_term)
+        global_term = self._global_term(g, sites)
+        # the samples enter the local terms in the model's dtype
+        gain, pi, lamda, prox = (sites[k].to(self.dtype)
+                                 for k in ("gain", "pi", "lamda", "proximity"))
 
         # per-AOI Delta sites (MAP background hyper-parameters)
         bm = pc("background_mean_loc")[..., 0, :]  # (*lead, n, C)
@@ -340,7 +322,46 @@ class cosmos(Model):
             h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size, data,
         )
         local_sum = ((local + lp_b - lq_b) * mask[..., None, None]).sum((-3, -2, -1))
-        return local_sum, aoi_term, global_term
+        return local_sum, aoi_term, global_term.to(self.dtype)
+
+    def _global_values(self, win):
+        """Every global parameter of the windows, constrained, in float64:
+        the global sites' concentrations grow with the data (the gain
+        site's reaches ~1e8 at eLife scale), and their log-densities and
+        pathwise gradients cancel terms of ~c log c down to O(1), which
+        float32 cannot hold."""
+        tf = self._transforms
+        return {k: tf[k](win[k].to(torch.float64))
+                for k, axes in self.param_partition().items() if not axes}
+
+    def _global_term(self, g, sites):
+        """Prior minus guide log-density of the global sites, (R,) with a
+        chain axis: ``g`` from :meth:`_global_values`, ``sites`` the float64
+        samples by site name."""
+        pi = sites["pi"]
+        return self._gain_lamda_proximity_term(g, sites) + (
+            dirichlet_log_prob(pi, self._const["pi_prior"])
+            - dirichlet_log_prob(pi, g["pi_mean"] * g["pi_size"])
+        ).sum(-1)
+
+    def _gain_lamda_proximity_term(self, g, sites):
+        """The gain, lamda and proximity sites' part of :meth:`_global_term`,
+        which cosmos+hmm shares."""
+        priors = self.priors
+        prox_high = (self.data.P + 1) / math.sqrt(12)
+        gain, lamda, prox = sites["gain"], sites["lamda"], sites["proximity"]
+        return (
+            halfnormal_log_prob(gain, priors["gain_std"])
+            - gamma_log_prob(gain, g["gain_loc"] * g["gain_beta"], g["gain_beta"])
+            + (
+                exponential_log_prob(lamda, priors["lamda_rate"])
+                - gamma_log_prob(lamda, g["lamda_loc"] * g["lamda_beta"], g["lamda_beta"])
+            ).sum(-1)
+            + exponential_log_prob(prox, priors["proximity_rate"])
+            - affine_beta_log_prob(
+                prox, g["proximity_loc"], g["proximity_size"], 0.0, prox_high
+            )
+        )
 
     def _extra_global_concs(self, pc):
         """Extra global Dirichlet sites of a subclass (crosstalk's alpha),
@@ -348,26 +369,23 @@ class cosmos(Model):
         axis last). cosmos has none."""
         return [], []
 
-    def _extra_global_terms(self, pc, extras, global_term):
-        """The global term with a subclass's extra sites added; ``extras``
-        maps each name of :meth:`_extra_global_concs` to its sample."""
-        return global_term
-
     def _sample_sites(self, generator, pc, b_loc, b_beta, h_loc, h_beta,
                       w_mean, w_size, x_mean, y_mean, size, draws=None, c=0):
         """All guide-site draws in ONE packed standard-Gamma draw, in the
         JAX package's packing order, the extra global sites after the
         proximity pair; ``draws`` replaces the random vector (c = 1: a
-        leading chain axis, each chain packed apart). Returns the samples
-        and ``extras`` (name -> sample of each extra site)."""
+        leading chain axis, each chain packed apart). ``pc`` gives the
+        global parameters in float64 (:meth:`_global_values`), so the
+        global sites are drawn in the model's dtype with the local ones and
+        their samples and pathwise gradients are float64. Returns the
+        global samples by site name (the extra sites' too) and the local
+        samples b, h, w, xs, ys."""
         P = self.data.P
         lim = (P + 1) / 2
         wmin, wmax = self.priors["width_min"], self.priors["width_max"]
         prox_high = (P + 1) / math.sqrt(12)
 
-        gain_conc = pc("gain_loc") * pc("gain_beta")
         pi_conc = pc("pi_mean") * pc("pi_size")
-        lamda_conc = pc("lamda_loc") * pc("lamda_beta")
         pg1, pg0 = affine_beta_concentrations(
             pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
         )
@@ -376,8 +394,8 @@ class cosmos(Model):
         xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
         yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
         concs = [
-            gain_conc[..., None],
-            lamda_conc,
+            (pc("gain_loc") * pc("gain_beta"))[..., None],
+            pc("lamda_loc") * pc("lamda_beta"),
             pi_conc.flatten(c),
             pg1[..., None],
             pg0[..., None],
@@ -388,20 +406,22 @@ class cosmos(Model):
             g = std_gamma_sample_packed(concs, generator, draws, batch_dims=c)
         else:
             g = std_gamma_sample_packed(concs, generator, draws)
-        gain = g[0][..., 0] / pc("gain_beta")
-        lamda = g[1] / pc("lamda_beta")
-        pi = dirichlet_from_gammas(g[2].reshape(pi_conc.shape))
-        prox = prox_high * beta_from_gamma_pair(g[3][..., 0], g[4][..., 0])
         n_extra = len(extra_names)
-        extras = {nm: dirichlet_from_gammas(gg)
-                  for nm, gg in zip(extra_names, g[5:5 + n_extra])}
+        sites = {
+            "gain": g[0][..., 0] / pc("gain_beta"),
+            "lamda": g[1] / pc("lamda_beta"),
+            "pi": dirichlet_from_gammas(g[2].reshape(pi_conc.shape)),
+            "proximity": prox_high * beta_from_gamma_pair(g[3][..., 0], g[4][..., 0]),
+            **{nm: dirichlet_from_gammas(gg)
+               for nm, gg in zip(extra_names, g[5:5 + n_extra])},
+        }
         gb, gh, gw1, gx1, gy1, gw0, gx0, gy0 = g[5 + n_extra:]
         b = gb / b_beta
         h = gh / h_beta
         w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
         xs = -lim + 2 * lim * beta_from_gamma_pair(gx1, gx0)
         ys = -lim + 2 * lim * beta_from_gamma_pair(gy1, gy0)
-        return gain, pi, lamda, prox, b, h, w, xs, ys, extras
+        return sites, b, h, w, xs, ys
 
     def _dye_tables(self, ont, pi, lamda, prox, h, w, xs, ys, qm,
                     h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size):

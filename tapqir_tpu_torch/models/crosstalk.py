@@ -10,7 +10,7 @@ every present spot of every dye rendered at the channel's target and scaled
 by alpha[q, c].
 
 alpha joins cosmos's packed standard-Gamma draw through the hooks
-:meth:`_extra_global_concs` / :meth:`_extra_global_terms`, right after the
+:meth:`_extra_global_concs` / :meth:`_global_term`, right after the
 proximity pair, so the draw seam takes the JAX package's packing order. The
 likelihood is dense by default (the (16, n*f*C, EVP) concentrations by one
 einsum, then the summed kernel) or, with ``use_factored = True``, the
@@ -87,15 +87,16 @@ class crosstalk(cosmos):
     def _extra_global_concs(self, pc):
         return ["alpha"], [pc("alpha_mean") * pc("alpha_size")]
 
-    def _extra_global_terms(self, pc, extras, global_term):
-        """alpha's prior minus its guide. The sample waits on the model for
+    def _global_term(self, g, sites):
+        """cosmos's global term plus alpha's prior minus its guide, in
+        float64. The sample waits on the model for
         :meth:`_local_marginalized` of the same ELBO evaluation, which takes
         it off again, so no step's graph outlives the step."""
-        alpha = extras["alpha"]  # (*lead, Q, C)
+        alpha = sites["alpha"]  # (*lead, Q, C)
         self._alpha_sample = alpha
-        return global_term + (
+        return super()._global_term(g, sites) + (
             dirichlet_log_prob(alpha, self._const["alpha_prior"])
-            - dirichlet_log_prob(alpha, pc("alpha_mean") * pc("alpha_size"))
+            - dirichlet_log_prob(alpha, g["alpha_mean"] * g["alpha_size"])
         ).sum(-1)
 
     # -- the likelihood over the global configs ---------------------------------
@@ -146,7 +147,7 @@ class crosstalk(cosmos):
         background terms and sums, so the sum stays exact): (*lead, n, f,
         1). All chains of a leading chain axis go through one kernel
         launch."""
-        alpha = self.__dict__.pop("_alpha_sample")  # (*lead, Q, C)
+        alpha = self.__dict__.pop("_alpha_sample").to(self.dtype)  # (*lead, Q, C)
         *lead, n_, f_, C, ev_pad = obs.shape
         lead = tuple(lead)
         P = self.data.P

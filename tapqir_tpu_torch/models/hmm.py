@@ -42,7 +42,6 @@ from tapqir_tpu_torch.distributions.core import (
     categorical_sample,
     dirichlet_from_gammas,
     dirichlet_log_prob,
-    exponential_log_prob,
     gamma_log_prob,
     gamma_sample,
     halfnormal_log_prob,
@@ -143,6 +142,19 @@ class hmm(cosmos):
             ndx = _chain_perms(chains, Nt, rows, self.device)[:, :n]
         return ndx, None, F
 
+    def _global_term(self, g, sites):
+        """cosmos's gain, lamda and proximity terms, with the chain's init
+        and trans sites in place of pi (float64, as in cosmos)."""
+        const = self._const
+        init, trans = sites["init"], sites["trans"]
+        return (
+            self._gain_lamda_proximity_term(g, sites)
+            + (dirichlet_log_prob(init, const["init_prior"])
+               - dirichlet_log_prob(init, g["init_mean"] * g["init_size"])).sum(-1)
+            + (dirichlet_log_prob(trans, const["trans_prior"])
+               - dirichlet_log_prob(trans, g["trans_mean"] * g["trans_size"])).sum((-2, -1))
+        )
+
     def elbo_from_windows(self, win, generator, ndx, fidx, f_b, data,
                           draws=None, n_shards=1, frame_shards=1, frame_axis=None):
         """ELBO from pre-gathered unconstrained windows (AOI rows ``ndx``,
@@ -189,13 +201,11 @@ class hmm(cosmos):
         ont = data["is_ontarget"][ndx]  # (*lead, n)
         mask = data["mask"][ndx]
 
-        # every guide site in ONE packed standard-Gamma draw
-        gain_conc = pc("gain_loc") * pc("gain_beta")
-        init_conc = pc("init_mean") * pc("init_size")
-        trans_conc = pc("trans_mean") * pc("trans_size")
-        lamda_conc = pc("lamda_loc") * pc("lamda_beta")
+        # every guide site in ONE packed standard-Gamma draw, the global
+        # ones in float64 (cosmos._global_values)
+        g = self._global_values(win)
         pg1, pg0 = affine_beta_concentrations(
-            pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
+            g["proximity_loc"], g["proximity_size"], 0.0, prox_high
         )
         b_loc, b_beta = pc("b_loc"), pc("b_beta")  # (*lead, n, F, C)
         h_loc, h_beta = gk("h_loc"), gk("h_beta")  # (*lead, n, F, Q, K)
@@ -205,7 +215,9 @@ class hmm(cosmos):
         wc1, wc0 = affine_beta_concentrations(w_mean, w_size, wmin, wmax)
         xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
         yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
-        concs = [gain_conc[..., None], lamda_conc, init_conc, trans_conc,
+        concs = [(g["gain_loc"] * g["gain_beta"])[..., None],
+                 g["lamda_loc"] * g["lamda_beta"],
+                 g["init_mean"] * g["init_size"], g["trans_mean"] * g["trans_size"],
                  pg1[..., None], pg0[..., None], b_loc * b_beta, h_loc * h_beta,
                  wc1, xc1, yc1, wc0, xc0, yc0]
         if c:  # each chain packed apart
@@ -214,31 +226,22 @@ class hmm(cosmos):
             packed = std_gamma_sample_packed(concs, generator, draws)
         (g_gain, g_lamda, g_init, g_trans, g_p1, g_p0,
          gb, gh, gw1, gx1, gy1, gw0, gx0, gy0) = packed
-        gain = g_gain[..., 0] / pc("gain_beta")
-        lamda = g_lamda / pc("lamda_beta")
-        init = dirichlet_from_gammas(g_init)  # (*lead, Q, 1+S)
-        trans = dirichlet_from_gammas(g_trans)  # (*lead, Q, 1+S, 1+S)
-        prox = prox_high * beta_from_gamma_pair(g_p1[..., 0], g_p0[..., 0])
+        sites = {
+            "gain": g_gain[..., 0] / g["gain_beta"],
+            "lamda": g_lamda / g["lamda_beta"],
+            "init": dirichlet_from_gammas(g_init),  # (*lead, Q, 1+S)
+            "trans": dirichlet_from_gammas(g_trans),  # (*lead, Q, 1+S, 1+S)
+            "proximity": prox_high * beta_from_gamma_pair(g_p1[..., 0], g_p0[..., 0]),
+        }
+        global_term = self._global_term(g, sites).to(self.dtype) / n_shards
+        # the samples enter the local terms in the model's dtype
+        gain, lamda, init, trans, prox = (
+            sites[k].to(self.dtype) for k in ("gain", "lamda", "init", "trans", "proximity"))
         b = gb / b_beta
         h = gh / h_beta
         w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
         xs = -lim + 2 * lim * beta_from_gamma_pair(gx1, gx0)
         ys = -lim + 2 * lim * beta_from_gamma_pair(gy1, gy0)
-
-        global_term = (
-            halfnormal_log_prob(gain, priors["gain_std"])
-            - gamma_log_prob(gain, gain_conc, pc("gain_beta"))
-            + (dirichlet_log_prob(init, const["init_prior"])
-               - dirichlet_log_prob(init, init_conc)).sum(-1)
-            + (dirichlet_log_prob(trans, const["trans_prior"])
-               - dirichlet_log_prob(trans, trans_conc)).sum((-2, -1))
-            + (exponential_log_prob(lamda, priors["lamda_rate"])
-               - gamma_log_prob(lamda, lamda_conc, pc("lamda_beta"))).sum(-1)
-            + exponential_log_prob(prox, priors["proximity_rate"])
-            - affine_beta_log_prob(
-                prox, pc("proximity_loc"), pc("proximity_size"), 0.0, prox_high
-            )
-        ) / n_shards
 
         # per-AOI Delta sites (MAP background hyper-parameters)
         bm = pc("background_mean_loc")[..., 0, :]  # (*lead, n, C)

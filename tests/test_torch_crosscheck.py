@@ -269,6 +269,51 @@ def test_elife_convergence_rehearsal_on_cpu(model, elife, tmp_path, monkeypatch,
     assert res2["iters"] == 10 and res2["iters_this_invocation"] == 5
 
 
+def test_elife_rows_every_n_steps_in_one_process(elife, tmp_path, capsys):
+    """``--row-every 3 --iters 7``: three JSON lines (iterations 3, 6, 7)
+    from one process, each of the fit as it is then (the posterior caches
+    dropped between rows), each followed by the checkpoints' extremes on
+    standard error; the last line is what ``main`` returns."""
+    out = tmp_path / "rows"
+    res = elife.main(["--iters", "7", "--row-every", "3", "--out", str(out)], device="cpu",
+                     dataset_shape=SMALL)
+    captured = capsys.readouterr()
+    lines = [json.loads(ln) for ln in captured.out.strip().splitlines()]
+    assert [ln["iters"] for ln in lines] == [3, 6, 7]
+    assert [ln["iters_this_invocation"] for ln in lines] == [3, 3, 1]
+    assert lines[-1] == json.loads(json.dumps(res))
+    assert lines[0]["p_specific_mean_ontarget"] != lines[1]["p_specific_mean_ontarget"]
+    extremes = [ln for ln in captured.err.splitlines() if "[elife] checkpoints to" in ln]
+    assert len(extremes) == 3 and all("-ELBO finite=True" in ln for ln in extremes)
+    assert "diverged" not in captured.err
+
+
+@pytest.mark.parametrize("name,value", [("gain_beta", 31.0), ("proximity_size", -31.0)],
+                         ids=["gain_beta-above-the-clamp", "proximity_size-below-it"])
+def test_elife_run_ending_at_the_clamp_exits_1(name, value, elife, tmp_path, capsys):
+    """A fit that ends with a global parameter's unconstrained value past
+    the exp(+-30) clamp (injected into the workspace's checkpoint; the
+    clamp's zero gradient keeps it there) is reported on standard error
+    and exits 1 after its JSON line (a healthy fit does not:
+    :func:`test_elife_rows_every_n_steps_in_one_process`)."""
+    out = tmp_path / "ws"
+    elife.main(["--iters", "2", "--out", str(out)], device="cpu", dataset_shape=SMALL)
+    ckpt = out / ".tapqir" / "cosmos_model.tpqr"
+    with np.load(ckpt) as z:
+        flat = {k: z[k] for k in z.files}
+    flat[f"p::{name}"] = np.full_like(flat[f"p::{name}"], value)
+    with open(ckpt, "wb") as f:
+        np.savez(f, **flat)
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        elife.main(["--iters", "1", "--out", str(out)], device="cpu", dataset_shape=SMALL)
+    assert exc.value.code == 1
+    captured = capsys.readouterr()
+    line = json.loads(captured.out.strip().splitlines()[-1])
+    assert line["iters"] == 3 and set(line) == _jax_result_keys() - {"kinetics"} | {"nvidia_smi"}
+    assert f"[elife] diverged: {name} at the exp(+-30) clamp at iteration 3" in captured.err
+
+
 def test_elife_build_dataset_layout_matches_the_jax_script(elife, tmp_path):
     """build_dataset puts every chunk's on-target rows first and
     concatenates the chunks' labels in order, as the JAX script's does; the
