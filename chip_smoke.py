@@ -860,9 +860,10 @@ def check_cli_hmm_fit(res, num_iter, device="cuda"):
 
 def profile_steps(model, n_prof=3):
     """Device launches per step and the device's busy share, from a
-    ``torch.profiler`` trace of ``n_prof`` steps (as
-    ``scripts/profile_torch_step.py`` counts them); the steps move the
-    model's parameters."""
+    ``torch.profiler`` trace of ``n_prof`` steps (as the benchmark's
+    ``--trace 1`` run counts them, whose host ms and syncs per step come from
+    ``tapqir_tpu_torch.tracing.summary()``); the steps move the model's
+    parameters."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     model._run_chunk(1)  # warm-up outside the trace
     torch.cuda.synchronize()

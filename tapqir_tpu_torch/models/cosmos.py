@@ -35,7 +35,7 @@ import math
 import numpy as np
 import torch
 
-from tapqir_tpu_torch import constraints
+from tapqir_tpu_torch import constraints, tracing
 from tapqir_tpu_torch.distributions.core import (
     affine_beta_concentrations,
     affine_beta_log_prob,
@@ -294,10 +294,11 @@ class cosmos(Model):
         qm = gk("m_probs")
 
         g = self._global_values(win)
-        sites, b, h, w, xs, ys = self._sample_sites(
-            generator, g.__getitem__, b_loc, b_beta, h_loc, h_beta,
-            w_mean, w_size, x_mean, y_mean, size, draws, c,
-        )
+        with tracing.span("elbo.sites"):
+            sites, b, h, w, xs, ys = self._sample_sites(
+                generator, g.__getitem__, b_loc, b_beta, h_loc, h_beta,
+                w_mean, w_size, x_mean, y_mean, size, draws, c,
+            )
         global_term = self._global_term(g, sites)
         # the samples enter the local terms in the model's dtype
         gain, pi, lamda, prox = (sites[k].to(self.dtype)
@@ -485,12 +486,14 @@ class cosmos(Model):
         """E_q(m)[ log-marginal over (z, theta) + spot priors + likelihood
         - guide terms ], per (*lead, n, f, c). Spot tensors are (*lead, n,
         f, Q, K)."""
-        inner, term_hw, log_qm, term_q = self._dye_tables(
-            ont, pi, lamda, prox, h, w, xs, ys, qm,
-            h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
-        )
+        with tracing.span("elbo.tables"):
+            inner, term_hw, log_qm, term_q = self._dye_tables(
+                ont, pi, lamda, prox, h, w, xs, ys, qm,
+                h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
+            )
         wq = torch.exp(log_qm)
-        loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)
+        with tracing.span("elbo.likelihood"):
+            loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)
         return (wq * (inner + term_hw + loglik - log_qm - term_q)).sum(0)  # (*lead, n, f, Q)
 
     @staticmethod

@@ -20,7 +20,7 @@ factored kernel over Q*K spot-major deltas with alpha folded into them.
 import numpy as np
 import torch
 
-from tapqir_tpu_torch import constraints
+from tapqir_tpu_torch import constraints, tracing
 from tapqir_tpu_torch.distributions.core import dirichlet_log_prob
 from tapqir_tpu_torch.distributions.ksmogn import (
     offset_gamma_factored_summed,
@@ -155,30 +155,32 @@ class crosstalk(cosmos):
         mtab_global = self._const["mtab_global"]
         Mf = mtab_global.shape[0]
 
-        tables = self._dye_tables(
-            ont, pi, lamda, prox, h, w, xs, ys, qm,
-            h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
-        )  # each (Mq, *lead, n, f, Q)
-        inner, term_hw, log_qm, term_q = (
-            torch.einsum("gqm,m...nfq->g...nf", onehot, t) for t in tables
-        )  # each (Mf, *lead, n, f)
+        with tracing.span("elbo.tables"):
+            tables = self._dye_tables(
+                ont, pi, lamda, prox, h, w, xs, ys, qm,
+                h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size,
+            )  # each (Mq, *lead, n, f, Q)
+            inner, term_hw, log_qm, term_q = (
+                torch.einsum("gqm,m...nfq->g...nf", onehot, t) for t in tables
+            )  # each (Mf, *lead, n, f)
 
-        if getattr(self, "use_factored", False):
-            spots = self._mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad)
-            out = offset_gamma_factored_summed(
-                obs.reshape(-1, ev_pad), _per_chain(b, gain, 3).reshape(-1),
-                _per_chain(spots, gain, 2).reshape(spots.shape[0], -1, ev_pad),
-                self._const["mtab_global_np"], 1.0 / gain,
-                data["offset_samples"], data["offset_logits"], ev=P * P,
-            )
-        else:
-            img = self._mixed_images(b, h, w, xs, ys, target_locs, alpha,
-                                     mtab_global, P, ev_pad)  # (Mf, *lead, n*f, C, EVP)
-            out = offset_gamma_log_prob_summed(
-                obs.reshape(-1, ev_pad), _per_chain(img, gain, 3).reshape(Mf, -1, ev_pad),
-                1.0 / gain, data["offset_samples"], data["offset_logits"],
-                event_ndims=1, ev=P * P,
-            )
-        loglik = out.reshape((Mf,) + lead + (n_, f_, C)).sum(-1)  # event dims (C, P, P)
+        with tracing.span("elbo.likelihood"):
+            if getattr(self, "use_factored", False):
+                spots = self._mixed_spots(h, w, xs, ys, target_locs, alpha, P, ev_pad)
+                out = offset_gamma_factored_summed(
+                    obs.reshape(-1, ev_pad), _per_chain(b, gain, 3).reshape(-1),
+                    _per_chain(spots, gain, 2).reshape(spots.shape[0], -1, ev_pad),
+                    self._const["mtab_global_np"], 1.0 / gain,
+                    data["offset_samples"], data["offset_logits"], ev=P * P,
+                )
+            else:
+                img = self._mixed_images(b, h, w, xs, ys, target_locs, alpha,
+                                         mtab_global, P, ev_pad)  # (Mf, *lead, n*f, C, EVP)
+                out = offset_gamma_log_prob_summed(
+                    obs.reshape(-1, ev_pad), _per_chain(img, gain, 3).reshape(Mf, -1, ev_pad),
+                    1.0 / gain, data["offset_samples"], data["offset_logits"],
+                    event_ndims=1, ev=P * P,
+                )
+            loglik = out.reshape((Mf,) + lead + (n_, f_, C)).sum(-1)  # event dims (C, P, P)
         local = (torch.exp(log_qm) * (inner + term_hw + loglik - log_qm - term_q)).sum(0)
         return local[..., None] / C

@@ -33,7 +33,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tapqir_tpu_torch import constraints
+from tapqir_tpu_torch import constraints, tracing
 from tapqir_tpu_torch.distributions.core import (
     affine_beta_concentrations,
     affine_beta_log_prob,
@@ -314,7 +314,8 @@ class hmm(cosmos):
         lph = halfnormal_log_prob(h, priors["height_std"])
         lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
         term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
-        loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)  # (M, *lead, n, F, C)
+        with tracing.span("elbo.likelihood"):
+            loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)  # (M, *lead, n, F, C)
 
         log_qm = torch.einsum("mk,...snfqk->m...snfq", mtab, torch.log(qm)) + torch.einsum(
             "mk,...snfqk->m...snfq", 1.0 - mtab, torch.log1p(-qm)

@@ -44,6 +44,10 @@ first rank and written by it at the real AOI count.
 Checkpoints (``.tapqir/<model>_model.tpqr``) use the JAX package's npz keys
 (``p::``, ``mu::``, ``nu::``, ``count::``, ``rng::key``, ``meta``), so each
 package resumes the other's checkpoints.
+
+The fit loop, the step and the ELBO open spans of
+:mod:`tapqir_tpu_torch.tracing` (``fit.*``, ``checkpoint.*``, ``step.*``,
+``elbo.*``), which cost one flag check each while tracing is off.
 """
 
 import json
@@ -56,6 +60,7 @@ import numpy as np
 import torch
 
 from tapqir_tpu_torch import __version__ as tapqir_version
+from tapqir_tpu_torch import tracing
 from tapqir_tpu_torch.device import resolve_device, resolve_dtype
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
 from tapqir_tpu_torch.parallel import sharding
@@ -369,28 +374,45 @@ class Model:
         vector) replace the random batch and draws; tests use them to take
         the JAX step's batch and draws. Returns the loss as a 0-dim tensor
         on the device."""
-        b1, b2, eps, lr = _ADAM_B1, _ADAM_B2, _ADAM_EPS, self.lr
         data = self._data_dev
-        Nt, F = self.data.Nt, self.data.F
-        if batch is None:
-            batch = self._draw_batch(generator)
+        with tracing.span("step.batch"):
+            if batch is None:
+                batch = self._draw_batch(generator)
         ndx, fidx, f_b = batch
-        win = {
-            k: v.detach().clone().requires_grad_(True)
-            for k, v in self.gather_windows(self.params, ndx, fidx).items()
-        }
-        loss = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, data,
-                                       draws=draws)
-        grads = torch.autograd.grad(loss, list(win.values()))
+        with tracing.span("step.gather"):
+            win = {
+                k: v.detach().clone().requires_grad_(True)
+                for k, v in self.gather_windows(self.params, ndx, fidx).items()
+            }
+        with tracing.span("elbo.forward"):
+            loss = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, data,
+                                           draws=draws)
+        with tracing.span("elbo.backward"):
+            grads = torch.autograd.grad(loss, list(win.values()))
+        opt = self.opt_state
+        with tracing.span("step.gather"):
+            mu_win = self.gather_windows(opt["mu"], ndx, fidx)
+            nu_win = self.gather_windows(opt["nu"], ndx, fidx)
+        with tracing.span("step.update"):
+            p_w, mu_w, nu_w = self._adam_windows(win, grads, mu_win, nu_win, ndx, fidx)
+        with torch.no_grad(), tracing.span("step.scatter"):
+            self.scatter_windows(self.params, p_w, ndx, fidx)
+            self.scatter_windows(opt["mu"], mu_w, ndx, fidx)
+            self.scatter_windows(opt["nu"], nu_w, ndx, fidx)
+        return loss.detach()
+
+    def _adam_windows(self, win, grads, mu_win, nu_win, ndx, fidx):
+        """The sparse Adam of :meth:`_sparse_step` in window space: bumps
+        the step counts of the window's rows and returns the new parameter
+        and moment windows."""
+        b1, b2, eps, lr = _ADAM_B1, _ADAM_B2, _ADAM_EPS, self.lr
+        Nt, F = self.data.Nt, self.data.F
         # non-finite gradient elements become zero (see the JAX package)
         g_win = {
             k: torch.where(torch.isfinite(g), g, torch.zeros_like(g))
             for k, g in zip(win, grads)
         }
-        opt = self.opt_state
-        mu_win = self.gather_windows(opt["mu"], ndx, fidx)
-        nu_win = self.gather_windows(opt["nu"], ndx, fidx)
-        counts = opt["count"]
+        counts = self.opt_state["count"]
 
         # per-row-group step counts: bump the gathered window rows only
         counts["g"] += 1
@@ -440,10 +462,7 @@ class Model:
                 p_w[name] = p.detach() - lr * (mu2 / c1) / (torch.sqrt(nu2 / c2) + eps)
                 mu_w[name] = mu2
                 nu_w[name] = nu2
-            self.scatter_windows(self.params, p_w, ndx, fidx)
-            self.scatter_windows(opt["mu"], mu_w, ndx, fidx)
-            self.scatter_windows(opt["nu"], nu_w, ndx, fidx)
-        return loss.detach()
+        return p_w, mu_w, nu_w
 
     def _restart_step(self, params, mu, nu, t, lr, generator, batch=None,
                       draws=None, row_generator=None):
@@ -521,13 +540,14 @@ class Model:
     def _run_chunk(self, nsteps: int) -> torch.Tensor:
         """``nsteps`` SVI steps with the generators of one seed of the seed
         stream; returns the (nsteps,) device tensor of losses."""
-        gen, row = self._generators(self._next_seed())
-        losses = torch.empty((nsteps,), dtype=self.dtype, device=self.device)
-        for i in range(nsteps):
-            if self._mesh is None:
-                losses[i] = self._sparse_step(gen)
-            else:
-                losses[i] = self._mesh_step(gen, row)
+        with tracing.span("fit.chunk"):
+            gen, row = self._generators(self._next_seed())
+            losses = torch.empty((nsteps,), dtype=self.dtype, device=self.device)
+            for i in range(nsteps):
+                if self._mesh is None:
+                    losses[i] = self._sparse_step(gen)
+                else:
+                    losses[i] = self._mesh_step(gen, row)
         return losses
 
     # -- the mesh ----------------------------------------------------------------
@@ -718,10 +738,13 @@ class Model:
         ``<log_dir>/<model>_trace.json`` (default ``log_dir``:
         ``<run_path>/profile``); returns its path. A first chunk of
         ``num_steps`` steps runs outside the trace, so that the kernels'
-        build and first launches stay out of it. The steps update the
-        parameters and the Adam state in place, so the parameters, the
-        moments, the per-row counts, the iteration and the seed are put
-        back afterwards: the model is left as it was found."""
+        build and first launches stay out of it. Tracing
+        (:mod:`tapqir_tpu_torch.tracing`) is on for the traced chunk, so its
+        spans are ``span::<name>`` ranges in the trace, and is then left as it
+        was. The steps update the parameters and the Adam state in place, so
+        the parameters, the moments, the per-row counts, the iteration and
+        the seed are put back afterwards: the model is left as it was
+        found."""
         log_dir = Path(log_dir) if log_dir else self.run_path / "profile"
         log_dir.mkdir(parents=True, exist_ok=True)
         trees = [self.params, self.opt_state["mu"], self.opt_state["nu"],
@@ -732,12 +755,16 @@ class Model:
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         out = log_dir / f"{self.name}_trace.json"
+        was_tracing = tracing.enabled()
         try:
             self._run_chunk(num_steps).cpu()  # warm-up; .cpu() waits for the card
+            tracing.enable()
             with torch.profiler.profile(activities=acts) as prof:
                 self._run_chunk(num_steps).cpu()
             prof.export_chrome_trace(str(out))
         finally:
+            if not was_tracing:
+                tracing.disable()
             with torch.no_grad():
                 for tree, old in zip(trees, saved):
                     for k, v in tree.items():
@@ -774,7 +801,9 @@ class Model:
             chunk = min(self.checkpoint_interval, remaining)
             try:
                 try:
-                    losses = self._run_chunk(chunk).cpu().numpy()  # one sync
+                    losses = self._run_chunk(chunk)
+                    with tracing.span("fit.device_wait"):
+                        losses = losses.cpu().numpy()  # one sync
                 except torch.cuda.OutOfMemoryError as err:
                     raise CudaOutOfMemoryError() from err
                 if not np.isfinite(losses).all():
@@ -849,54 +878,55 @@ class Model:
         ``full_checkpoint_every``). Collective on a mesh: the finite check
         counts every rank's parameters, the convergence verdict is the
         first rank's, and the first rank writes the gathered state."""
-        with torch.no_grad():
-            finite = torch.stack(
-                [torch.isfinite(v).all() for v in self.params.values()]
-            ).to(self.dtype)
-            if self._mesh is not None:
-                finite = sharding.all_reduce(finite, self._mesh.world) == self._mesh.size
-            finite = finite.cpu().numpy() > 0
-            for ok, k in zip(finite, self.params):
-                if not bool(ok):
-                    raise ValueError(f"Iteration #{self.iter}. Detected NaN values in {k}")
-            small_h = {
-                n: self._transforms[n](self.params[n]).cpu().numpy()
-                for n in self._small_params()
-            }
+        with tracing.span("fit.checkpoint"):
+            with torch.no_grad(), tracing.span("checkpoint.check"):
+                finite = torch.stack(
+                    [torch.isfinite(v).all() for v in self.params.values()]
+                ).to(self.dtype)
+                if self._mesh is not None:
+                    finite = sharding.all_reduce(finite, self._mesh.world) == self._mesh.size
+                finite = finite.cpu().numpy() > 0
+                for ok, k in zip(finite, self.params):
+                    if not bool(ok):
+                        raise ValueError(f"Iteration #{self.iter}. Detected NaN values in {k}")
+                small_h = {
+                    n: self._transforms[n](self.params[n]).cpu().numpy()
+                    for n in self._small_params()
+                }
 
-        # update rolling convergence series (constrained values)
-        rolling_max = 100
-        for name in self.conv_params:
-            if name == "-ELBO":
-                self._rolling.setdefault("-ELBO", []).append(float(self.iter_loss))
-            else:
-                val = np.asarray(small_h[name])
-                if val.ndim == 1:
-                    for i in range(len(val)):
-                        self._rolling.setdefault(f"{name}_{i}", []).append(float(val[i]))
+            # update rolling convergence series (constrained values)
+            rolling_max = 100
+            for name in self.conv_params:
+                if name == "-ELBO":
+                    self._rolling.setdefault("-ELBO", []).append(float(self.iter_loss))
                 else:
-                    self._rolling.setdefault(name, []).append(float(val))
-        for k in self._rolling:
-            self._rolling[k] = self._rolling[k][-rolling_max:]
+                    val = np.asarray(small_h[name])
+                    if val.ndim == 1:
+                        for i in range(len(val)):
+                            self._rolling.setdefault(f"{name}_{i}", []).append(float(val[i]))
+                    else:
+                        self._rolling.setdefault(name, []).append(float(val))
+            for k in self._rolling:
+                self._rolling[k] = self._rolling[k][-rolling_max:]
 
-        self.converged = False
-        if len(self._rolling["-ELBO"]) == rolling_max:
-            crit = all(
-                np.std(v, ddof=1) / np.std(v[-50:], ddof=1) < 1.05
-                for v in self._rolling.values()
-            )
-            if crit:
-                self.converged = True
-        if self._mesh is not None:
-            self.converged = bool(sharding.from_first(
-                torch.tensor([float(self.converged)], device=self.device),
-                self._mesh.world)[0])
+            self.converged = False
+            if len(self._rolling["-ELBO"]) == rolling_max:
+                crit = all(
+                    np.std(v, ddof=1) / np.std(v[-50:], ddof=1) < 1.05
+                    for v in self._rolling.values()
+                )
+                if crit:
+                    self.converged = True
+            if self._mesh is not None:
+                self.converged = bool(sharding.from_first(
+                    torch.tensor([float(self.converged)], device=self.device),
+                    self._mesh.world)[0])
 
-        if save_full:
-            self._write_checkpoint()
-        if self._mesh is None or self._mesh.is_main:
-            self._log_metrics(small_h)
-        logger.debug(f"Iteration #{self.iter}: Successful.")
+            if save_full:
+                self._write_checkpoint()
+            if self._mesh is None or self._mesh.is_main:
+                self._log_metrics(small_h)
+            logger.debug(f"Iteration #{self.iter}: Successful.")
 
     def _write_checkpoint(self):
         """Write the parameters, the optimizer state, the seed and the
@@ -904,52 +934,54 @@ class Model:
         arrays are gathered at the real AOI count (collective) and the
         first rank writes them, with the dense Adam's one ``count`` as the
         JAX package's mesh writes it."""
-        opt = self.opt_state
-        trees = (("p", self.params), ("mu", opt["mu"]), ("nu", opt["nu"]))
-        flat = {}
-        if self._mesh is not None:
-            trees = [(prefix, self.gather_tree(tree)) for prefix, tree in trees]
-            if not self._mesh.is_main:
-                return
-            flat["count"] = np.asarray(self._mesh_t, np.int32)
-        else:
-            trees = [(prefix, {k: v.detach().cpu().numpy() for k, v in tree.items()})
-                     for prefix, tree in trees + (("count", opt["count"]),)]
-        self.run_path.mkdir(parents=True, exist_ok=True)
-        for prefix, tree in trees:
-            for k, v in tree.items():
-                flat[f"{prefix}::{k}"] = v
-        flat["rng::key"] = seed_to_key(self._seed)
-        meta = {
-            "iter": self.iter,
-            "rolling": self._rolling,
-            "convergence_status": bool(self.converged),
-            "version": tapqir_version,
-        }
-        flat["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
-        tmp = self._checkpoint_path.with_name(self._checkpoint_path.name + ".tmp")
-        with open(tmp, "wb") as f:
-            np.savez(f, **flat)
-        tmp.replace(self._checkpoint_path)
+        with tracing.span("checkpoint.write"):
+            opt = self.opt_state
+            trees = (("p", self.params), ("mu", opt["mu"]), ("nu", opt["nu"]))
+            flat = {}
+            if self._mesh is not None:
+                trees = [(prefix, self.gather_tree(tree)) for prefix, tree in trees]
+                if not self._mesh.is_main:
+                    return
+                flat["count"] = np.asarray(self._mesh_t, np.int32)
+            else:
+                trees = [(prefix, {k: v.detach().cpu().numpy() for k, v in tree.items()})
+                         for prefix, tree in trees + (("count", opt["count"]),)]
+            self.run_path.mkdir(parents=True, exist_ok=True)
+            for prefix, tree in trees:
+                for k, v in tree.items():
+                    flat[f"{prefix}::{k}"] = v
+            flat["rng::key"] = seed_to_key(self._seed)
+            meta = {
+                "iter": self.iter,
+                "rolling": self._rolling,
+                "convergence_status": bool(self.converged),
+                "version": tapqir_version,
+            }
+            flat["meta"] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+            tmp = self._checkpoint_path.with_name(self._checkpoint_path.name + ".tmp")
+            with open(tmp, "wb") as f:
+                np.savez(f, **flat)
+            tmp.replace(self._checkpoint_path)
 
     def _log_metrics(self, small_h):
         """Append scalar metrics to ``.tapqir/logs/<model>/metrics.csv``."""
-        log_dir = self.run_path / "logs" / self.name
-        log_dir.mkdir(parents=True, exist_ok=True)
-        csv_path = log_dir / "metrics.csv"
-        scalars = {"iter": self.iter, "-ELBO": self.iter_loss}
-        for name, val in small_h.items():
-            val = np.asarray(val)
-            if val.ndim == 0:
-                scalars[name] = float(val)
-            elif val.ndim == 1 and val.size <= self.Q * 2:
-                for i, x in enumerate(val.ravel()):
-                    scalars[f"{name}_{i}"] = float(x)
-        write_header = not csv_path.exists()
-        with open(csv_path, "a") as f:
-            if write_header:
-                f.write(",".join(scalars.keys()) + "\n")
-            f.write(",".join(str(v) for v in scalars.values()) + "\n")
+        with tracing.span("checkpoint.log"):
+            log_dir = self.run_path / "logs" / self.name
+            log_dir.mkdir(parents=True, exist_ok=True)
+            csv_path = log_dir / "metrics.csv"
+            scalars = {"iter": self.iter, "-ELBO": self.iter_loss}
+            for name, val in small_h.items():
+                val = np.asarray(val)
+                if val.ndim == 0:
+                    scalars[name] = float(val)
+                elif val.ndim == 1 and val.size <= self.Q * 2:
+                    for i, x in enumerate(val.ravel()):
+                        scalars[f"{name}_{i}"] = float(x)
+            write_header = not csv_path.exists()
+            with open(csv_path, "a") as f:
+                if write_header:
+                    f.write(",".join(scalars.keys()) + "\n")
+                f.write(",".join(str(v) for v in scalars.values()) + "\n")
 
     def load_checkpoint(self, path=None, param_only=False, warnings=False):
         """Load a checkpoint written by either package from ``path`` (default:

@@ -23,7 +23,7 @@ import yaml
 from click.testing import CliRunner
 
 from tapqir_tpu.main import app as jax_app
-from tapqir_tpu_torch import main as cli
+from tapqir_tpu_torch import main as cli, tracing
 from tapqir_tpu_torch.models.model import seed_to_key
 from tapqir_tpu_torch.utils.config import load_config
 
@@ -199,7 +199,8 @@ def test_log_pages_the_log_file(workspaces, monkeypatch):
 
 def test_fit_profile_leaves_the_fit_as_it_was(workspaces, tmp_path):
     """``fit --profile 3 --cpu`` on an ingested workspace with a fit:
-    exit 0, a Chrome trace written, no restarts run, and the checkpoint's
+    exit 0, a Chrome trace written with the program's ``span::`` ranges in
+    each step, tracing off again, no restarts run, and the checkpoint's
     bytes, the parameters, the Adam state, the iteration and the seed as
     they were."""
     ws = Path(shutil.copytree(workspaces[0], tmp_path / "ws"))
@@ -221,6 +222,17 @@ def test_fit_profile_leaves_the_fit_as_it_was(workspaces, tmp_path):
     trace = ws / ".tapqir" / "profile" / "cosmos_trace.json"
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    ranges = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("name", "").startswith("span::"):
+            ranges.setdefault(e["name"][6:], []).append(float(e["ts"]))
+    (chunk_start,), steps = ranges["fit.chunk"], sorted(ranges["step.batch"])
+    assert len(steps) == 3 and chunk_start <= steps[0]
+    edges = steps + [float("inf")]
+    for name in ("step.update", "elbo.sites"):  # one in each step
+        assert [sum(a <= t < b for t in ranges[name])
+                for a, b in zip(edges, edges[1:])] == [1, 1, 1], name
+    assert not tracing.enabled()
     m = built[0]
     with np.load(ckpt) as z:
         for prefix, tree in (("p", m.params), ("mu", m.opt_state["mu"]),

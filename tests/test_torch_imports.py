@@ -92,7 +92,7 @@ def test_mesh_rank_workers_import_no_jax():
 
 
 PORT_SCRIPTS = sorted({p.name for p in (ROOT / "scripts").glob("*_torch.py")}
-                      | {"profile_torch_step.py", "time_kernel_sources.py"})
+                      | {"time_kernel_sources.py"})
 
 
 def _imported_modules(path):
