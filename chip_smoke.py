@@ -6,8 +6,8 @@ It needs one CUDA card and fails (non-zero exit, no result line) without
 one. Phases, each printing its findings; any failure is an exception:
 
 1. device: the card's name and power limit;
-2. build: compile the offset-Gamma kernels with nvcc for sm_90a (build
-   seconds, registers and spills);
+2. build: compile the offset-Gamma and sparse-Adam kernels with nvcc for
+   sm_90a (build seconds, registers and spills);
 3. the summed kernel against its plain PyTorch version at the slice's
    shapes (M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
    bins, float32: forward, concentration and rate gradients), then edge
@@ -176,7 +176,16 @@ one. Phases, each printing its findings; any failure is an exception:
     with respect to the unconstrained global parameters, single-chain and
     chain-batched (R=2), with the same batch and draws on both sides,
     within GLOBAL_SITE_TOL of float64 (tests/test_torch_global_sites.py's
-    tolerance); its launches compare, and are not counted.
+    tolerance); its launches compare, and are not counted;
+28. the sparse step's two kernels (``ops/sparse_adam.py``:
+    :func:`run_sparse_adam`): the window gather and the window Adam against
+    their plain versions at the cosmos, crosstalk and cosmos+hmm windows of
+    eLife DatasetA (10 AOIs x 512 frames, hmm's 10 AOIs x every frame;
+    float32, and float64 at cosmos's) - windows equal, parameters and
+    moments within SA_ULP ulps, step counts equal, two launches bitwise
+    equal - then both kernels and their plain versions timed with CUDA
+    events at the cosmos and crosstalk windows beside their bytes over
+    3.35 TB/s.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
@@ -3619,6 +3628,183 @@ def compare_factored(Kf, nb, EVP, ev, J, dtype, seed, fwd_tol, grad_tol,
     return errs
 
 
+# the sparse step's windows: 10 AOIs x 512 frames of eLife DatasetA
+SA_NT, SA_F, SA_N, SA_FB = 856, 790, 10, 512
+SA_ULP = 2  # the kernels against the plain version: parameters and moments
+
+
+def sparse_adam_leaves(model, Nt, F, K=2):
+    """name -> (shape, axes of ``param_partition``) of the parameters of
+    ``model`` ("cosmos", "crosstalk" or "cosmos+hmm") at Nt AOIs x F frames,
+    S=1 and K spots, in the models' order."""
+    C = 2 if model == "crosstalk" else 1
+    af = ((K, Nt, F, C), (None, "aoi", "frame", None))
+    hmm = model == "cosmos+hmm"
+    leaves = {} if hmm else {"pi_mean": ((C, 2), ()), "pi_size": ((C, 1), ())}
+    leaves["m_probs"] = (((K, 2, Nt, F, C), (None, None, "aoi", "frame", None)) if hmm
+                         else af)
+    for name, shape in (("proximity_loc", ()), ("proximity_size", ()), ("lamda_loc", (C,)),
+                        ("lamda_beta", (C,)), ("gain_loc", ()), ("gain_beta", ())):
+        leaves[name] = (shape, ())
+    for name in ("background_mean_loc", "background_std_loc"):
+        leaves[name] = ((Nt, 1, C), ("aoi", None, None))
+    for name in ("b_loc", "b_beta"):
+        leaves[name] = ((Nt, F, C), ("aoi", "frame", None))
+    for name in ("h_loc", "h_beta", "w_mean", "w_size", "x_mean", "y_mean", "size"):
+        leaves[name] = af
+    if model == "crosstalk":
+        leaves.update(alpha_mean=((C, 2), ()), alpha_size=((C, 1), ()))
+    if hmm:
+        leaves.update(init_mean=((C, 2), ()), init_size=((C, 1), ()),
+                      trans_mean=((C, 2, 2), ()), trans_size=((C, 2, 1), ()),
+                      z_trans=((Nt, F, C, 2, 2), ("aoi", "frame", None, None, None)))
+    return leaves
+
+
+def sparse_adam_case(model, Nt, F, n, f, dtype, seed, device):
+    """A window-space Adam step's inputs for ``model``'s leaves: the layout,
+    parameters, Adam state with step counts from 0 to 49, rows ``ndx``,
+    sorted frames ``fidx`` (None for ``f=None``: every frame) and window
+    gradients holding a NaN and an infinity. Made in numpy from ``seed``."""
+    from types import SimpleNamespace
+
+    from tapqir_tpu_torch.models.model import Model
+    from tapqir_tpu_torch.ops import sparse_adam as sa
+
+    rng = np.random.default_rng(seed)
+    leaves = sparse_adam_leaves(model, Nt, F)
+    parts = SimpleNamespace(param_partition=lambda: {k: ax for k, (_, ax) in leaves.items()})
+    groups, wspec = Model._row_groups(parts), Model._window_spec(parts)
+    t = dict(dtype=dtype, device=device)
+    params = {k: torch.tensor(rng.normal(size=shape), **t) for k, (shape, _) in leaves.items()}
+    mu = {k: torch.tensor(0.1 * rng.normal(size=shape), **t)
+          for k, (shape, _) in leaves.items()}
+    nu = {k: torch.tensor(0.01 * rng.random(size=shape), **t)
+          for k, (shape, _) in leaves.items()}
+    i32 = dict(dtype=torch.int32, device=device)
+    count = {"g": torch.tensor(rng.integers(0, 50), **i32),
+             "a": torch.tensor(rng.integers(0, 50, size=Nt), **i32),
+             "af": torch.tensor(rng.integers(0, 50, size=Nt * F), **i32)}
+    ndx = torch.tensor(rng.permutation(Nt)[:n], device=device)
+    fidx = None if f is None else torch.tensor(np.sort(rng.permutation(F)[:f]), device=device)
+    layout = sa.WindowLayout(params, groups, wspec, Nt, F, n, f)
+    grads = [torch.tensor(rng.normal(size=shape), **t) for shape in layout.shapes]
+    af = layout.names.index("h_loc")
+    grads[af].view(-1)[3] = float("nan")
+    grads[af].view(-1)[5] = float("inf")
+    opt = {"mu": mu, "nu": nu, "count": count}
+    return layout, params, opt, grads, ndx, fidx
+
+
+def _clone_case(params, opt):
+    return ({k: v.clone() for k, v in params.items()},
+            {"mu": {k: v.clone() for k, v in opt["mu"].items()},
+             "nu": {k: v.clone() for k, v in opt["nu"].items()},
+             "count": {k: v.clone() for k, v in opt["count"].items()}})
+
+
+def max_ulps(got, want):
+    """Largest distance in units in the last place of ``want``'s type
+    between two tensors of one floating dtype (equal non-finite values: 0)."""
+    itype = torch.int32 if got.dtype == torch.float32 else torch.int64
+    a, b = got.contiguous().view(itype).long(), want.contiguous().view(itype).long()
+    # order the bit patterns as the numbers: negative floats count down
+    top = 1 << (8 * got.element_size() - 1)
+    a = torch.where(a < 0, -(a + top), a)
+    b = torch.where(b < 0, -(b + top), b)
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def compare_sparse_adam(model, dtype=torch.float32, Nt=SA_NT, F=SA_F, n=SA_N, f=SA_FB,
+                        seed=0):
+    """The two sparse-Adam kernels against the plain versions on the card,
+    on one case of :func:`sparse_adam_case`: the gathered windows equal,
+    parameters and moments within SA_ULP units in the last place, counts
+    equal; each kernel launched twice on the same inputs gives bitwise
+    equal results. Returns the largest distances in ulps."""
+    from tapqir_tpu_torch.ops import sparse_adam as sa
+
+    layout, params, opt, grads, ndx, fidx = sparse_adam_case(model, Nt, F, n, f, dtype,
+                                                             seed, "cuda")
+    win = sa.window_gather(params, layout, ndx, fidx)
+    again = sa.window_gather(params, layout, ndx, fidx)
+    want = sa.window_gather_plain(params, layout, ndx, fidx)
+    for k in layout.names:
+        if not torch.equal(win[k], want[k]) or not torch.equal(win[k], again[k]):
+            raise RuntimeError(f"{model}: gathered window {k} differs from the plain one")
+    results = []
+    for route in ("kernel", "kernel", "plain"):
+        p, o = _clone_case(params, opt)
+        step = sa.window_adam if route == "kernel" else sa.window_adam_plain
+        step(p, o, want, grads, layout, ndx, fidx, 0.005)
+        results.append((p, o))
+    torch.cuda.synchronize()
+    (p1, o1), (p2, o2), (pp, op) = results
+    ulps = {}
+    for tree, a, b, c in (("p", p1, p2, pp), ("mu", o1["mu"], o2["mu"], op["mu"]),
+                          ("nu", o1["nu"], o2["nu"], op["nu"])):
+        for k in layout.names:
+            if not torch.equal(a[k], b[k]):
+                raise RuntimeError(f"{model}: two adam launches differ in {tree} {k}")
+            ulps[tree] = max(ulps.get(tree, 0), max_ulps(a[k], c[k]))
+    for k, c in op["count"].items():
+        if not (torch.equal(o1["count"][k], c) and torch.equal(o2["count"][k], c)):
+            raise RuntimeError(f"{model}: step counts {k} differ from the plain ones")
+    if max(ulps.values()) > SA_ULP:
+        raise RuntimeError(f"{model} {dtype}: the adam kernel is {ulps} ulps from the plain "
+                           f"version (at most {SA_ULP})")
+    return ulps
+
+
+def sparse_adam_bytes(layout, item):
+    """Bytes each kernel must move at ``layout``: the gather reads and writes
+    every window element; the update reads gradient, parameter and both
+    moments and writes the three back, and reads and writes each step
+    count; both read the rows and frames (int64)."""
+    W = layout.total
+    idx = 8 * (layout.n + (layout.f or 0))
+    positions = sum(layout.meta[5 * i] for i in range(3) if layout.meta[5 * i + 2])
+    return 2 * W * item + idx, 7 * W * item + 8 * positions + idx
+
+
+def run_sparse_adam(iters=200):
+    """Phase 28: the sparse step's two kernels against their plain versions
+    at the cosmos, crosstalk and cosmos+hmm windows of eLife DatasetA
+    (float32, and float64 at cosmos's), then each kernel and its plain
+    version timed with CUDA events at the cosmos and crosstalk windows
+    beside its bytes over 3.35 TB/s: device ms with the calls' launches
+    back to back (:func:`device_ms`) and a call's wall ms (:func:`time_ms`,
+    which the host's enqueueing sets)."""
+    from tapqir_tpu_torch.ops import sparse_adam as sa
+
+    checks = {f"{m} f={f}": compare_sparse_adam(m, f=f, seed=i)
+              for i, (m, f) in enumerate((("cosmos", SA_FB), ("crosstalk", SA_FB),
+                                          ("cosmos+hmm", None)))}
+    checks["cosmos float64"] = compare_sparse_adam("cosmos", torch.float64, seed=3)
+    timing = {}
+    for model in ("cosmos", "crosstalk"):
+        layout, params, opt, grads, ndx, fidx = sparse_adam_case(
+            model, SA_NT, SA_F, SA_N, SA_FB, torch.float32, 7, "cuda")
+        win = sa.window_gather_plain(params, layout, ndx, fidx)
+        b_gather, b_adam = sparse_adam_bytes(layout, 4)
+        for kname, kernel, plain, nbytes in (
+            ("gather", lambda: sa.window_gather(params, layout, ndx, fidx),
+             lambda: sa.window_gather_plain(params, layout, ndx, fidx), b_gather),
+            ("adam", lambda: sa.window_adam(params, opt, win, grads, layout, ndx, fidx, 0.005),
+             lambda: sa.window_adam_plain(params, opt, win, grads, layout, ndx, fidx, 0.005),
+             b_adam),
+        ):
+            call_ms, plain_call_ms = time_ms(kernel, iters), time_ms(plain, 20)
+            timing[f"{model} {kname}"] = {
+                "kernel_ms": device_ms(kernel, iters, call_ms),
+                "plain_ms": device_ms(plain, 1, plain_call_ms),
+                "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+                "bytes": nbytes, "bound_ms": 1e3 * nbytes / PEAK_BYTES_PER_S,
+                "window_elements": layout.total, "blocks": layout.blocks}
+    return {"checks_ulps": checks, "timing": timing,
+            "launches": {"gather": sa.gather.launches, "adam": sa.adam.launches}}
+
+
 def time_ms(fn, iters):
     """Mean ms per call with CUDA events, after one warm-up call."""
     fn()
@@ -3630,6 +3816,29 @@ def time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters, call_ms):
+    """Mean device ms per call of ``fn``, its launches run back to back: a
+    sleep kernel holds the card while the host enqueues all ``iters`` calls
+    (``call_ms``: a call's wall ms from :func:`time_ms`, here the host's),
+    so the host's time between launches is not counted (CUDA events).
+    None where the host could not enqueue them all within the sleep: the
+    launch queue holds about a thousand launches, so a call of the plain
+    path's ~500 runs alone."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    host_s = 2.0 * iters * call_ms * 1e-3
+    torch.cuda._sleep(int(host_s * 2e9))  # >= host_s at the card's <= 1980 MHz
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return None if enqueued > host_s else start.elapsed_time(end) / iters
 
 
 def _bound(nbytes, ops):
@@ -3705,6 +3914,7 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tapqir_tpu_torch.ops import offset_gamma as og
+    from tapqir_tpu_torch.ops import sparse_adam as sa
 
     t_start = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
@@ -3727,13 +3937,14 @@ def main():
     lap("1 device")
 
     # phase 2: build
-    og.library.get()
-    ptx = [ln.strip() for ln in og.library.build_log.splitlines()
-           if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    print(f"[build] {og.library.path.name} in {og.library.build_seconds:.1f} s "
-          f"(nvcc {' '.join(og.NVCC_FLAGS)})", flush=True)
-    for ln in ptx:
-        print(f"[build] {ln}", flush=True)
+    for lib in (og, sa):
+        lib.library.get()
+        ptx = [ln.strip() for ln in lib.library.build_log.splitlines()
+               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        print(f"[build] {lib.library.path.name} in {lib.library.build_seconds:.1f} s "
+              f"(nvcc {' '.join(lib.NVCC_FLAGS)})", flush=True)
+        for ln in ptx:
+            print(f"[build] {ln}", flush=True)
     lap("2 build")
 
     # phase 3: summed kernel against plain
@@ -4112,6 +4323,10 @@ def main():
         # phase 27: the global guide sites, float32 on the card vs float64
         global_sites = run_global_sites("cuda")
         lap("27 global sites")
+
+        # phase 28: the sparse step's window gather and Adam kernels
+        sparse = run_sparse_adam()
+        lap("28 sparse adam")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -4236,6 +4451,14 @@ def main():
     print(f"[global-sites] float32 on {name} ({smi}) vs float64 on the CPU, gradients of "
           f"the ELBO's global term (tolerance {GLOBAL_SITE_TOL} of max(|g64|, 1)): "
           f"{json.dumps(global_sites)}", flush=True)
+    print(f"[sparse-adam] kernels vs plain, largest ulps: {json.dumps(sparse['checks_ulps'])}",
+          flush=True)
+    for k, v in sparse["timing"].items():
+        print(f"[timing] sparse_adam {k} on {name} ({smi}): kernel {v['kernel_ms']} ms, "
+              f"plain {v['plain_ms']} ms, bound {v['bound_ms']:.6f} ms (bytes: "
+              f"{v['bytes']}); a call's wall ms {v['call_ms']:.4f}, plain "
+              f"{v['plain_call_ms']:.4f}; {v['window_elements']} window elements in "
+              f"{v['blocks']} blocks; library: none", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")

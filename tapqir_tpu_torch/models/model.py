@@ -4,7 +4,9 @@ tapqir_tpu/models/model.py).
 Parameters are a dict of unconstrained tensors; the optimizer is the JAX
 package's minibatch-sparse Adam in window space: only the subsampled AOI
 rows (and frames) of each parameter are read, stepped and written back,
-with per-row bias-correction step counts. The train loop is a plain Python
+with per-row bias-correction step counts (``ops/sparse_adam.py``: on a card
+one kernel launch gathers the parameter windows and one steps and writes
+back every window). The train loop is a plain Python
 loop over checkpoint chunks of ``checkpoint_interval`` steps (default 200);
 losses stay on the device during a chunk and are checked once per chunk, so
 the host never waits on the card inside a chunk.
@@ -63,6 +65,7 @@ from tapqir_tpu_torch import __version__ as tapqir_version
 from tapqir_tpu_torch import tracing
 from tapqir_tpu_torch.device import resolve_device, resolve_dtype
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError, TapqirFileNotFoundError
+from tapqir_tpu_torch.ops import sparse_adam
 from tapqir_tpu_torch.parallel import sharding
 from tapqir_tpu_torch.parallel.restarts import _derived_seed
 from tapqir_tpu_torch.utils.dataset import load as load_dataset
@@ -72,7 +75,7 @@ logger = logging.getLogger(__name__)
 
 CHECKPOINT_INTERVAL = 200
 MAX_CONSECUTIVE_RESTARTS = 10
-_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+_ADAM_B1, _ADAM_B2, _ADAM_EPS = sparse_adam.ADAM_B1, sparse_adam.ADAM_B2, sparse_adam.ADAM_EPS
 _SEED_MULT, _SEED_INC = 6364136223846793005, 1442695040888963407
 
 
@@ -155,6 +158,7 @@ class Model:
         self.run_path = None
         self.dtype = resolve_dtype(dtype)
         self.device = resolve_device(device)
+        self._layouts = {}  # the sparse step's window layouts, by batch shape
 
     # -- data ----------------------------------------------------------------
     @property
@@ -314,24 +318,6 @@ class Model:
             out[name] = rows
         return out
 
-    def scatter_windows(self, tree, win, ndx, fidx):
-        """Inverse of :meth:`gather_windows`. Unlike the JAX package, which
-        builds new arrays, this writes the windows back IN PLACE with
-        ``index_copy_``: the full parameter and Adam arrays are never copied.
-        Indices are unique, so the writes do not collide."""
-        wspec = self._window_spec()
-        for name, v in tree.items():
-            if name not in wspec:
-                v.copy_(win[name])
-                continue
-            a_ax, f_ax = wspec[name]
-            w = win[name]
-            if fidx is not None and f_ax is not None:
-                rows = v.index_select(a_ax, ndx)
-                rows.index_copy_(f_ax, fidx, w)
-                w = rows
-            v.index_copy_(a_ax, ndx, w)
-
     def gather_chain_windows(self, tree, ndx, fidx):
         """:meth:`gather_windows` with a leading chain axis: values (R,
         ...), AOI rows ``ndx`` (R, n) and frames ``fidx`` (R, f) (or None),
@@ -380,89 +366,29 @@ class Model:
                 batch = self._draw_batch(generator)
         ndx, fidx, f_b = batch
         with tracing.span("step.gather"):
-            win = {
-                k: v.detach().clone().requires_grad_(True)
-                for k, v in self.gather_windows(self.params, ndx, fidx).items()
-            }
+            layout = self._window_layout(ndx, fidx)
+            win = sparse_adam.window_gather(self.params, layout, ndx, fidx)
         with tracing.span("elbo.forward"):
             loss = -self.elbo_from_windows(win, generator, ndx, fidx, f_b, data,
                                            draws=draws)
         with tracing.span("elbo.backward"):
             grads = torch.autograd.grad(loss, list(win.values()))
-        opt = self.opt_state
-        with tracing.span("step.gather"):
-            mu_win = self.gather_windows(opt["mu"], ndx, fidx)
-            nu_win = self.gather_windows(opt["nu"], ndx, fidx)
         with tracing.span("step.update"):
-            p_w, mu_w, nu_w = self._adam_windows(win, grads, mu_win, nu_win, ndx, fidx)
-        with torch.no_grad(), tracing.span("step.scatter"):
-            self.scatter_windows(self.params, p_w, ndx, fidx)
-            self.scatter_windows(opt["mu"], mu_w, ndx, fidx)
-            self.scatter_windows(opt["nu"], nu_w, ndx, fidx)
+            sparse_adam.window_adam(self.params, self.opt_state, win, grads, layout, ndx,
+                                    fidx, self.lr)
         return loss.detach()
 
-    def _adam_windows(self, win, grads, mu_win, nu_win, ndx, fidx):
-        """The sparse Adam of :meth:`_sparse_step` in window space: bumps
-        the step counts of the window's rows and returns the new parameter
-        and moment windows."""
-        b1, b2, eps, lr = _ADAM_B1, _ADAM_B2, _ADAM_EPS, self.lr
-        Nt, F = self.data.Nt, self.data.F
-        # non-finite gradient elements become zero (see the JAX package)
-        g_win = {
-            k: torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-            for k, g in zip(win, grads)
-        }
-        counts = self.opt_state["count"]
-
-        # per-row-group step counts: bump the gathered window rows only
-        counts["g"] += 1
-        t_win = {}
-        if "a" in counts:
-            t_a = counts["a"].index_select(0, ndx) + 1
-            counts["a"].index_copy_(0, ndx, t_a)
-            t_win["a"] = t_a  # (n,)
-        if "af" in counts:
-            view = counts["af"].view(Nt, F)
-            rows = view.index_select(0, ndx)  # (n, F)
-            if fidx is not None:
-                t_af = rows.index_select(1, fidx) + 1
-                rows.index_copy_(1, fidx, t_af)
-            else:
-                t_af = rows + 1
-                rows = t_af
-            view.index_copy_(0, ndx, rows)
-            t_win["af"] = t_af  # (n, f_b)
-        # the bias correction of row groups is float32, as in the JAX package
-        corr = {
-            grp: (1.0 - b1 ** t.to(torch.float32), 1.0 - b2 ** t.to(torch.float32))
-            for grp, t in t_win.items()
-        }
-        groups = self._row_groups()
-        wspec = self._window_spec()
-        t_g = counts["g"]
-
-        p_w, mu_w, nu_w = {}, {}, {}
-        with torch.no_grad():
-            for name, p in win.items():
-                g, mu, nu = g_win[name], mu_win[name], nu_win[name]
-                mu2 = b1 * mu + (1.0 - b1) * g
-                nu2 = b2 * nu + (1.0 - b2) * g * g
-                kind, _ = groups[name]
-                if kind == "g":
-                    t = t_g.to(p.dtype)
-                    c1, c2 = 1.0 - b1**t, 1.0 - b2**t
-                else:
-                    a_ax, f_ax = wspec[name]
-                    c1, c2 = corr[kind]
-                    bshape = [1] * p.ndim
-                    bshape[a_ax] = c1.shape[0]
-                    if kind == "af":
-                        bshape[f_ax] = c1.shape[1]
-                    c1, c2 = c1.reshape(bshape), c2.reshape(bshape)
-                p_w[name] = p.detach() - lr * (mu2 / c1) / (torch.sqrt(nu2 / c2) + eps)
-                mu_w[name] = mu2
-                nu_w[name] = nu2
-        return p_w, mu_w, nu_w
+    def _window_layout(self, ndx, fidx):
+        """The :class:`~tapqir_tpu_torch.ops.sparse_adam.WindowLayout` of
+        the parameters' windows at this batch's shape, made once per shape."""
+        f = None if fidx is None else fidx.shape[0]
+        key = (ndx.shape[0], f, tuple((k, v.shape) for k, v in self.params.items()))
+        layout = self._layouts.get(key)
+        if layout is None:
+            layout = self._layouts[key] = sparse_adam.WindowLayout(
+                self.params, self._row_groups(), self._window_spec(), self.data.Nt,
+                self.data.F, ndx.shape[0], f)
+        return layout
 
     def _restart_step(self, params, mu, nu, t, lr, generator, batch=None,
                       draws=None, row_generator=None):

@@ -15,6 +15,11 @@ config chunks of 1, 2 and 4 (M = 1, 2, 3, 4, 5, 16), and launch each kernel
 twice on the same inputs, requiring bitwise-equal outputs. A launch over R
 chains' images with a rate per chain (the restart step's) must equal R
 single-chain launches bitwise.
+
+The sparse step's two kernels (``ops/sparse_adam.py``: the window gather
+and the window Adam) are held against their plain versions at the cosmos,
+crosstalk and cosmos+hmm layouts (the plain versions are tested on the CPU
+in test_torch_sparse_adam.py), and a cosmos fit launches each once a step.
 """
 
 import importlib.util
@@ -234,3 +239,96 @@ def test_chain_batched_launcher_checks_its_rates(cs):
     n = og.summed_fwd.launches
     og.summed_fwd(x, a, rate.repeat(3), g, w, 196)
     assert og.summed_fwd.launches == n + 1
+
+
+SPARSE_ADAM_CASES = {
+    "cosmos": dict(model="cosmos", f=512),
+    "crosstalk": dict(model="crosstalk", f=512),
+    "hmm-every-frame": dict(model="cosmos+hmm", f=None),
+    "cosmos-every-frame": dict(model="cosmos", f=None, Nt=37, F=23, n=5),
+    "crosstalk-ragged": dict(model="crosstalk", f=301, n=7),
+    "cosmos-float64": dict(model="cosmos", f=512, dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", list(SPARSE_ADAM_CASES))
+def test_sparse_adam_kernels_match_plain(cs, case):
+    """The window gather and the window Adam against their plain versions
+    at the cosmos, crosstalk and cosmos+hmm layouts (eLife DatasetA's 856
+    AOIs x 790 frames unless given): windows and step counts equal,
+    parameters and moments within chip_smoke.SA_ULP ulps, and two launches
+    on the same inputs bitwise equal (chip_smoke.compare_sparse_adam)."""
+    c = dict(SPARSE_ADAM_CASES[case])
+    ulps = cs.compare_sparse_adam(c.pop("model"), c.pop("dtype", torch.float32), seed=11,
+                                  **c)
+    assert max(ulps.values()) <= cs.SA_ULP
+
+
+def test_sparse_adam_launcher_checks_its_inputs(cs):
+    from tapqir_tpu_torch.ops import sparse_adam as sa
+
+    layout, params, opt, grads, ndx, fidx = cs.sparse_adam_case("cosmos", 30, 20, 4, 8,
+                                                                torch.float32, 0, "cuda")
+    names = layout.names
+    p = [params[k] for k in names]
+    mu, nu = [opt["mu"][k] for k in names], [opt["nu"][k] for k in names]
+
+    def launch(p=p, mu=mu, nu=nu, grads=grads, ndx=ndx, fidx=fidx, count=opt["count"]):
+        sa.adam(layout, p, mu, nu, grads, ndx, fidx, count, 0.005)
+
+    n = sa.adam.launches
+    with pytest.raises(TypeError):  # a float16 parameter
+        launch(p=[p[0].half()] + p[1:])
+    with pytest.raises(TypeError):  # a float64 gradient
+        launch(grads=[grads[0].double()] + grads[1:])
+    with pytest.raises(TypeError):  # a moment on the CPU
+        launch(mu=mu[:-1] + [mu[-1].cpu()])
+    af = names.index("h_loc")
+    with pytest.raises(ValueError):  # a transposed gradient
+        bad = grads[af].transpose(1, 2).contiguous().transpose(1, 2)
+        launch(grads=grads[:af] + [bad] + grads[af + 1:])
+    with pytest.raises(ValueError):  # a leaf of another shape
+        launch(grads=grads[:af] + [grads[af][:, :, :4]] + grads[af + 1:])
+    with pytest.raises(TypeError):  # int32 rows
+        launch(ndx=ndx.int())
+    with pytest.raises(TypeError):  # int64 step counts
+        launch(count={**opt["count"], "af": opt["count"]["af"].long()})
+    with pytest.raises(ValueError):  # no per-AOI-frame counts
+        launch(count={k: v for k, v in opt["count"].items() if k != "af"})
+    assert sa.adam.launches == n
+    launch()
+    assert sa.adam.launches == n + 1
+
+
+def test_cosmos_run_launches_each_sparse_adam_kernel_once_a_step(cs, tmp_path):
+    """One cosmos checkpoint chunk of ``Model.run`` on the card launches
+    the window gather and the window Adam once a step each, and the step
+    and ELBO spans count no sync."""
+    from tapqir_tpu_torch import tracing
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.ops import sparse_adam as sa
+    from tapqir_tpu_torch.utils.dataset import save
+    from tapqir_tpu_torch.utils.simulate import simulate
+
+    save(simulate("cosmos", N=8, F=16, C=1, P=14, seed=0, params=cs.SIM_PARAMS,
+                  device="cuda"), tmp_path)
+    model = models["cosmos"](device="cuda")
+    model.load(tmp_path)
+    model.init(lr=0.005, nbatch_size=3, fbatch_size=8)
+    model.checkpoint_interval = 5
+    model._run_chunk(1)  # the kernels' builds and first launches
+    torch.cuda.synchronize()
+    gathers, adams = sa.gather.launches, sa.adam.launches
+    tracing.reset()
+    tracing.enable()
+    try:
+        model.run(5)
+    finally:
+        tracing.disable()
+    spans = tracing.summary()
+    tracing.reset()
+    assert spans["step.batch"]["calls"] == 5
+    assert (sa.gather.launches - gathers, sa.adam.launches - adams) == (5, 5)
+    assert "step.scatter" not in spans
+    syncs = {k: a["syncs"] for k, a in spans.items() if k.startswith(("step.", "elbo."))}
+    assert sum(syncs.values()) == 0, syncs

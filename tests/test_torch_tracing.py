@@ -26,8 +26,8 @@ PARAMS = {"pi": 0.15, "width": 1.4, "gain": 7.0, "lamda": 0.15, "proximity": 0.2
 XTALK = dict(PARAMS, pi=0.3, alpha=[[0.85, 0.15], [0.1, 0.9]])
 CHUNK, STEPS = 3, 6  # two checkpoint chunks
 # span -> (calls per step or per chunk, the parent it opens in)
-PER_STEP = {"step.batch": (1, "fit.chunk"), "step.gather": (2, "fit.chunk"),
-            "step.update": (1, "fit.chunk"), "step.scatter": (1, "fit.chunk"),
+PER_STEP = {"step.batch": (1, "fit.chunk"), "step.gather": (1, "fit.chunk"),
+            "step.update": (1, "fit.chunk"),
             "elbo.forward": (1, "fit.chunk"), "elbo.backward": (1, "fit.chunk"),
             "elbo.sites": (1, "elbo.forward"), "elbo.tables": (1, "elbo.forward"),
             "elbo.likelihood": (1, "elbo.forward")}
