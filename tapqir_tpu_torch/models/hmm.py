@@ -167,7 +167,12 @@ class hmm(cosmos):
         ``frame_axis`` is the mesh row: the prefix scan runs over it
         (``sharded_cumulative_logmatmulexp``), the pair of the previous
         shard's last frame and this shard's first arrives shifted by one
-        shard, and only the first frame shard scores the chain's start."""
+        shard, and only the first frame shard scores the chain's start.
+
+        Spans (``tracing``): ``elbo.sites`` (the packed draw and the
+        sites), ``elbo.chain`` (the z-chain's scan, marginals and terms),
+        ``elbo.tables`` (the per-frame tables) and, inside it,
+        ``elbo.likelihood``."""
         S, K = self.S, self.K
         P = self.data.P
         priors = self.priors
@@ -215,33 +220,34 @@ class hmm(cosmos):
         wc1, wc0 = affine_beta_concentrations(w_mean, w_size, wmin, wmax)
         xc1, xc0 = affine_beta_concentrations(x_mean, size, -lim, lim)
         yc1, yc0 = affine_beta_concentrations(y_mean, size, -lim, lim)
-        concs = [(g["gain_loc"] * g["gain_beta"])[..., None],
-                 g["lamda_loc"] * g["lamda_beta"],
-                 g["init_mean"] * g["init_size"], g["trans_mean"] * g["trans_size"],
-                 pg1[..., None], pg0[..., None], b_loc * b_beta, h_loc * h_beta,
-                 wc1, xc1, yc1, wc0, xc0, yc0]
-        if c:  # each chain packed apart
-            packed = std_gamma_sample_packed(concs, generator, draws, batch_dims=c)
-        else:
-            packed = std_gamma_sample_packed(concs, generator, draws)
-        (g_gain, g_lamda, g_init, g_trans, g_p1, g_p0,
-         gb, gh, gw1, gx1, gy1, gw0, gx0, gy0) = packed
-        sites = {
-            "gain": g_gain[..., 0] / g["gain_beta"],
-            "lamda": g_lamda / g["lamda_beta"],
-            "init": dirichlet_from_gammas(g_init),  # (*lead, Q, 1+S)
-            "trans": dirichlet_from_gammas(g_trans),  # (*lead, Q, 1+S, 1+S)
-            "proximity": prox_high * beta_from_gamma_pair(g_p1[..., 0], g_p0[..., 0]),
-        }
-        global_term = self._global_term(g, sites).to(self.dtype) / n_shards
-        # the samples enter the local terms in the model's dtype
-        gain, lamda, init, trans, prox = (
-            sites[k].to(self.dtype) for k in ("gain", "lamda", "init", "trans", "proximity"))
-        b = gb / b_beta
-        h = gh / h_beta
-        w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
-        xs = -lim + 2 * lim * beta_from_gamma_pair(gx1, gx0)
-        ys = -lim + 2 * lim * beta_from_gamma_pair(gy1, gy0)
+        with tracing.span("elbo.sites"):
+            concs = [(g["gain_loc"] * g["gain_beta"])[..., None],
+                     g["lamda_loc"] * g["lamda_beta"],
+                     g["init_mean"] * g["init_size"], g["trans_mean"] * g["trans_size"],
+                     pg1[..., None], pg0[..., None], b_loc * b_beta, h_loc * h_beta,
+                     wc1, xc1, yc1, wc0, xc0, yc0]
+            if c:  # each chain packed apart
+                packed = std_gamma_sample_packed(concs, generator, draws, batch_dims=c)
+            else:
+                packed = std_gamma_sample_packed(concs, generator, draws)
+            (g_gain, g_lamda, g_init, g_trans, g_p1, g_p0,
+             gb, gh, gw1, gx1, gy1, gw0, gx0, gy0) = packed
+            sites = {
+                "gain": g_gain[..., 0] / g["gain_beta"],
+                "lamda": g_lamda / g["lamda_beta"],
+                "init": dirichlet_from_gammas(g_init),  # (*lead, Q, 1+S)
+                "trans": dirichlet_from_gammas(g_trans),  # (*lead, Q, 1+S, 1+S)
+                "proximity": prox_high * beta_from_gamma_pair(g_p1[..., 0], g_p0[..., 0]),
+            }
+            global_term = self._global_term(g, sites).to(self.dtype) / n_shards
+            # the samples enter the local terms in the model's dtype
+            gain, lamda, init, trans, prox = (
+                sites[k].to(self.dtype) for k in ("gain", "lamda", "init", "trans", "proximity"))
+            b = gb / b_beta
+            h = gh / h_beta
+            w = wmin + (wmax - wmin) * beta_from_gamma_pair(gw1, gw0)
+            xs = -lim + 2 * lim * beta_from_gamma_pair(gx1, gx0)
+            ys = -lim + 2 * lim * beta_from_gamma_pair(gy1, gy0)
 
         # per-AOI Delta sites (MAP background hyper-parameters)
         bm = pc("background_mean_loc")[..., 0, :]  # (*lead, n, C)
@@ -253,93 +259,98 @@ class hmm(cosmos):
         ).sum((-2, -1))
 
         # z-chain: marginals gamma_f from the prefix products
-        A = pc("z_trans")  # (*lead, n, F, C, 1+S, 1+S), rows q(z_f | z_{f-1})
-        logA = torch.log(A)
-        if frame_axis is None:
-            alphas = cumulative_logmatmulexp(logA, -4)
-        else:  # the global prefix products of this shard's frames
-            alphas = sharded_cumulative_logmatmulexp(logA, -4, frame_axis)
-        gamma = torch.exp(alphas[..., 0, :])  # (*lead, n, F, C, 1+S)
-        lp_init = log_probs_z(init, ont)  # (*lead, n, Q, 1+S)
-        lp_trans = select_ontarget(safe_log(expand_offtarget(trans)), ont)  # (*lead, n, Q, 1+S, 1+S)
-        q0 = A[..., 0, :, 0, :]  # (*lead, n, C, 1+S): the chain's start
-        init_term = (q0 * (lp_init - torch.log(q0))).sum((-2, -1))  # (*lead, n)
-        xi = gamma[..., :-1, :, :, None] * A[..., 1:, :, :, :]  # (*lead, n, F-1, C, 1+S, 1+S)
-        chain_term = (
-            xi * (lp_trans.unsqueeze(-4) - logA[..., 1:, :, :, :])
-        ).sum((-4, -3, -2, -1))
-        if frame_axis is None:
-            chain_term = init_term + chain_term
-        else:
-            # the pair (the previous shard's last frame, this shard's first);
-            # every shard takes the shift, so that the collectives of the
-            # backward pass match, and the first keeps the chain's start
-            gamma_prev = shift_from_previous(gamma[..., -1, :, :], frame_axis)
-            bxi = gamma_prev[..., None] * A[..., 0, :, :, :]  # (*lead, n, C, 1+S, 1+S)
-            boundary = (bxi * (lp_trans - logA[..., 0, :, :, :])).sum((-3, -2, -1))
-            first = torch.tensor(frame_axis.rank == 0, device=init_term.device)
-            chain_term = torch.where(first, init_term, boundary) + chain_term
+        with tracing.span("elbo.chain"):
+            A = pc("z_trans")  # (*lead, n, F, C, 1+S, 1+S), rows q(z_f | z_{f-1})
+            logA = torch.log(A)
+            if frame_axis is None:
+                alphas = cumulative_logmatmulexp(logA, -4)
+            else:  # the global prefix products of this shard's frames
+                alphas = sharded_cumulative_logmatmulexp(logA, -4, frame_axis)
+            gamma = torch.exp(alphas[..., 0, :])  # (*lead, n, F, C, 1+S)
+            lp_init = log_probs_z(init, ont)  # (*lead, n, Q, 1+S)
+            lp_trans = select_ontarget(safe_log(expand_offtarget(trans)), ont)  # (*lead, n, Q, 1+S, 1+S)
+            q0 = A[..., 0, :, 0, :]  # (*lead, n, C, 1+S): the chain's start
+            init_term = (q0 * (lp_init - torch.log(q0))).sum((-2, -1))  # (*lead, n)
+            xi = gamma[..., :-1, :, :, None] * A[..., 1:, :, :, :]  # (*lead, n, F-1, C, 1+S, 1+S)
+            chain_term = (
+                xi * (lp_trans.unsqueeze(-4) - logA[..., 1:, :, :, :])
+            ).sum((-4, -3, -2, -1))
+            if frame_axis is None:
+                chain_term = init_term + chain_term
+            else:
+                # the pair (the previous shard's last frame, this shard's first);
+                # every shard takes the shift, so that the collectives of the
+                # backward pass match, and the first keeps the chain's start
+                gamma_prev = shift_from_previous(gamma[..., -1, :, :], frame_axis)
+                bxi = gamma_prev[..., None] * A[..., 0, :, :, :]  # (*lead, n, C, 1+S, 1+S)
+                boundary = (bxi * (lp_trans - logA[..., 0, :, :, :])).sum((-3, -2, -1))
+                first = torch.tensor(frame_axis.rank == 0, device=init_term.device)
+                chain_term = torch.where(first, init_term, boundary) + chain_term
 
-        lp_b = gamma_log_prob(b, (bm / bs)[..., None, :] ** 2, (bm / bs**2)[..., None, :])
-        lq_b = gamma_log_prob(b, b_loc * b_beta, b_beta)
+        with tracing.span("elbo.tables"):
+            lp_b = gamma_log_prob(b, (bm / bs)[..., None, :] ** 2, (bm / bs**2)[..., None, :])
+            lq_b = gamma_log_prob(b, b_loc * b_beta, b_beta)
 
-        # per-frame terms conditioned on z = s
-        qm = tf["m_probs"](torch.movedim(win["m_probs"], c + 1, -1))  # (*lead, 1+S, n, F, C, K)
-        mtab = const["mtab"]  # (M, K)
-        lpm1, lpm0 = log_probs_m(lamda, K)  # (*lead, Q, 1+K, K)
-        log_pm_sum = torch.einsum("mk,...qtk->m...tq", mtab, lpm1) + torch.einsum(
-            "mk,...qtk->m...tq", 1.0 - mtab, lpm0
-        )  # (M, *lead, 1+K, Q)
-        size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
-        size_sp = size_sp.reshape(size_sp.shape + (1,) * 4)  # against (n, F, Q, K)
-        lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
-            ys, 0.0, 2.0, -lim, lim
-        )
-        lpxy_sp = affine_beta_log_prob(
-            xs, 0.0, size_sp, -lim, lim
-        ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
-        lpxy_t = torch.where(
-            const["spec_tk"][:, None, None, None, :], lpxy_sp.unsqueeze(-5),
-            lpxy_ns.unsqueeze(-5),
-        )  # (*lead, 1+K, n, F, Q, K)
-        term_xy = torch.einsum("mk,...tnfqk->m...tnfq", mtab, lpxy_t)  # (M, *lead, 1+K, n, F, Q)
-        # over (m, z, theta): theta summed out, z kept for the chain
-        T_full = (
-            const["lpt"][:, :, None, None, None]  # (1+S, 1+K, 1, 1, 1)
-            + log_pm_sum.unsqueeze(-2).unsqueeze(-2).unsqueeze(-5)  # (M, *lead, 1, 1+K, 1, 1, Q)
-            + term_xy.unsqueeze(-5)  # (M, *lead, 1, 1+K, n, F, Q)
-        )
-        inner = torch.logsumexp(T_full, dim=-4)  # (M, *lead, 1+S, n, F, Q)
+            # per-frame terms conditioned on z = s
+            qm = tf["m_probs"](torch.movedim(win["m_probs"], c + 1, -1))  # (*lead, 1+S, n, F, C, K)
+            mtab = const["mtab"]  # (M, K)
+            lpm1, lpm0 = log_probs_m(lamda, K)  # (*lead, Q, 1+K, K)
+            log_pm_sum = torch.einsum("mk,...qtk->m...tq", mtab, lpm1) + torch.einsum(
+                "mk,...qtk->m...tq", 1.0 - mtab, lpm0
+            )  # (M, *lead, 1+K, Q)
+            size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
+            size_sp = size_sp.reshape(size_sp.shape + (1,) * 4)  # against (n, F, Q, K)
+            lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
+                ys, 0.0, 2.0, -lim, lim
+            )
+            lpxy_sp = affine_beta_log_prob(
+                xs, 0.0, size_sp, -lim, lim
+            ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
+            lpxy_t = torch.where(
+                const["spec_tk"][:, None, None, None, :], lpxy_sp.unsqueeze(-5),
+                lpxy_ns.unsqueeze(-5),
+            )  # (*lead, 1+K, n, F, Q, K)
+            term_xy = torch.einsum("mk,...tnfqk->m...tnfq", mtab, lpxy_t)  # (M, *lead, 1+K, n, F, Q)
+            # over (m, z, theta): theta summed out, z kept for the chain
+            T_full = (
+                const["lpt"][:, :, None, None, None]  # (1+S, 1+K, 1, 1, 1)
+                + log_pm_sum.unsqueeze(-2).unsqueeze(-2).unsqueeze(-5)  # (M, *lead, 1, 1+K, 1, 1, Q)
+                + term_xy.unsqueeze(-5)  # (M, *lead, 1, 1+K, n, F, Q)
+            )
+            inner = torch.logsumexp(T_full, dim=-4)  # (M, *lead, 1+S, n, F, Q)
 
-        lph = halfnormal_log_prob(h, priors["height_std"])
-        lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
-        term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
-        with tracing.span("elbo.likelihood"):
-            loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain, data)  # (M, *lead, n, F, C)
+            lph = halfnormal_log_prob(h, priors["height_std"])
+            lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
+            term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
+            # the likelihood keeps its place between the tables, so that the
+            # backward pass sums each shared input's gradients in the same order
+            with tracing.span("elbo.likelihood"):
+                loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain,
+                                          data)  # (M, *lead, n, F, C)
 
-        log_qm = torch.einsum("mk,...snfqk->m...snfq", mtab, torch.log(qm)) + torch.einsum(
-            "mk,...snfqk->m...snfq", 1.0 - mtab, torch.log1p(-qm)
-        )  # (M, *lead, 1+S, n, F, Q)
-        # q(m | z) restricted to the configs feasible given z and
-        # renormalised: given z > 0 the all-zero m has zero model
-        # probability, and the unrestricted guide would make the ELBO -inf
-        # at its own init (m_probs = 0.5)
-        lfm = const["log_feasible_m"]  # (M, 1+S)
-        log_qm = log_qm + lfm.reshape(lfm.shape[:1] + (1,) * c + lfm.shape[1:] + (1, 1, 1))
-        log_qm = log_qm - torch.logsumexp(log_qm, dim=0, keepdim=True)
-        wq = torch.exp(log_qm)
-        # zero-weight configs can carry -1e30 costs: neutralise them exactly
-        log_qm = torch.where(wq > 0.0, log_qm, torch.zeros_like(log_qm))
-        lqh = gamma_log_prob(h, h_loc * h_beta, h_beta)
-        lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
-        lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
-        lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
-        term_q = torch.einsum("mk,...nfqk->m...nfq", mtab, lqh + lqw + lqx + lqy)
+            log_qm = torch.einsum("mk,...snfqk->m...snfq", mtab, torch.log(qm)) + torch.einsum(
+                "mk,...snfqk->m...snfq", 1.0 - mtab, torch.log1p(-qm)
+            )  # (M, *lead, 1+S, n, F, Q)
+            # q(m | z) restricted to the configs feasible given z and
+            # renormalised: given z > 0 the all-zero m has zero model
+            # probability, and the unrestricted guide would make the ELBO -inf
+            # at its own init (m_probs = 0.5)
+            lfm = const["log_feasible_m"]  # (M, 1+S)
+            log_qm = log_qm + lfm.reshape(lfm.shape[:1] + (1,) * c + lfm.shape[1:] + (1, 1, 1))
+            log_qm = log_qm - torch.logsumexp(log_qm, dim=0, keepdim=True)
+            wq = torch.exp(log_qm)
+            # zero-weight configs can carry -1e30 costs: neutralise them exactly
+            log_qm = torch.where(wq > 0.0, log_qm, torch.zeros_like(log_qm))
+            lqh = gamma_log_prob(h, h_loc * h_beta, h_beta)
+            lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
+            lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
+            lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
+            term_q = torch.einsum("mk,...nfqk->m...nfq", mtab, lqh + lqw + lqx + lqy)
 
-        ell = (
-            wq * (inner + (term_hw + loglik - term_q).unsqueeze(-4) - log_qm)
-        ).sum(0)  # (*lead, 1+S, n, F, Q)
-        frames_term = (torch.movedim(gamma, -1, -4) * ell).sum(-4) + lp_b - lq_b  # (*lead, n, F, C)
+            ell = (
+                wq * (inner + (term_hw + loglik - term_q).unsqueeze(-4) - log_qm)
+            ).sum(0)  # (*lead, 1+S, n, F, Q)
+            frames_term = (torch.movedim(gamma, -1, -4) * ell).sum(-4) + lp_b - lq_b  # (*lead, n, F, C)
         local_sum = (frames_term.sum((-2, -1)) + chain_term) * mask
         return global_term + (aoi_term / frame_shards + local_sum.sum(-1)) * scale_n
 

@@ -123,6 +123,50 @@ def test_on_records_every_span_of_the_fit(tmp_path, name):
         assert agg["total_ns"] - agg["self_ns"] == children.get(k, 0), k
 
 
+# cosmos+hmm's ELBO spans -> the parent each opens in: the likelihood sits
+# between the per-frame tables' statements (moving it would reorder the
+# backward pass's sums), so its span opens inside ``elbo.tables``
+HMM_ELBO = {"elbo.sites": "elbo.forward", "elbo.chain": "elbo.forward",
+            "elbo.tables": "elbo.forward", "elbo.likelihood": "elbo.tables"}
+
+
+def test_hmm_step_records_the_chain_spans(tmp_path):
+    """One cosmos+hmm ``_sparse_step`` with tracing on records each ELBO
+    span once a step, inside ``elbo.forward``, with no sync; the chain's
+    span holds its own time (its scan and terms)."""
+    model = _model(tmp_path, "cosmos+hmm")
+    tracing.enable()
+    model._sparse_step(torch.Generator().manual_seed(3))
+    tracing.disable()
+    spans = tracing.summary()
+    assert set(HMM_ELBO) | {"elbo.forward"} <= set(spans)
+    for k, parent in HMM_ELBO.items():
+        agg = spans[k]
+        assert agg["calls"] == 1 and agg["parents"] == {parent: 1}, k
+        assert 0 < agg["self_ns"] <= agg["total_ns"] and agg["syncs"] == 0, k
+    assert spans["elbo.forward"]["parents"] == {}
+    assert spans["elbo.tables"]["total_ns"] - spans["elbo.tables"]["self_ns"] == \
+        spans["elbo.likelihood"]["total_ns"]
+
+
+def test_hmm_step_is_bitwise_the_same_with_tracing_off_and_on(tmp_path):
+    """Two cosmos+hmm steps from the same state and seed, tracing off and
+    on: the losses, parameters and moments are bitwise equal."""
+    out = []
+    for on in (False, True):
+        model = _model(tmp_path / str(on), "cosmos+hmm")
+        if on:
+            tracing.enable()
+        gen = torch.Generator().manual_seed(5)
+        losses = [model._sparse_step(gen) for _ in range(2)]
+        tracing.disable()
+        out.append((losses, model.params, model.opt_state["mu"]))
+    (l0, p0, m0), (l1, p1, m1) = out
+    assert all(torch.equal(a, b) for a, b in zip(l0, l1))
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]) and torch.equal(m0[k], m1[k]), k
+
+
 def test_spans_under_the_profiler_are_kept_out_of_the_summary(tmp_path):
     """A chunk run under a recording ``torch.profiler``: its spans are
     ``span::`` ranges of the trace, nested as they opened, and go to
@@ -180,12 +224,13 @@ def test_syncs_count_against_the_innermost_span_and_are_not_shown(monkeypatch, r
 
 
 @pytest.mark.cuda
-def test_the_step_makes_no_sync_and_the_chunk_waits_once(tmp_path):
+@pytest.mark.parametrize("name", ["cosmos", "cosmos+hmm"])
+def test_the_step_makes_no_sync_and_the_chunk_waits_once(tmp_path, name):
     """On the card: a two-chunk fit's step and ELBO spans count no sync,
     and each chunk's ``fit.device_wait`` counts its one."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the sync counter counts CUDA syncs")
-    model = _model(tmp_path, device="cuda")
+    model = _model(tmp_path, name, device="cuda")
     model._run_chunk(1)  # the kernel's build and first launches
     torch.cuda.synchronize()
     tracing.enable()
