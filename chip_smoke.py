@@ -6,8 +6,8 @@ It needs one CUDA card and fails (non-zero exit, no result line) without
 one. Phases, each printing its findings; any failure is an exception:
 
 1. device: the card's name and power limit;
-2. build: compile the offset-Gamma and sparse-Adam kernels with nvcc for
-   sm_90a (build seconds, registers and spills);
+2. build: compile the offset-Gamma, sparse-Adam and spot-render kernels
+   with nvcc for sm_90a (build seconds, registers and spills);
 3. the summed kernel against its plain PyTorch version at the slice's
    shapes (M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
    bins, float32: forward, concentration and rate gradients), then edge
@@ -185,7 +185,16 @@ one. Phases, each printing its findings; any failure is an exception:
     moments within SA_ULP ulps, step counts equal, two launches bitwise
     equal - then both kernels and their plain versions timed with CUDA
     events at the cosmos and crosstalk windows beside their bytes over
-    3.35 TB/s.
+    3.35 TB/s;
+29. the spot render's two kernels (``ops/spot_render.py``:
+    :func:`run_spot_render`): the concentration and the gradients of b, h,
+    w, xs, ys and gain against the plain render in float64 at the cosmos
+    (10 x 512), hmm (10 x 790) and R=4 restart windows (float32 within
+    SR_F32_TOL, float64 within SR_F64_TOL of the largest magnitude, two
+    launches bitwise equal), one cosmos and one cosmos+hmm ELBO through
+    the kernels (one launch each) against the plain render on the card,
+    then the kernels' and the plain version's forward and backward timed
+    with CUDA events beside their bytes over 3.35 TB/s.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
@@ -3805,6 +3814,209 @@ def run_sparse_adam(iters=200):
             "launches": {"gather": sa.gather.launches, "adam": sa.adam.launches}}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the spot render's two kernels
+# ---------------------------------------------------------------------------
+
+# the render's windows at eLife DatasetA: images a chain and chains (None:
+# no chain axis) - cosmos's 10 AOIs x 512 frames, hmm's 10 AOIs x every
+# frame, the restart step's R=4 chains of cosmos's window
+SR_CASES = {"cosmos": (5120, None), "hmm": (7900, None), "restarts R=4": (5120, 4)}
+# the kernels against the plain version in float64 on the same inputs, the
+# largest difference over the largest magnitude of each output: float64
+# kernels, and float32 kernels (the float32 plain version's own error is
+# reported beside it)
+SR_F64_TOL = 1e-12
+SR_F32_TOL = 1e-5
+SR_GRADS = ("b", "h", "w", "xs", "ys", "gain")
+
+
+def spot_render_case(nb, R=None, K=2, P=14, EVP=256, dtype=torch.float64, seed=0,
+                     device="cpu"):
+    """Inputs of ``spot_concentration`` at eLife-like values (backgrounds
+    ~150, heights up to 6000, widths 0.75-2.25, spots anywhere within the
+    AOI) for ``nb`` images a chain of (n, f, C) = (nb, 1, 1), ``R`` chains
+    with a gain each (None: no chain axis, one gain), and the gradient ``go``
+    of the (M, *lead, nb, EVP) concentration. Made in numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lead = () if R is None else (R,)
+    img = lead + (nb, 1, 1)
+    lim = (P + 1) / 2
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    inputs = {
+        "b": t(rng.uniform(100, 200, img)),
+        "h": t(rng.uniform(50, 6000, img + (K,))),
+        "w": t(rng.uniform(0.75, 2.25, img + (K,))),
+        "xs": t(rng.uniform(-lim, lim, img + (K,))),
+        "ys": t(rng.uniform(-lim, lim, img + (K,))),
+        "target_locs": t((P - 1) / 2 + rng.uniform(-0.5, 0.5, img + (2,))),
+        "gain": t(rng.uniform(5, 9, lead)),
+    }
+    go = t(rng.standard_normal((1 << K,) + lead + (nb, EVP)))
+    return inputs, go
+
+
+def spot_render_grads(fn, inputs, go, P, EVP):
+    """``fn`` (``spot_concentration`` or its plain version) on ``inputs``:
+    the concentration and the gradients of SR_GRADS for ``go``."""
+    from tapqir_tpu_torch.infer.discrete import m_configs
+
+    leaves = {k: v.detach().clone().requires_grad_(k in SR_GRADS) for k, v in inputs.items()}
+    K = leaves["h"].shape[-1]
+    out = fn(*leaves.values(), m_configs(K), P, EVP)
+    grads = torch.autograd.grad(out, [leaves[k] for k in SR_GRADS], go)
+    return out.detach(), dict(zip(SR_GRADS, grads))
+
+
+def scaled_err(got, want):
+    """Largest difference over the largest magnitude of ``want`` (float64)."""
+    got, want = got.to(torch.float64), want.to(torch.float64)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-300))
+
+
+def compare_spot_render(nb, R=None, dtype=torch.float32, seed=0, K=2, P=14, EVP=256):
+    """The render kernels against the plain version on the card: the
+    concentration and every gradient of one case of :func:`spot_render_case`
+    in ``dtype`` against the plain version in float64 on the same inputs
+    (SR_F64_TOL or SR_F32_TOL), and two launches bitwise equal. Returns the
+    errors by output (and the float32 plain version's beside them)."""
+    from tapqir_tpu_torch.ops import spot_render as sr
+
+    inputs, go = spot_render_case(nb, R, K, P, EVP, dtype, seed, "cuda")
+    out, grads = spot_render_grads(sr.spot_concentration, inputs, go, P, EVP)
+    out2, grads2 = spot_render_grads(sr.spot_concentration, inputs, go, P, EVP)
+    if not torch.equal(out, out2) or any(not torch.equal(grads[k], grads2[k]) for k in grads):
+        raise RuntimeError(f"spot render nb={nb} R={R} {dtype}: two launches differ")
+    ref_out, ref_grads = spot_render_grads(
+        sr.spot_concentration_plain, {k: v.double() for k, v in inputs.items()}, go.double(),
+        P, EVP)
+    errs = {"out": scaled_err(out, ref_out),
+            **{f"d{k}": scaled_err(grads[k], ref_grads[k]) for k in SR_GRADS}}
+    tol = SR_F64_TOL if dtype == torch.float64 else SR_F32_TOL
+    if dtype == torch.float32:
+        p_out, p_grads = spot_render_grads(sr.spot_concentration_plain, inputs, go, P, EVP)
+        errs["plain_float32"] = {"out": scaled_err(p_out, ref_out),
+                                 **{f"d{k}": scaled_err(p_grads[k], ref_grads[k])
+                                    for k in SR_GRADS}}
+    worst = max(v for k, v in errs.items() if k != "plain_float32")
+    if not worst <= tol:
+        raise RuntimeError(f"spot render nb={nb} R={R} {dtype}: {errs} (at most {tol})")
+    return errs
+
+
+def compare_elbo_routes(model_name="cosmos", dtype="double", N=6, F=16, nbatch=3, fbatch=8,
+                        seed=0):
+    """One ELBO and its window gradients of ``model_name`` on the card
+    through the render kernels and again through the plain render, on the
+    same batch and draws (one generator seed): returns the loss's relative
+    difference and the windows' largest scaled one, and the launches of
+    each render kernel in the kernel route."""
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.ops import sparse_adam
+    from tapqir_tpu_torch.ops import spot_render as sr
+    from tapqir_tpu_torch.utils.dataset import save
+    from tapqir_tpu_torch.utils.simulate import simulate
+
+    cosmos_module = importlib.import_module("tapqir_tpu_torch.models.cosmos")
+    with tempfile.TemporaryDirectory() as tmp:
+        save(simulate("cosmos", N=N, F=F, C=1, P=14, seed=seed, params=SIM_PARAMS,
+                      device="cuda"), tmp)
+        model = models[model_name](device="cuda", dtype=dtype)
+        model.load(tmp)
+    model.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    batch = model._draw_batch(gen)
+
+    def run(render):
+        prev = cosmos_module.spot_concentration
+        cosmos_module.spot_concentration = render
+        try:
+            gen.manual_seed(seed + 1)
+            layout = model._window_layout(batch[0], batch[1])
+            win = sparse_adam.window_gather(model.params, layout, batch[0], batch[1])
+            loss = -model.elbo_from_windows(win, gen, *batch, model._data_dev)
+            grads = torch.autograd.grad(loss, list(win.values()))
+        finally:
+            cosmos_module.spot_concentration = prev
+        return loss.detach(), dict(zip(win, grads))
+
+    n = (sr.render.launches, sr.render_grad.launches)
+    loss, grads = run(sr.spot_concentration)
+    launches = (sr.render.launches - n[0], sr.render_grad.launches - n[1])
+    p_loss, p_grads = run(sr.spot_concentration_plain)
+    torch.cuda.synchronize()
+    return {"loss_rel": float(((loss - p_loss).abs() / p_loss.abs()).double()),
+            "grads_scaled": max(scaled_err(grads[k], p_grads[k]) for k in grads),
+            "launches": launches}
+
+
+def spot_render_bytes(M, nb, EVP, K, R, item):
+    """Bytes each kernel must move: the forward reads the per-image inputs
+    (b, 4 per spot, the target) and each chain's gain and writes the (M, nb,
+    EVP) concentration; the backward reads those inputs and the
+    concentration's gradient and writes the 2 + 4K per-image gradients and
+    the gains'."""
+    per_image = (1 + 4 * K + 2) * nb * item + R * item
+    plane = M * nb * EVP * item
+    return per_image + plane, per_image + plane + (2 + 4 * K) * nb * item + R * item
+
+
+def run_spot_render(iters=200):
+    """Phase 29: the render's two kernels against the plain version at the
+    cosmos, hmm and R=4 restart windows of eLife DatasetA (float32, and
+    float64 at cosmos's and R=4's), the ELBO and window gradients of cosmos
+    and cosmos+hmm through the kernels against the plain render on the
+    card, then each kernel and the plain version's forward and backward
+    timed with CUDA events beside its bytes over 3.35 TB/s."""
+    from tapqir_tpu_torch.infer.discrete import m_configs
+    from tapqir_tpu_torch.ops import spot_render as sr
+
+    checks = {}
+    for i, (name, (nb, R)) in enumerate(SR_CASES.items()):
+        checks[name] = compare_spot_render(nb, R, torch.float32, seed=i)
+    for i, name in enumerate(("cosmos", "restarts R=4")):
+        nb, R = SR_CASES[name]
+        checks[f"{name} float64"] = compare_spot_render(nb, R, torch.float64, seed=10 + i)
+    elbo = {m: compare_elbo_routes(m) for m in ("cosmos", "cosmos+hmm")}
+    for m, e in elbo.items():
+        if e["launches"] != (1, 1) or not (e["loss_rel"] <= SR_F64_TOL
+                                           and e["grads_scaled"] <= SR_F64_TOL):
+            raise RuntimeError(f"{m}: the ELBO through the render kernels {e}")
+    timing = {}
+    for name, (nb, R) in SR_CASES.items():
+        inputs, go = spot_render_case(nb, R, dtype=torch.float32, seed=20, device="cuda")
+        M, EVP = go.shape[0], go.shape[-1]
+        bytes_fwd, bytes_bwd = spot_render_bytes(M, go[0].numel() // EVP, EVP, 2,
+                                                 1 if R is None else R, 4)
+        # the plain version takes the table on the card, as the model's
+        # constant was: a host table would be copied, and waited for, per call
+        for route, fn, mtab in (
+                ("kernel", sr.spot_concentration, m_configs(2)),
+                ("plain", sr.spot_concentration_plain,
+                 torch.as_tensor(m_configs(2), dtype=torch.float32, device="cuda"))):
+            leaves = {k: v.clone().requires_grad_(k in SR_GRADS) for k, v in inputs.items()}
+            args = (*leaves.values(), mtab, 14, EVP)
+            fwd = lambda: fn(*args)  # noqa: E731
+            out = fwd()
+            grad_in = [leaves[k] for k in SR_GRADS]
+            bwd = lambda: torch.autograd.grad(out, grad_in, go, retain_graph=True)  # noqa: E731
+            n = 10 if route == "plain" else iters
+            f_call, b_call = time_ms(fwd, n), time_ms(bwd, n)
+            timing[f"{name} {route}"] = {
+                "fwd_ms": device_ms(fwd, n, f_call), "bwd_ms": device_ms(bwd, n, b_call),
+                "fwd_call_ms": f_call, "bwd_call_ms": b_call}
+        timing[f"{name} kernel"].update(
+            bytes_fwd=bytes_fwd, bytes_bwd=bytes_bwd,
+            bound_fwd_ms=1e3 * bytes_fwd / PEAK_BYTES_PER_S,
+            bound_bwd_ms=1e3 * bytes_bwd / PEAK_BYTES_PER_S)
+    return {"checks": checks, "elbo": elbo, "timing": timing,
+            "launches": {"render": sr.render.launches, "render_grad": sr.render_grad.launches}}
+
+
 def time_ms(fn, iters):
     """Mean ms per call with CUDA events, after one warm-up call."""
     fn()
@@ -3915,6 +4127,7 @@ def main():
         return 1
     from tapqir_tpu_torch.ops import offset_gamma as og
     from tapqir_tpu_torch.ops import sparse_adam as sa
+    from tapqir_tpu_torch.ops import spot_render as sr
 
     t_start = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
@@ -3937,7 +4150,7 @@ def main():
     lap("1 device")
 
     # phase 2: build
-    for lib in (og, sa):
+    for lib in (og, sa, sr):
         lib.library.get()
         ptx = [ln.strip() for ln in lib.library.build_log.splitlines()
                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -4327,6 +4540,10 @@ def main():
         # phase 28: the sparse step's window gather and Adam kernels
         sparse = run_sparse_adam()
         lap("28 sparse adam")
+
+        # phase 29: the spot render's forward and backward kernels
+        render = run_spot_render()
+        lap("29 spot render")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -4459,6 +4676,11 @@ def main():
               f"{v['bytes']}); a call's wall ms {v['call_ms']:.4f}, plain "
               f"{v['plain_call_ms']:.4f}; {v['window_elements']} window elements in "
               f"{v['blocks']} blocks; library: none", flush=True)
+    print(f"[spot-render] kernels vs plain float64, largest scaled differences: "
+          f"{json.dumps(render['checks'])}; ELBO through the kernels vs the plain render: "
+          f"{json.dumps(render['elbo'])}", flush=True)
+    for k, v in render["timing"].items():
+        print(f"[timing] spot_render {k} on {name} ({smi}): {json.dumps(v)}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")

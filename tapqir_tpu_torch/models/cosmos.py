@@ -64,6 +64,7 @@ from tapqir_tpu_torch.infer.discrete import (
     safe_log,
 )
 from tapqir_tpu_torch.models.model import Model
+from tapqir_tpu_torch.ops.spot_render import spot_concentration
 from tapqir_tpu_torch.parallel import sharding
 
 DEFAULT_PRIORS = {
@@ -517,18 +518,18 @@ class cosmos(Model):
         none; all chains in one kernel launch, images chain-major, each
         chain with its rate 1 / gain.
 
-        Default: spots rendered spot-last (*lead, n, f, C, K, EVP), the (M,
-        *lead, batch, EVP) concentration by one einsum over configs, and
-        the event sum in the summed kernel. With ``use_factored = True`` set
-        on the model (as on the JAX package's): spots rendered spot-major,
-        and the configs assembled inside the factored kernel from ``b /
-        gain`` and the per-spot ``spots / gain``."""
+        Default: the (M, *lead, batch, EVP) concentration of every config
+        from :func:`spot_concentration` (on a card one render kernel
+        forward and one backward), and the event sum in the summed kernel.
+        With ``use_factored = True`` set on the model (as on the JAX
+        package's): spots rendered spot-major, and the configs assembled
+        inside the factored kernel from ``b / gain`` and the per-spot
+        ``spots / gain``."""
         *lead, n_, f_, C_, ev_pad = obs.shape
         lead = tuple(lead)
         K = self.K
         P = self.data.P
-        mtab = self._const["mtab"]
-        nfc = n_ * f_ * C_
+        M = self._const["mtab"].shape[0]
         if getattr(self, "use_factored", False):
             spots = self._spots_kernel_layout(
                 h, w, xs, ys, target_locs, P, ev_pad
@@ -539,20 +540,15 @@ class cosmos(Model):
                 data["offset_samples"], data["offset_logits"], ev=P * P,
             )
         else:
-            gauss = gaussian_spots_flat(
-                h, w, xs, ys, target_locs, P, ev_pad
-            )  # (*lead, n, f, C, K, EVP)
-            gauss_flat = gauss.reshape(lead + (nfc, K, ev_pad))
-            img_flat = b.reshape(lead + (nfc, 1)) + torch.einsum(
-                "mk,...xkp->m...xp", mtab, gauss_flat
-            )  # (M, *lead, nfc, EVP)
+            conc = spot_concentration(
+                b, h, w, xs, ys, target_locs, gain, m_configs(K), P, ev_pad
+            )  # (M, *lead, n * f * C, EVP)
             out = offset_gamma_log_prob_summed(
-                obs.reshape(-1, ev_pad),
-                _per_chain(img_flat, gain, 2).reshape(mtab.shape[0], -1, ev_pad),
+                obs.reshape(-1, ev_pad), conc.reshape(M, -1, ev_pad),
                 1.0 / gain, data["offset_samples"], data["offset_logits"],
                 event_ndims=1, ev=P * P,
             )
-        return out.reshape((mtab.shape[0],) + lead + (n_, f_, C_))
+        return out.reshape((M,) + lead + (n_, f_, C_))
 
     # -- posterior probabilities ----------------------------------------------
     @staticmethod

@@ -232,9 +232,12 @@ class WindowLayout:
 
 
 class _Library:
-    """The compiled kernel library, built once per process and source."""
+    """The compiled kernel library of CUDA source ``src``, built once per
+    process and source into ``_build/lib<stem>_<hash>.so`` (the spot render's
+    library, ``ops/spot_render.py``, is built the same way)."""
 
-    def __init__(self):
+    def __init__(self, src=_SRC, stem="sparse_adam"):
+        self.src, self.stem = src, stem
         self._lib = None
         self._lock = threading.Lock()
         self.build_seconds = None
@@ -246,17 +249,20 @@ class _Library:
         with self._lock:
             if self._lib is None:
                 lib = self._load(self._build())
-                if lib.sa_threads() != THREADS:
-                    raise RuntimeError(f"{self.path.name}: {lib.sa_threads()} threads a "
-                                       f"block, the wrapper lays out {THREADS}")
-                self.max_leaves = lib.sa_max_leaves()
+                self._check(lib)
                 self._lib = lib
             return self._lib
 
+    def _check(self, lib):
+        if lib.sa_threads() != THREADS:
+            raise RuntimeError(f"{self.path.name}: {lib.sa_threads()} threads a "
+                               f"block, the wrapper lays out {THREADS}")
+        self.max_leaves = lib.sa_max_leaves()
+
     def _build(self) -> Path:
-        src = _SRC.read_bytes()
+        src = self.src.read_bytes()
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _BUILD / f"libsparse_adam_{tag}.so"
+        out = _BUILD / f"lib{self.stem}_{tag}.so"
         self.path = out
         if out.exists():
             self.build_seconds = 0.0
@@ -268,12 +274,12 @@ class _Library:
         _BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.src)],
                               capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{self.build_log}")
+            raise RuntimeError(f"nvcc failed for {self.src}:\n{self.build_log}")
         os.replace(tmp, out)
         return out
 

@@ -20,6 +20,11 @@ The sparse step's two kernels (``ops/sparse_adam.py``: the window gather
 and the window Adam) are held against their plain versions at the cosmos,
 crosstalk and cosmos+hmm layouts (the plain versions are tested on the CPU
 in test_torch_sparse_adam.py), and a cosmos fit launches each once a step.
+
+The spot render's two kernels (``ops/spot_render.py``) are held against
+the plain render in float64 at the cosmos, hmm and R=4 restart windows (the
+plain version is tested on the CPU in test_torch_spot_render.py), and one
+cosmos or cosmos+hmm ELBO launches each once and matches the plain route.
 """
 
 import importlib.util
@@ -332,3 +337,73 @@ def test_cosmos_run_launches_each_sparse_adam_kernel_once_a_step(cs, tmp_path):
     assert "step.scatter" not in spans
     syncs = {k: a["syncs"] for k, a in spans.items() if k.startswith(("step.", "elbo."))}
     assert sum(syncs.values()) == 0, syncs
+
+
+SPOT_RENDER_CASES = {
+    "cosmos": dict(nb=5120),
+    "hmm": dict(nb=7900),
+    "restarts-R4": dict(nb=5120, R=4),
+    "cosmos-float64": dict(nb=5120, dtype=torch.float64),
+    "hmm-float64": dict(nb=7900, dtype=torch.float64),
+    "restarts-R4-float64": dict(nb=5120, R=4, dtype=torch.float64),
+    "K1-odd-P": dict(nb=301, K=1, P=7, EVP=64),
+    "K3-odd-P-float64": dict(nb=97, R=2, K=3, P=9, EVP=96, dtype=torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", list(SPOT_RENDER_CASES))
+def test_spot_render_kernels_match_plain(cs, case):
+    """The spot render's forward and backward kernels against the plain
+    version in float64 on the same inputs at the cosmos (10 x 512), hmm (10 x
+    790) and R=4 restart windows: the concentration and the gradients of b,
+    h, w, xs, ys and gain within chip_smoke.SR_F64_TOL (float64) or
+    SR_F32_TOL (float32) of the largest magnitude, and two launches bitwise
+    equal (chip_smoke.compare_spot_render)."""
+    errs = cs.compare_spot_render(seed=5, **SPOT_RENDER_CASES[case])
+    tol = cs.SR_F64_TOL if SPOT_RENDER_CASES[case].get("dtype") == torch.float64 \
+        else cs.SR_F32_TOL
+    assert max(v for k, v in errs.items() if k != "plain_float32") <= tol
+
+
+def test_spot_render_launcher_checks_its_inputs(cs):
+    from tapqir_tpu_torch.infer.discrete import m_configs
+    from tapqir_tpu_torch.ops.offset_gamma import config_masks
+    from tapqir_tpu_torch.ops import spot_render as sr
+
+    inputs, go = cs.spot_render_case(40, 2, dtype=torch.float32, device="cuda")
+    flat = [inputs[k].reshape(80, -1) for k in ("b", "h", "w", "xs", "ys", "target_locs")]
+    args = [flat[0].reshape(80)] + flat[1:] + [inputs["gain"]]
+    masks = config_masks(m_configs(2), 2)
+    out = torch.empty((4, 80, 256), device="cuda")
+
+    def launch(args=args, masks=masks, P=14, EVP=256, out=out):
+        sr.render(args, masks, P, EVP, out=out)
+
+    n = sr.render.launches
+    with pytest.raises(TypeError):  # a float64 height
+        launch(args=args[:1] + [args[1].double()] + args[2:])
+    with pytest.raises(ValueError):  # a transposed width
+        launch(args=args[:2] + [args[2].t().contiguous().t()] + args[3:])
+    with pytest.raises(ValueError):  # fewer lanes than pixels
+        launch(EVP=128, out=out[:, :, :128].contiguous())
+    with pytest.raises(ValueError):  # 80 images in 3 chains
+        launch(args=args[:6] + [torch.ones(3, device="cuda")])
+    with pytest.raises(ValueError):  # an output of another shape
+        launch(out=out[:2].contiguous())
+    with pytest.raises(ValueError):  # 7 spots
+        launch(args=args[:1] + [torch.ones(80, 7, device="cuda")] + args[2:])
+    assert sr.render.launches == n
+    launch()
+    assert sr.render.launches == n + 1
+
+
+@pytest.mark.parametrize("model", ["cosmos", "cosmos+hmm"])
+def test_elbo_through_the_render_kernels(cs, model):
+    """One ELBO of cosmos and of cosmos+hmm through
+    ``elbo_from_windows`` on the card launches each render kernel once, and
+    its loss and window gradients match the plain render's on the same
+    batch and draws (float64, within chip_smoke.SR_F64_TOL)."""
+    res = cs.compare_elbo_routes(model)
+    assert res["launches"] == (1, 1)
+    assert res["loss_rel"] <= cs.SR_F64_TOL
+    assert res["grads_scaled"] <= cs.SR_F64_TOL
