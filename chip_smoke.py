@@ -6,8 +6,9 @@ It needs one CUDA card and fails (non-zero exit, no result line) without
 one. Phases, each printing its findings; any failure is an exception:
 
 1. device: the card's name and power limit;
-2. build: compile the offset-Gamma, sparse-Adam and spot-render kernels
-   with nvcc for sm_90a (build seconds, registers and spills);
+2. build: every CUDA library of ``csrc/native.py``'s registry (the
+   offset-Gamma, sparse-Adam and spot-render kernels) with nvcc for sm_90a
+   (build seconds, registers and spills);
 3. the summed kernel against its plain PyTorch version at the slice's
    shapes (M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
    bins, float32: forward, concentration and rate gradients), then edge
@@ -205,9 +206,11 @@ command of phases 20-21 and 25, and each script of phase 26. Phases 10-21 print 
 ingest: by stage) and their peak device memory; every phase prints its
 wall time at the end.
 
-The second-to-last line is a JSON object with one entry per kernel, its
-launches summed over the paths 7-24 (over every rank in 22-24) and 26; the last
-line is {"ok": true, "device": {...}}.
+The kernels' launch counts cover every kernel of the port
+(``csrc/native.py``'s ``launch_counts``). The second-to-last line is a JSON
+object with one entry per likelihood kernel, its launches summed over the
+paths 7-24 (over every rank in 22-24) and 26; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import gc
@@ -353,16 +356,31 @@ def _sync(device):
 
 
 def _reset_launches():
-    from tapqir_tpu_torch.ops import offset_gamma as og
+    """Every kernel's launch count to 0 (the models declare every kernel)."""
+    import tapqir_tpu_torch.models  # noqa: F401
+    from tapqir_tpu_torch.csrc import native
 
-    for launcher in og.LAUNCHERS.values():
-        launcher.launches = 0
+    for kernel in native.KERNELS:
+        kernel.launches = 0
 
 
 def _read_launches():
-    from tapqir_tpu_torch.ops import offset_gamma as og
+    from tapqir_tpu_torch.csrc import native
 
-    return {name: launcher.launches for name, launcher in og.LAUNCHERS.items()}
+    return native.launch_counts()
+
+
+def _step_kernels(model, steps, forward=0, restart_steps=0):
+    """The launches on the card of the window and render kernels in
+    ``steps`` sparse steps of ``model``, ``restart_steps`` restart steps
+    (whose Adam is dense) and ``forward`` forward-only ELBOs: a gather and
+    an Adam each sparse step and, where the ELBO renders its spots in the
+    render kernel (cosmos and cosmos+hmm without ``use_factored``), a render
+    each ELBO and a render_grad each gradient."""
+    want = {"gather": steps, "adam": steps}
+    if model.name != "crosstalk" and not getattr(model, "use_factored", False):
+        want.update(render=steps + restart_steps + forward, render_grad=steps + restart_steps)
+    return want
 
 
 def prepare_dataset(workdir, Nt=856, F=790, P=14, J=61, device="cuda", n_chunk=8, C=1,
@@ -566,8 +584,9 @@ def run_cli_fit(workdir, nbatch=10, fbatch=512, num_iter=200, device="cuda"):
 
 def check_cli_fit(res, num_iter, device="cuda"):
     """Raise unless phase 10 exited 0 on ``device``, took ``num_iter`` steps
-    (one summed-statistics launch each on the card, no other kernel) and
-    wrote its files."""
+    (one summed-statistics launch each on the card and the window and render
+    kernels of :func:`_step_kernels`, no other kernel) and wrote its
+    files."""
     m = res["model"]
     if res["code"] != 0 or m is None:
         raise RuntimeError(f"CLI fit exited with {res['code']}")
@@ -577,7 +596,7 @@ def check_cli_fit(res, num_iter, device="cuda"):
         raise RuntimeError(f"CLI fit: iteration {res['iter_before']} -> {m.iter}")
     want = dict.fromkeys(res["launches"], 0)
     if m.device.type == "cuda":
-        want["summed_stats"] = num_iter
+        want.update(summed_stats=num_iter, **_step_kernels(m, num_iter))
     if res["launches"] != want:
         raise RuntimeError(f"CLI fit: kernel launches {res['launches']}, expected {want}")
     for f in ("cosmos_params.tpqr", "cosmos_summary.csv", ".tapqir/config.yaml"):
@@ -806,7 +825,8 @@ def run_cli_hmm_fit(workdir, nbatch=10, num_iter=200, device="cuda"):
 def check_cli_hmm_fit(res, num_iter, device="cuda"):
     """Raise unless phase 12 exited 0 on ``device`` with a warm start,
     stepped 0 -> ``num_iter`` with one summed-statistics launch per step at
-    nb = n·F (and the two held-out losses' forward launches, nothing else),
+    nb = n·F (and the two held-out losses' forward launches and the window
+    and render kernels of :func:`_step_kernels`, nothing else),
     its chain marginals right after the warm start equal the cosmos z_probs
     on the on-target AOIs within WARM_TOL, and its stats hold: z_probs
     normalised, init / trans on the simplex, every LL <= Mean <= UL and
@@ -826,7 +846,7 @@ def check_cli_hmm_fit(res, num_iter, device="cuda"):
     M = 1 << m.K
     want = dict.fromkeys(res["launches"], 0)
     if m.device.type == "cuda":
-        want.update(summed_stats=num_iter, summed_fwd=2)
+        want.update(summed_stats=num_iter, summed_fwd=2, **_step_kernels(m, num_iter, 2))
         if res["shapes"] != {("summed_stats", M, n * F), ("summed_fwd", M, n * F)}:
             raise RuntimeError(f"CLI hmm fit: launches at {res['shapes']}")
     if res["launches"] != want:
@@ -1079,8 +1099,9 @@ def run_cli_crosstalk_fit(workdir, nbatch=10, fbatch=512, num_iter=200, device="
 def check_cli_crosstalk_fit(res, num_iter, device="cuda"):
     """Raise unless phase 14's command exited 0 on ``device``, stepped 0 ->
     ``num_iter`` with one summed-statistics launch per step at M = 16 over
-    nb = n·f·C images (and the two held-out losses' forward launches there,
-    nothing else), and its stats hold: z_probs normalised for both dyes and
+    nb = n·f·C images (and the two held-out losses' forward launches there
+    and the window kernels of :func:`_step_kernels`, nothing else), and its
+    stats hold: z_probs normalised for both dyes and
     0 off target, theta_probs summing to at most 1, alpha on the simplex,
     every LL <= Mean <= UL and finite (alpha's included), SNR and chi2
     finite for both channels, a summary with alpha, SNR_0 and SNR_1. Returns
@@ -1096,7 +1117,7 @@ def check_cli_crosstalk_fit(res, num_iter, device="cuda"):
     M, nb = 1 << (m.K * m.Q), m.nbatch_size * m.fbatch_size * C
     want = dict.fromkeys(res["launches"], 0)
     if m.device.type == "cuda":
-        want.update(summed_stats=num_iter, summed_fwd=2)
+        want.update(summed_stats=num_iter, summed_fwd=2, **_step_kernels(m, num_iter, 2))
         if res["shapes"] != {("summed_stats", M, nb), ("summed_fwd", M, nb)}:
             raise RuntimeError(f"CLI crosstalk fit: launches at {res['shapes']}")
     if res["launches"] != want:
@@ -1177,7 +1198,7 @@ def check_crosstalk_factored(res, model, num_iter):
     nb = model.nbatch_size * model.fbatch_size * model.data.C
     want = dict.fromkeys(res["launches"], 0)
     if model.device.type == "cuda":
-        want["factored_stats"] = num_iter
+        want.update(factored_stats=num_iter, **_step_kernels(model, num_iter))
         if res["shapes"] != {("factored_stats", Kf, 1 << Kf, nb)}:
             raise RuntimeError(f"crosstalk factored: launches at {res['shapes']}")
     if res["launches"] != want:
@@ -1676,7 +1697,8 @@ def check_cli_restarts(res, R, restart_iter, num_iter, device="cuda"):
     steps, reached iteration restart_iter + num_iter (model and
     checkpoint), launched exactly restart_iter summed-statistics kernels at
     (M, R·n·f) - one per restart step for all chains - then num_iter at (M,
-    n·f) and nothing else, and its stats command exited 0 with normalised
+    n·f) and the window and render kernels of :func:`_step_kernels`, nothing
+    else, and its stats command exited 0 with normalised
     z_probs. Returns the numbers checked."""
     m = res["model"]
     if res["code"] != 0 or m is None:
@@ -1704,7 +1726,8 @@ def check_cli_restarts(res, R, restart_iter, num_iter, device="cuda"):
     M, nb = 1 << m.K, m.nbatch_size * m.fbatch_size * m.data.C
     want = dict.fromkeys(res["launches"], 0)
     if m.device.type == "cuda":
-        want["summed_stats"] = restart_iter + num_iter
+        want.update(summed_stats=restart_iter + num_iter,
+                    **_step_kernels(m, num_iter, restart_steps=restart_iter))
         shapes = {("summed_stats", M, R * nb): restart_iter, ("summed_stats", M, nb): num_iter}
         if res["counts"] != shapes or list(res["counts"]) != list(shapes):
             raise RuntimeError(f"CLI restarts fit: launches per shape {res['counts']}, "
@@ -1770,6 +1793,7 @@ def check_api_restarts(res, model, R, num_iter):
         key, want["factored_stats"] = ("factored_stats", Kf, 1 << Kf, nb), num_iter
     else:
         key, want["summed_stats"] = ("summed_stats", 1 << Kf, nb), num_iter
+    want.update(_step_kernels(model, 0, restart_steps=num_iter))
     if model.device.type == "cuda" and (res["launches"] != want
                                         or res["counts"] != {key: num_iter}):
         raise RuntimeError(f"{model.name} restarts: launches {res['launches']} at "
@@ -2156,7 +2180,8 @@ def run_ingested_cli(workdir, nbatch=INGEST_NBATCH, num_iter=INGEST_ITER,
 def check_ingested_cli(res, num_iter=INGEST_ITER, n_profile=INGEST_PROFILE, device="cuda"):
     """Raise unless phase 21's commands exited 0 on ``device``: the fit
     took ``num_iter`` steps from a fresh start with exactly one
-    summed-statistics launch each at nb = n x F (nothing else) and a finite
+    summed-statistics launch each at nb = n x F (and the window and render
+    kernels of :func:`_step_kernels`, nothing else) and a finite
     -ELBO; the profile left the checkpoint's bytes and the parameters as
     they were, launched 2 x ``n_profile`` (a warm-up chunk, then the
     traced one) and its trace holds exactly ``n_profile`` device events of
@@ -2181,7 +2206,7 @@ def check_ingested_cli(res, num_iter=INGEST_ITER, n_profile=INGEST_PROFILE, devi
     for label, r, n in (("fit", fit, num_iter), ("profile", prof, 2 * n_profile)):
         want = dict.fromkeys(r["launches"], 0)
         if cuda:
-            want["summed_stats"] = n
+            want.update(summed_stats=n, **_step_kernels(m, n))
             if r["shapes"] != {("summed_stats", M, nb)}:
                 raise RuntimeError(f"ingested {label}: launches at {r['shapes']}")
         if r["launches"] != want:
@@ -4125,9 +4150,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    import tapqir_tpu_torch.models  # noqa: F401  declares every kernel's library
+    from tapqir_tpu_torch.csrc import native
     from tapqir_tpu_torch.ops import offset_gamma as og
-    from tapqir_tpu_torch.ops import sparse_adam as sa
-    from tapqir_tpu_torch.ops import spot_render as sr
 
     t_start = time.perf_counter()
     f32, f64 = torch.float32, torch.float64
@@ -4150,12 +4175,11 @@ def main():
     lap("1 device")
 
     # phase 2: build
-    for lib in (og, sa, sr):
-        lib.library.get()
-        ptx = [ln.strip() for ln in lib.library.build_log.splitlines()
+    for lib in native.build_cuda():
+        ptx = [ln.strip() for ln in lib.build_log.splitlines()
                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-        print(f"[build] {lib.library.path.name} in {lib.library.build_seconds:.1f} s "
-              f"(nvcc {' '.join(lib.NVCC_FLAGS)})", flush=True)
+        print(f"[build] {lib.path.name} in {lib.build_seconds:.1f} s "
+              f"(nvcc {' '.join(native.NVCC_FLAGS)})", flush=True)
         for ln in ptx:
             print(f"[build] {ln}", flush=True)
     lap("2 build")

@@ -38,7 +38,8 @@ def main():
     if not torch.cuda.is_available():
         print("mesh_torch: no CUDA device is available", file=sys.stderr)
         return 1
-    from tapqir_tpu_torch.ops import offset_gamma as og
+    import tapqir_tpu_torch.models  # noqa: F401  declares every kernel's library
+    from tapqir_tpu_torch.csrc import native
 
     t_start = time.perf_counter()
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -49,7 +50,7 @@ def main():
     devices = [f"cuda:{i}" for i in range(4)] if count >= 4 else ["cuda:0"] * 4
     print(f"[device] {name} x {count} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda} | mesh devices {devices}", flush=True)
-    og.library.get()
+    native.build_cuda()
     walls = {}
 
     def lap(phase):

@@ -95,7 +95,7 @@ def bin_loop_mix(sass, kernel, ex2_per_bin=4):
 
 def build_all(sources):
     """nvcc every source at once; returns {label: (library path, log)}."""
-    from tapqir_tpu_torch.ops import offset_gamma as og
+    from tapqir_tpu_torch.csrc import native
 
     nvcc = _cuda_tool("nvcc")
     build = ROOT / "tapqir_tpu_torch" / "_build"
@@ -105,7 +105,7 @@ def build_all(sources):
         tag = hashlib.sha256(Path(src).read_bytes()).hexdigest()[:16]
         out = build / f"lib_{label}_{tag}.so"
         procs[label] = out, subprocess.Popen(
-            [nvcc, *og.NVCC_FLAGS, "-o", str(out), str(src)],
+            [nvcc, *native.NVCC_FLAGS, "-o", str(out), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     built = {}
     for label, (out, proc) in procs.items():
@@ -127,7 +127,7 @@ def _load(og, path):
     or those of a single-rate source (the same less ``nbr``)."""
     lib = ctypes.CDLL(str(path))
     if not _single_rate(lib):
-        return og._Library._load(path)
+        return og.library.load(path)
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for entry, args in (("og_summed", [ptr] * 8 + [i32] * 6 + [ptr]),
                         ("og_factored", [ptr] * 10 + [i32] * 6 + [ptr]),

@@ -6,27 +6,20 @@ and return values: :func:`read_frame` returns one frame as stored (the
 2^15 shift taken off again), :func:`read_frames` a batch of frames of one
 file shifted to unsigned, :func:`crop_aois` P x P crops of a decoded frame.
 
-The library is built with ``g++ -O3 -shared -fPIC`` at first use into
-``_build/`` next to this package, tagged by a hash of the source and the
-flags, and loaded with ctypes; importing this module builds nothing. A
+The library is built with ``g++ -O3 -shared -fPIC`` at first use and
+loaded with ctypes by ``native.py``; importing this module builds nothing. A
 failed build raises with g++'s message and a failed read with the
 reader's. Nothing falls back to :func:`read_frames_plain`, the numpy
 decoder the native one is held against.
 """
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parent / "glimpse_io.cpp"
-_BUILD = Path(__file__).resolve().parent.parent / "_build"
-CXX_FLAGS = ["-O3", "-shared", "-fPIC"]
+from tapqir_tpu_torch.csrc import native
+
 SHIFT = 2**15  # raw frames are stored as int16 values minus 2^15
 # what the decoder's non-zero return codes mean
 _READ_ERRORS = {
@@ -38,58 +31,17 @@ _READ_ERRORS = {
 __all__ = ["read_frame", "read_frames", "crop_aois", "read_frames_plain"]
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
-
-
-class _Library:
-    """The compiled decoder, built once per process and source."""
-
-    def __init__(self):
-        self._lib = None
-        self._lock = threading.Lock()
-        self.path = None
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load(self._build())
-            return self._lib
-
-    def _build(self) -> Path:
-        tag = hashlib.sha256(_SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
-        out = _BUILD / f"libglimpse_io_{tag.hexdigest()[:16]}.so"
-        self.path = out
-        if out.exists():
-            return out
-        cxx = shutil.which("g++")
-        if cxx is None:
-            raise RuntimeError("g++ not found in PATH: cannot build the native Glimpse "
-                               f"decoder {_SRC}")
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed for {_SRC}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: concurrent builds leave one whole file
-        return out
-
-    @staticmethod
-    def _load(path: Path):
-        lib = ctypes.CDLL(str(path), use_errno=True)
-        i32, i64 = ctypes.c_int, ctypes.c_longlong
-        lib.read_frame_i32.restype = i32
-        lib.read_frame_i32.argtypes = [ctypes.c_char_p, i64, i32, i32, _i32p]
-        lib.read_frames_i32.restype = i32
-        lib.read_frames_i32.argtypes = [
-            ctypes.c_char_p, ctypes.POINTER(i64), i32, i32, i32, _i32p]
-        lib.crop_aois_i32.restype = i32
-        lib.crop_aois_i32.argtypes = [
-            _i32p, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32), i32, i32, _i32p]
-        return lib
-
-
-library = _Library()
+_i32, _i64 = ctypes.c_int, ctypes.c_longlong
+library = native.Library(
+    "glimpse_io.cpp", "glimpse_io",
+    {
+        "read_frame_i32": [ctypes.c_char_p, _i64, _i32, _i32, _i32p],
+        "read_frames_i32": [ctypes.c_char_p, ctypes.POINTER(_i64), _i32, _i32, _i32, _i32p],
+        "crop_aois_i32": [_i32p, _i32, _i32, ctypes.POINTER(_i32), ctypes.POINTER(_i32),
+                          _i32, _i32, _i32p],
+    },
+    use_errno=True,
+)
 
 
 def _ptr(a):

@@ -305,18 +305,7 @@ class Model:
     def gather_windows(self, tree, ndx, fidx):
         """Minibatch windows of a parameter-shaped dict: AOI rows ``ndx`` x
         frames ``fidx`` (``None``: every frame). Globals pass through."""
-        wspec = self._window_spec()
-        out = {}
-        for name, v in tree.items():
-            if name not in wspec:
-                out[name] = v
-                continue
-            a_ax, f_ax = wspec[name]
-            rows = v.index_select(a_ax, ndx)
-            if fidx is not None and f_ax is not None:
-                rows = rows.index_select(f_ax, fidx)
-            out[name] = rows
-        return out
+        return sparse_adam.gather_plain(tree, self._window_spec(), ndx, fidx)
 
     def gather_chain_windows(self, tree, ndx, fidx):
         """:meth:`gather_windows` with a leading chain axis: values (R,

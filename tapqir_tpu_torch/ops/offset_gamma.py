@@ -29,31 +29,20 @@ rates: the images are then R equal runs laid out one after the other
 ``vmap`` over R restart chains makes of the Pallas grid. The rate gradient
 is then per chain.
 
-The kernels are built with ``nvcc`` for sm_90a at first use into
-``_build/`` next to this package and loaded with ctypes through a plain C
-interface. CUDA tensors always go through a kernel (or raise); CPU tensors
-take the plain version. There is no fallback from one to the other.
+The kernels are built at first use and loaded through a plain C interface
+by ``csrc/native.py``, which also counts their launches. CUDA tensors
+always go through a kernel (or raise); CPU tensors take the plain version.
+There is no fallback from one to the other.
 """
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "offset_gamma.cu"
-_BUILD = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from tapqir_tpu_torch.csrc import native
+
 MAX_FACTORS = 6  # kMaxFactors of the factored kernel
 MAX_CONFIGS = 64  # kMaxConfigs
 
@@ -124,110 +113,24 @@ def offset_gamma_factored_summed_plain(value, base, deltas, mtab, rate,
 
 
 # ---------------------------------------------------------------------------
-# build and load
+# the library and its launchers
 # ---------------------------------------------------------------------------
 
-
-class _Library:
-    """The compiled kernel library, built once per process and source."""
-
-    def __init__(self):
-        self._lib = None
-        self._lock = threading.Lock()
-        self.build_seconds = None
-        self.build_log = ""
-        self.path = None
-        self.max_bins = self.max_runs = None  # the kernels' limits, read at load
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                lib = self._load(self._build())
-                self.max_bins, self.max_runs = lib.og_max_bins(), lib.og_max_runs()
-                self._lib = lib
-            return self._lib
-
-    def _build(self) -> Path:
-        src = _SRC.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _BUILD / f"liboffset_gamma_{tag}.so"
-        self.path = out
-        if out.exists():
-            self.build_seconds = 0.0
-            return out
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found (looked in PATH and {cuda_home})")
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-            capture_output=True, text=True,
-        )
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {_SRC}:\n{self.build_log}")
-        os.replace(tmp, out)
-        return out
-
-    @staticmethod
-    def _load(path: Path):
-        lib = ctypes.CDLL(str(path))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        signatures = {
-            # x, a, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, nbr, stats,
-            # stream
-            "og_summed": [ptr] * 8 + [i32] * 7 + [ptr],
-            # x, base, deltas, mask bits (host), g, w, rate, out, spl, spd,
-            # M, Kf, nb, EVP, ev, J, nbr, stream
-            "og_factored": [ptr] * 10 + [i32] * 7 + [ptr],
-            # x, a, g, w, rate, out, spl, spd, M, n_px, J, stats, stream
-            "og_pixel": [ptr] * 8 + [i32, i64, i32, i32, ptr],
-        }
-        for entry, args in signatures.items():
-            for suffix in ("f32", "f64"):
-                fn = getattr(lib, f"{entry}_{suffix}")
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-        for probe in ("og_max_bins", "og_max_runs"):
-            getattr(lib, probe).argtypes = []
-            getattr(lib, probe).restype = ctypes.c_int
-        return lib
-
-
-library = _Library()
-
-
-def _check_inputs(x, a, rate, g, w, nb=None):
-    """What every launcher takes: CUDA tensors of one floating dtype,
-    contiguous, (J,) offsets within the kernel's limit and one rate, or,
-    for the summed kernel over ``nb`` images, R per-chain rates (R,) with R
-    dividing nb."""
-    if a.device.type != "cuda":
-        raise ValueError(f"the kernel takes CUDA tensors, got {a.device}")
-    if a.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the kernel takes float32 or float64, got {a.dtype}")
-    if g.ndim != 1 or w.shape != g.shape:
-        raise ValueError("offsets must be (J,) vectors")
-    if nb is None and rate.numel() != 1:
-        raise ValueError("rate must be a scalar")
-    if nb is not None and (rate.ndim != 1 or nb % max(rate.shape[0], 1)):
-        raise ValueError(f"rate must be (R,) with R dividing the {nb} images, got shape "
-                         f"{tuple(rate.shape)}")
-    for t in (x, a, rate, g, w):
-        if t.device != a.device or t.dtype != a.dtype:
-            raise TypeError("all inputs must share the concentration's device and dtype")
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous tensors")
-    lib = library.get()
-    if g.shape[0] > library.max_bins:
-        raise ValueError(f"{g.shape[0]} offset bins exceed the kernel's {library.max_bins}")
-    if nb is not None and not 1 <= rate.shape[0] <= library.max_runs:
-        raise ValueError(f"{rate.shape[0]} rates: the kernel takes 1..{library.max_runs}")
-    return lib
+_ptr, _i32 = ctypes.c_void_p, ctypes.c_int
+library = native.Library(
+    "offset_gamma.cu", "offset_gamma",
+    {
+        # x, a, g, w, rate, out, spl, spd, M, nb, EVP, ev, J, nbr, stats,
+        # stream
+        "og_summed": [_ptr] * 8 + [_i32] * 7 + [_ptr],
+        # x, base, deltas, mask bits (host), g, w, rate, out, spl, spd,
+        # M, Kf, nb, EVP, ev, J, nbr, stream
+        "og_factored": [_ptr] * 10 + [_i32] * 7 + [_ptr],
+        # x, a, g, w, rate, out, spl, spd, M, n_px, J, stats, stream
+        "og_pixel": [_ptr] * 8 + [_i32, ctypes.c_longlong, _i32, _i32, _ptr],
+    },
+    probes=("og_max_bins", "og_max_runs"),
+)
 
 
 def _check_ev(ev, EVP):
@@ -235,14 +138,34 @@ def _check_ev(ev, EVP):
         raise ValueError(f"ev={ev} outside (0, {EVP}]")
 
 
-class _Launcher:
-    """One kernel variant and its launch count; the count rises only where
-    the kernel is launched."""
+class _Launcher(native.Kernel):
+    """One kernel variant; ``stats`` says whether it emits the per-pixel
+    statistics."""
 
-    def __init__(self, entry, stats):
-        self.entry = entry
+    def __init__(self, name, entry, stats):
+        super().__init__(name, library, entry)
         self.stats = stats
-        self.launches = 0
+
+    def _inputs(self, x, a, rate, g, w, nb=None):
+        """What every launch takes: ``a`` sets the device and dtype of
+        contiguous inputs, (J,) offsets within the kernel's limit and one
+        rate, or, for a summed kernel over ``nb`` images, R per-chain rates
+        (R,) with R dividing nb. Returns the entry for the dtype."""
+        fn = self.function(a)
+        if g.ndim != 1 or w.shape != g.shape:
+            raise ValueError("offsets must be (J,) vectors")
+        if nb is None and rate.numel() != 1:
+            raise ValueError("rate must be a scalar")
+        if nb is not None and (rate.ndim != 1 or nb % max(rate.shape[0], 1)):
+            raise ValueError(f"rate must be (R,) with R dividing the {nb} images, got shape "
+                             f"{tuple(rate.shape)}")
+        native.check_tensors((x, a, rate, g, w), a)
+        max_bins, max_runs = library.limits["og_max_bins"], library.limits["og_max_runs"]
+        if g.shape[0] > max_bins:
+            raise ValueError(f"{g.shape[0]} offset bins exceed the kernel's {max_bins}")
+        if nb is not None and not 1 <= rate.shape[0] <= max_runs:
+            raise ValueError(f"{rate.shape[0]} rates: the kernel takes 1..{max_runs}")
+        return fn
 
     def _outputs(self, out_shape, stats_shape, like):
         out = torch.empty(out_shape, dtype=like.dtype, device=like.device)
@@ -250,21 +173,6 @@ class _Launcher:
             return out, None, None
         return (out, torch.empty(stats_shape, dtype=like.dtype, device=like.device),
                 torch.empty(stats_shape, dtype=like.dtype, device=like.device))
-
-    def _launch(self, lib, like, *args):
-        # the library launches on the runtime's current device: a tensor on
-        # another card would be read by the wrong one
-        if like.device.index != torch.cuda.current_device():
-            raise RuntimeError(
-                f"{self.entry}: the tensors are on {like.device} but the current device is "
-                f"cuda:{torch.cuda.current_device()}; call torch.cuda.set_device first"
-            )
-        suffix = "f32" if like.dtype == torch.float32 else "f64"
-        fn = getattr(lib, f"{self.entry}_{suffix}")
-        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self.entry} kernel launch failed: CUDA error {err}")
-        self.launches += 1
 
     @staticmethod
     def _ptr(t):
@@ -279,11 +187,11 @@ class _SummedLauncher(_Launcher):
         if a3.ndim != 3 or x2.ndim != 2 or x2.shape != a3.shape[1:]:
             raise ValueError(f"shapes: value {tuple(x2.shape)} vs concentration {tuple(a3.shape)}")
         M, nb, EVP = a3.shape
-        lib = _check_inputs(x2, a3, rate, g, w, nb)
+        fn = self._inputs(x2, a3, rate, g, w, nb)
         _check_ev(ev, EVP)
         out, spl, spd = self._outputs((M, nb), a3.shape, a3)
-        self._launch(
-            lib, a3, x2.data_ptr(), a3.data_ptr(), g.data_ptr(), w.data_ptr(),
+        self.launch(
+            fn, a3, x2.data_ptr(), a3.data_ptr(), g.data_ptr(), w.data_ptr(),
             rate.data_ptr(), out.data_ptr(), self._ptr(spl), self._ptr(spd),
             M, nb, EVP, int(ev), g.shape[0], nb // rate.shape[0], int(self.stats),
         )
@@ -294,13 +202,13 @@ class _PixelLauncher(_Launcher):
     def __call__(self, x, a2, rate, g, w):
         """x (n_px,), a2 (M, n_px), rate (1,), g and w (J,). Returns out (M,
         n_px) and, for the statistics variant, spl and spd (M, n_px)."""
-        lib = _check_inputs(x, a2, rate, g, w)
+        fn = self._inputs(x, a2, rate, g, w)
         if a2.ndim != 2 or x.ndim != 1 or x.shape[0] != a2.shape[1]:
             raise ValueError(f"shapes: value {tuple(x.shape)} vs concentration {tuple(a2.shape)}")
         M, n_px = a2.shape
         out, spl, spd = self._outputs(a2.shape, a2.shape, a2)
-        self._launch(
-            lib, a2, x.data_ptr(), a2.data_ptr(), g.data_ptr(), w.data_ptr(),
+        self.launch(
+            fn, a2, x.data_ptr(), a2.data_ptr(), g.data_ptr(), w.data_ptr(),
             rate.data_ptr(), out.data_ptr(), self._ptr(spl), self._ptr(spd),
             M, n_px, g.shape[0], int(self.stats),
         )
@@ -314,8 +222,8 @@ class _FactoredLauncher(_Launcher):
         runs of nb / R images, g and w (J,). Returns out (M, nb), spl and
         spd (M, nb, EVP)."""
         Kf, nb, EVP = deltas.shape
-        lib = _check_inputs(x2, deltas, rate, g, w, nb)
-        _check_inputs(x2, base, rate, g, w, nb)
+        fn = self._inputs(x2, deltas, rate, g, w, nb)
+        native.check_tensors((base,), deltas)
         if x2.shape != (nb, EVP) or base.shape != (nb,):
             raise ValueError(
                 f"shapes: value {tuple(x2.shape)}, base {tuple(base.shape)} vs "
@@ -332,8 +240,8 @@ class _FactoredLauncher(_Launcher):
         _check_ev(ev, EVP)
         out, spl, spd = self._outputs((M, nb), (M, nb, EVP), deltas)
         bits = (ctypes.c_int * M)(*masks)
-        self._launch(
-            lib, deltas, x2.data_ptr(), base.data_ptr(), deltas.data_ptr(),
+        self.launch(
+            fn, deltas, x2.data_ptr(), base.data_ptr(), deltas.data_ptr(),
             ctypes.cast(bits, ctypes.c_void_p), g.data_ptr(), w.data_ptr(),
             rate.data_ptr(), out.data_ptr(), spl.data_ptr(), spd.data_ptr(),
             M, Kf, nb, EVP, int(ev), g.shape[0], nb // rate.shape[0],
@@ -341,16 +249,12 @@ class _FactoredLauncher(_Launcher):
         return out, spl, spd
 
 
-summed_fwd = _SummedLauncher("og_summed", stats=False)  # replaces _sum_fwd_kernel
-summed_stats = _SummedLauncher("og_summed", stats=True)  # replaces _sum_stats_kernel
-pixel_fwd = _PixelLauncher("og_pixel", stats=False)  # replaces _fwd_kernel
-pixel_stats = _PixelLauncher("og_pixel", stats=True)  # replaces _fwd_stats_kernel
-factored_stats = _FactoredLauncher("og_factored", stats=True)  # replaces _fact_stats_kernel
-LAUNCHERS = {
-    "summed_fwd": summed_fwd, "summed_stats": summed_stats,
-    "pixel_fwd": pixel_fwd, "pixel_stats": pixel_stats,
-    "factored_stats": factored_stats,
-}
+# each replaces the Pallas kernel named beside it
+summed_fwd = _SummedLauncher("summed_fwd", "og_summed", False)  # _sum_fwd_kernel
+summed_stats = _SummedLauncher("summed_stats", "og_summed", True)  # _sum_stats_kernel
+pixel_fwd = _PixelLauncher("pixel_fwd", "og_pixel", False)  # _fwd_kernel
+pixel_stats = _PixelLauncher("pixel_stats", "og_pixel", True)  # _fwd_stats_kernel
+factored_stats = _FactoredLauncher("factored_stats", "og_factored", True)  # _fact_stats_kernel
 
 
 # ---------------------------------------------------------------------------

@@ -26,24 +26,13 @@ flat buffer, and on a card the slot table and group sizes of the kernels
 """
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "sparse_adam.cu"
-_BUILD = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from tapqir_tpu_torch.csrc import native
+
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 THREADS = 256  # kThreads: a block's threads, and the most positions it takes
 BLOCK_ELEMENTS = 512  # a block's share of elements: positions x slots
@@ -180,7 +169,8 @@ class WindowLayout:
     ``meta`` (per group of ``GROUPS``: positions, positions a block,
     blocks, first and end slot; then f and F) describe the windows to the
     kernels; on a card ``slots`` is also kept on the device (``slots_dev``),
-    put there once."""
+    put there once, after the library is built and its threads a block
+    found equal to the ``THREADS`` the layout takes."""
 
     def __init__(self, params, groups, wspec, Nt, F, n, f=None):
         self.groups, self.wspec = groups, wspec
@@ -223,93 +213,34 @@ class WindowLayout:
         self._meta_c = (ctypes.c_longlong * len(meta))(*meta)
         dev = next(iter(params.values())).device
         if dev.type == "cuda":
+            library.get()
+            if library.limits["sa_threads"] != THREADS:
+                raise RuntimeError(f"{library.path.name}: {library.limits['sa_threads']} "
+                                   f"threads a block, the layout takes {THREADS}")
             self.slots_dev = torch.as_tensor(self.slots, device=dev)
 
 
 # ---------------------------------------------------------------------------
-# build and load
+# the library and its launchers
 # ---------------------------------------------------------------------------
 
-
-class _Library:
-    """The compiled kernel library of CUDA source ``src``, built once per
-    process and source into ``_build/lib<stem>_<hash>.so`` (the spot render's
-    library, ``ops/spot_render.py``, is built the same way)."""
-
-    def __init__(self, src=_SRC, stem="sparse_adam"):
-        self.src, self.stem = src, stem
-        self._lib = None
-        self._lock = threading.Lock()
-        self.build_seconds = None
-        self.build_log = ""
-        self.path = None
-        self.max_leaves = None  # the kernels' limit, read at load
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                lib = self._load(self._build())
-                self._check(lib)
-                self._lib = lib
-            return self._lib
-
-    def _check(self, lib):
-        if lib.sa_threads() != THREADS:
-            raise RuntimeError(f"{self.path.name}: {lib.sa_threads()} threads a "
-                               f"block, the wrapper lays out {THREADS}")
-        self.max_leaves = lib.sa_max_leaves()
-
-    def _build(self) -> Path:
-        src = self.src.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = _BUILD / f"lib{self.stem}_{tag}.so"
-        self.path = out
-        if out.exists():
-            self.build_seconds = 0.0
-            return out
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found (looked in PATH and {cuda_home})")
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(self.src)],
-                              capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {self.src}:\n{self.build_log}")
-        os.replace(tmp, out)
-        return out
-
-    @staticmethod
-    def _load(path: Path):
-        lib = ctypes.CDLL(str(path))
-        ptr = ctypes.c_void_p
-        # adam, meta (host), slots, pointers (host), L, ndx, fidx, counts
-        # (host), lr, stream
-        args = [ctypes.c_int, ptr, ptr, ptr, ctypes.c_int, ptr, ptr, ptr, ctypes.c_double, ptr]
-        for suffix in ("f32", "f64"):
-            fn = getattr(lib, f"sa_window_{suffix}")
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        for probe in ("sa_max_leaves", "sa_threads"):
-            getattr(lib, probe).argtypes = []
-            getattr(lib, probe).restype = ctypes.c_int
-        return lib
+_ptr = ctypes.c_void_p
+library = native.Library(
+    "sparse_adam.cu", "sparse_adam",
+    # adam, meta (host), slots, pointers (host), L, ndx, fidx, counts (host),
+    # lr, stream
+    {"sa_window": [ctypes.c_int, _ptr, _ptr, _ptr, ctypes.c_int, _ptr, _ptr, _ptr,
+                   ctypes.c_double, _ptr]},
+    probes=("sa_max_leaves", "sa_threads"),
+)
 
 
-library = _Library()
+class _Launcher(native.Kernel):
+    """One of the two kernels: the gather, or with ``adam`` the Adam step."""
 
-
-class _Launcher:
-    """One of the two kernels and its launch count; the count rises only
-    where the kernel is launched."""
-
-    def __init__(self, adam):
+    def __init__(self, name, adam):
+        super().__init__(name, library, "sa_window")
         self.adam = adam
-        self.launches = 0
 
     def __call__(self, layout, params, mu, nu, windows, ndx, fidx, counts=None, lr=0.0):
         """Launch over ``layout``: ``params``, ``mu``, ``nu`` and ``windows``
@@ -318,33 +249,18 @@ class _Launcher:
         gradients; ``counts`` the step counts of ``GROUPS`` (None where the
         group has no leaf)."""
         first = params[0]
-        if first.device.type != "cuda":
-            raise ValueError(f"the kernel takes CUDA tensors, got {first.device}")
-        if first.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"the kernel takes float32 or float64, got {first.dtype}")
-        if first.device.index != torch.cuda.current_device():
-            raise RuntimeError(
-                f"the tensors are on {first.device} but the current device is "
-                f"cuda:{torch.cuda.current_device()}; call torch.cuda.set_device first")
-        lib = library.get()
-        L = len(params)
-        if L != len(layout.names) or L > library.max_leaves:
+        fn = self.function(first)
+        L, max_leaves = len(params), library.limits["sa_max_leaves"]
+        if L != len(layout.names) or L > max_leaves:
             raise ValueError(f"{L} leaves for a layout of {len(layout.names)}; the kernel "
-                             f"takes at most {library.max_leaves}")
+                             f"takes at most {max_leaves}")
         shapes = [(params, layout.full_shapes), (windows, layout.shapes)]
         if self.adam:
             shapes += [(mu, layout.full_shapes), (nu, layout.full_shapes)]
         for tree, want in shapes:
             if len(tree) != L:
                 raise ValueError(f"{len(tree)} tensors for a layout of {L} leaves")
-            for t, shape in zip(tree, want):
-                if t.device != first.device or t.dtype != first.dtype:
-                    raise TypeError("every leaf must share the parameters' device and dtype")
-                if not t.is_contiguous():
-                    raise ValueError("the kernel takes contiguous tensors")
-                if t.shape != shape:
-                    raise ValueError(f"a leaf of shape {tuple(t.shape)} where the layout "
-                                     f"has {shape}")
+            native.check_tensors(tree, first, want)
         for idx, size in ((ndx, layout.n), (fidx, layout.f)):
             if idx is None and size is None:
                 continue
@@ -369,18 +285,13 @@ class _Launcher:
             *([t.data_ptr() for t in nu] if self.adam else [None] * L),
             *[t.data_ptr() for t in windows],
         )
-        fn = lib.sa_window_f32 if first.dtype == torch.float32 else lib.sa_window_f64
-        err = fn(int(self.adam), layout._meta_c, layout.slots_dev.data_ptr(), ptrs, L,
-                 ndx.data_ptr(), None if fidx is None else fidx.data_ptr(), cnt, float(lr),
-                 torch.cuda.current_stream(first.device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"sparse_adam {'adam' if self.adam else 'gather'} kernel launch "
-                               f"failed: CUDA error {err}")
-        self.launches += 1
+        self.launch(fn, first, int(self.adam), layout._meta_c, layout.slots_dev.data_ptr(),
+                    ptrs, L, ndx.data_ptr(), None if fidx is None else fidx.data_ptr(), cnt,
+                    float(lr))
 
 
-gather = _Launcher(adam=False)  # the parameter windows, before the ELBO
-adam = _Launcher(adam=True)  # the Adam step and write-back, after its gradient
+gather = _Launcher("gather", adam=False)  # the parameter windows, before the ELBO
+adam = _Launcher("adam", adam=True)  # the Adam step and write-back, after its gradient
 
 
 # ---------------------------------------------------------------------------

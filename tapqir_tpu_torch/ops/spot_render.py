@@ -22,16 +22,12 @@ by op. There is no fallback from one to the other.
 
 import ctypes
 import math
-from pathlib import Path
 
 import torch
 
+from tapqir_tpu_torch.csrc import native
 from tapqir_tpu_torch.distributions.util import gaussian_spots_flat
-from tapqir_tpu_torch.ops import sparse_adam
 from tapqir_tpu_torch.ops.offset_gamma import config_masks
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "spot_render.cu"
-NVCC_FLAGS = sparse_adam.NVCC_FLAGS  # built by sparse_adam's _Library, with its flags
 
 
 def spot_concentration_plain(b, h, w, xs, ys, target_locs, gain, mtab, P, ev_pad):
@@ -52,47 +48,26 @@ def spot_concentration_plain(b, h, w, xs, ys, target_locs, gain, mtab, P, ev_pad
 
 
 # ---------------------------------------------------------------------------
-# build and load
+# the library and its launchers
 # ---------------------------------------------------------------------------
 
-
-class _Library(sparse_adam._Library):
-    """The compiled kernel library, built once per process and source."""
-
-    def __init__(self):
-        super().__init__(_SRC, "spot_render")
-        self.max_spots = None  # the kernels' limit, read at load
-
-    def _check(self, lib):
-        self.max_spots = lib.sr_max_spots()
-
-    @staticmethod
-    def _load(path: Path):
-        lib = ctypes.CDLL(str(path))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # inputs (host array of 7), nb, per_chain, K, masks (host), M, P, EVP
-        common = [ptr, i64, i64, i32, ptr, i32, i32, i32]
-        for suffix in ("f32", "f64"):
-            fwd = getattr(lib, f"sr_render_{suffix}")
-            fwd.argtypes = common + [ptr, ptr]  # out, stream
-            bwd = getattr(lib, f"sr_render_grad_{suffix}")
-            bwd.argtypes = common + [ptr, ptr, ptr]  # go, grads (host array of 7), stream
-            fwd.restype = bwd.restype = ctypes.c_int
-        lib.sr_max_spots.argtypes = []
-        lib.sr_max_spots.restype = ctypes.c_int
-        return lib
+_ptr, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# inputs (host array of 7), nb, per_chain, K, masks (host), M, P, EVP
+_COMMON = [_ptr, _i64, _i64, _i32, _ptr, _i32, _i32, _i32]
+library = native.Library(
+    "spot_render.cu", "spot_render",
+    {"sr_render": _COMMON + [_ptr, _ptr],  # out, stream
+     "sr_render_grad": _COMMON + [_ptr, _ptr, _ptr]},  # go, grads (host array of 7), stream
+    probes=("sr_max_spots",),
+)
 
 
-library = _Library()
+class _Launcher(native.Kernel):
+    """One of the two kernels: the render, or with ``grad`` its gradients."""
 
-
-class _Launcher:
-    """One of the two kernels and its launch count; the count rises only
-    where the kernel is launched."""
-
-    def __init__(self, grad):
+    def __init__(self, name, entry, grad):
+        super().__init__(name, library, entry)
         self.grad = grad
-        self.launches = 0
 
     def __call__(self, inputs, masks, P, EVP, out=None, go=None, grads=None):
         """Launch over ``inputs`` (b (nb,), h, w, xs, ys (nb, K), target
@@ -101,19 +76,12 @@ class _Launcher:
         (b's (nb,), h's, w's, xs's, ys's (nb, K), the gain's per-image
         partials (nb,), the gain's (R,) or None)."""
         b, h = inputs[0], inputs[1]
-        if b.device.type != "cuda":
-            raise ValueError(f"the kernel takes CUDA tensors, got {b.device}")
-        if b.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"the kernel takes float32 or float64, got {b.dtype}")
-        if b.device.index != torch.cuda.current_device():
-            raise RuntimeError(
-                f"the tensors are on {b.device} but the current device is "
-                f"cuda:{torch.cuda.current_device()}; call torch.cuda.set_device first")
-        lib = library.get()
+        fn = self.function(b)
         nb, K, M, R = b.shape[0], h.shape[-1], len(masks), inputs[6].shape[0]
-        if not 1 <= K <= library.max_spots or M > 1 << library.max_spots:
+        max_spots = library.limits["sr_max_spots"]
+        if not 1 <= K <= max_spots or M > 1 << max_spots:
             raise ValueError(f"{K} spots and {M} configs: the kernel takes at most "
-                             f"{library.max_spots} spots")
+                             f"{max_spots} spots")
         if R < 1 or nb % R:
             raise ValueError(f"{nb} images do not split into {R} chains")
         if EVP < P * P:
@@ -125,34 +93,19 @@ class _Launcher:
         else:
             want += [(M, nb, EVP)]
             tensors = list(inputs) + [out]
-        for t, shape in zip(tensors, want):
-            if t is None:
-                continue
-            if t.device != b.device or t.dtype != b.dtype:
-                raise TypeError("every tensor must share the background's device and dtype")
-            if not t.is_contiguous():
-                raise ValueError("the kernel takes contiguous tensors")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"a tensor of shape {tuple(t.shape)} where the kernel "
-                                 f"takes {shape}")
+        native.check_tensors(tensors, b, want)
         ptrs = (ctypes.c_void_p * 7)(*[t.data_ptr() for t in inputs])
         bits = (ctypes.c_uint * M)(*masks)
-        stream = torch.cuda.current_stream(b.device).cuda_stream
         args = (ptrs, nb, nb // R, K, bits, M, P, EVP)
-        dt = "f32" if b.dtype == torch.float32 else "f64"
         if self.grad:
             gp = (ctypes.c_void_p * 7)(*[None if t is None else t.data_ptr() for t in grads])
-            err = getattr(lib, f"sr_render_grad_{dt}")(*args, go.data_ptr(), gp, stream)
+            self.launch(fn, b, *args, go.data_ptr(), gp)
         else:
-            err = getattr(lib, f"sr_render_{dt}")(*args, out.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"spot_render {'render_grad' if self.grad else 'render'} "
-                               f"kernel launch failed: CUDA error {err}")
-        self.launches += 1
+            self.launch(fn, b, *args, out.data_ptr())
 
 
-render = _Launcher(grad=False)  # the concentration, in the ELBO's forward
-render_grad = _Launcher(grad=True)  # its gradients, in the backward
+render = _Launcher("render", "sr_render", grad=False)  # the concentration, in the forward
+render_grad = _Launcher("render_grad", "sr_render_grad", grad=True)  # its gradients
 
 
 class _RenderFunction(torch.autograd.Function):

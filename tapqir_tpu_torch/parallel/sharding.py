@@ -48,6 +48,8 @@ import torch
 import torch.distributed as dist
 from torch.multiprocessing.spawn import ProcessException
 
+from tapqir_tpu_torch.csrc import native
+
 __all__ = [
     "Mesh",
     "MeshError",
@@ -406,13 +408,12 @@ def launch(mesh, fn, *args, timeout=DEFAULT_TIMEOUT, **kwargs):
     live in the caller), meet through a ``file://`` store in a temporary
     directory (no port to collide), and wait at most ``timeout`` seconds in
     a collective. Each rank selects its card before anything runs on it.
-    The card kernels are built here, once, before the spawn. If any rank
-    raises, the others are stopped and :class:`MeshError` is raised with
-    that rank's traceback."""
+    On a card mesh every CUDA library declared in this process (the
+    models' modules declare them all) is built here, once, before the
+    spawn (``native.build_cuda``). If any rank raises, the others are
+    stopped and :class:`MeshError` is raised with that rank's traceback."""
     if any(torch.device(d).type == "cuda" for d in mesh.devices):
-        from tapqir_tpu_torch.ops.offset_gamma import library
-
-        library.get()
+        native.build_cuda()
     logger.info(f"Mesh {mesh.shape['aoi']} aoi x {mesh.shape['frame']} frame on "
                 f"{mesh.devices} over {mesh.backend}")
     with tempfile.TemporaryDirectory(prefix="tapqir_mesh_") as store:

@@ -25,6 +25,9 @@ The spot render's two kernels (``ops/spot_render.py``) are held against
 the plain render in float64 at the cosmos, hmm and R=4 restart windows (the
 plain version is tested on the CPU in test_torch_spot_render.py), and one
 cosmos or cosmos+hmm ELBO launches each once and matches the plain route.
+
+A mesh launched on the card finds every CUDA library built in the process
+that launched it (``csrc/native.py``'s registry), before its ranks start.
 """
 
 import importlib.util
@@ -407,3 +410,26 @@ def test_elbo_through_the_render_kernels(cs, model):
     assert res["launches"] == (1, 1)
     assert res["loss_rel"] <= cs.SR_F64_TOL
     assert res["grads_scaled"] <= cs.SR_F64_TOL
+
+
+def _rank_device(mesh):
+    return str(mesh.device)
+
+
+def test_mesh_launch_builds_every_cuda_library_in_the_parent(monkeypatch):
+    """``sharding.launch`` on a card mesh builds every CUDA library that the
+    models declare in the calling process before it spawns the ranks, so no
+    rank builds one itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the mesh's ranks run on it")
+    import tapqir_tpu_torch.models  # noqa: F401  declares every kernel's library
+    from tapqir_tpu_torch.csrc import native
+    from tapqir_tpu_torch.parallel import sharding
+
+    cuda = [lib for lib in native.LIBRARIES if lib.cuda]
+    assert sorted(lib.stem for lib in cuda) == ["offset_gamma", "sparse_adam", "spot_render"]
+    for lib in cuda:
+        monkeypatch.setattr(lib, "_lib", None)  # as if this process had loaded none
+    mesh = sharding.make_mesh(2, 1, ["cuda:0"] * 2)
+    assert sharding.launch(mesh, _rank_device) == "cuda:0"
+    assert all(lib._lib is not None and lib.path.exists() for lib in cuda)

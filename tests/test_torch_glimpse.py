@@ -17,6 +17,7 @@ from tapqir_tpu.imscroll import bin_hist as jax_bin_hist
 from tapqir_tpu.imscroll import read_glimpse as jax_read_glimpse
 from tapqir_tpu.utils.dataset import load as jax_load
 from tapqir_tpu.utils.dataset import save as jax_save
+import tapqir_tpu_torch.csrc.native as native_layer
 from tapqir_tpu_torch.csrc import glimpse_native
 from tapqir_tpu_torch.imscroll import GlimpseDataset, bin_hist, read_glimpse
 from tapqir_tpu_torch.imscroll.glimpse_reader import _load_header
@@ -279,11 +280,13 @@ def test_native_decoder_raises_and_never_falls_back(tmp_path, monkeypatch):
 
     broken = tmp_path / "broken.cpp"
     broken.write_text("int read_frame_i32( {\n")
-    monkeypatch.setattr(glimpse_native, "_SRC", broken)
-    monkeypatch.setattr(glimpse_native, "_BUILD", tmp_path / "build")
-    monkeypatch.setattr(glimpse_native, "library", glimpse_native._Library())
+    monkeypatch.setattr(native_layer, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(native_layer, "LIBRARIES", [])  # not in the process's registry
+    monkeypatch.setattr(glimpse_native, "library", native_layer.Library(
+        broken, "glimpse_io", glimpse_native.library.signatures, use_errno=True))
     with pytest.raises(RuntimeError, match="(?s)g\\+\\+ failed .*error:"):
         glimpse_native.read_frames(path, [0], 48, 64)
+    assert list((tmp_path / "build").iterdir()) == []  # no half-built file left
     # the reader goes through the native decoder: no quiet numpy fallback
     cfg = synthesize(tmp_path / "again")
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 import tapqir_tpu_torch
+from tapqir_tpu_torch.csrc import native
 from tapqir_tpu_torch.device import resolve_device
 from tapqir_tpu_torch.ops import offset_gamma as og
 
@@ -63,6 +64,38 @@ def test_port_imports_without_jax_or_the_jax_package():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+def test_importing_the_port_declares_every_kernel_and_builds_nothing():
+    """Importing every module of the port (in a fresh process: the test
+    workers share built libraries) declares the nine kernels of its three
+    CUDA libraries and the Glimpse decoder, each once, in ``native``'s
+    registry, with every launch count at 0, and builds or loads no
+    library."""
+    code = textwrap.dedent(
+        f"""
+        import importlib
+        for name in {_port_modules()!r}:
+            importlib.import_module(name)
+        from tapqir_tpu_torch.csrc import native
+        counts = native.launch_counts()
+        assert len(counts) == len(native.KERNELS), counts
+        assert counts == dict.fromkeys(
+            ("summed_fwd", "summed_stats", "pixel_fwd", "pixel_stats", "factored_stats",
+             "gather", "adam", "render", "render_grad"), 0), counts
+        stems = sorted((lib.stem, lib.cuda) for lib in native.LIBRARIES)
+        assert stems == [("glimpse_io", False), ("offset_gamma", True),
+                         ("sparse_adam", True), ("spot_render", True)], stems
+        built = [lib.stem for lib in native.LIBRARIES
+                 if lib.path is not None or lib._lib is not None]
+        assert not built, built
+        print("ok")
+        """
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
 
@@ -198,8 +231,8 @@ def _pixel_and_factored_calls():
 @pytest.mark.parametrize("form", ["pixel", "factored"])
 def test_pixel_and_factored_wrappers_take_plain_path_only_on_cpu(form):
     wrapper, plain, launcher = _pixel_and_factored_calls()[form]
-    before = {k: v.launches for k, v in og.LAUNCHERS.items()}
+    before = native.launch_counts()
     assert torch.equal(wrapper(), plain())
-    assert {k: v.launches for k, v in og.LAUNCHERS.items()} == before
+    assert native.launch_counts() == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         launcher()

@@ -21,8 +21,12 @@ from tapqir_tpu_torch.convert import opt_state_from_jax, params_from_jax
 from tapqir_tpu_torch.exceptions import CudaOutOfMemoryError
 from tapqir_tpu_torch.models import models
 from tapqir_tpu_torch.models.model import key_to_seed, seed_to_key
-from tapqir_tpu_torch.ops import offset_gamma as og
 from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
+
+# every kernel of the port (native.launch_counts()) at no launch: the CPU
+# takes the plain paths
+NO_LAUNCHES = dict.fromkeys(("summed_fwd", "summed_stats", "pixel_fwd", "pixel_stats",
+                             "factored_stats", "gather", "adam", "render", "render_grad"), 0)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
@@ -178,7 +182,7 @@ def test_chip_smoke_main_path_tiny_on_cpu(tmp_path):
                            num_iter=6, device="cpu", n_chunk=2)
     cs.check_main_path(res, 6)
     assert res["checkpoint_exists"] and res["iter_reloaded"] == 6
-    assert res["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert res["launches"] == NO_LAUNCHES  # the CPU takes the plain path
     # resume from the checkpoint: iter advances from where it stopped
     tm = models["cosmos"](device="cpu")
     tm.load(tmp_path)
@@ -201,7 +205,7 @@ def test_chip_smoke_cli_fit_and_stats_tiny_on_cpu(tmp_path, monkeypatch):
     fit = cs.run_cli_fit(tmp_path, nbatch=4, fbatch=8, num_iter=4, device="cpu")
     cs.check_cli_fit(fit, 4, device="cpu")
     assert fit["iter_before"] == 6 and fit["model"].iter == 10
-    assert fit["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert fit["launches"] == NO_LAUNCHES  # the CPU takes the plain path
     assert set(fit["model"].stats_seconds) == {
         "probabilities", "credible_intervals", "snr_chi2", "files"}
     stats = cs.run_cli_stats(tmp_path, device="cpu")
@@ -225,10 +229,10 @@ def test_chip_smoke_factored_and_pixel_paths_tiny_on_cpu(tmp_path):
                                       device="cpu")
     cs.check_main_path(res, 4)
     assert model.use_factored and (tmp_path / "factored" / "data.tpqr").is_symlink()
-    assert res["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert res["launches"] == NO_LAUNCHES
     pixel = cs.run_pixel_path(model.data, n_aoi=2, n_frames=5, device="cpu")
     assert pixel["shape"] == [2, 5, 1, 14, 14]
-    assert pixel["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert pixel["launches"] == NO_LAUNCHES
 
 
 def test_recovery_script_rehearsal_on_cpu(capsys):
@@ -262,7 +266,7 @@ def test_chip_smoke_hmm_phases_tiny_on_cpu(tmp_path, monkeypatch):
 
     hmm = cs.run_cli_hmm_fit(tmp_path, nbatch=4, num_iter=4, device="cpu")
     checks = cs.check_cli_hmm_fit(hmm, 4, device="cpu")
-    assert hmm["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert hmm["launches"] == NO_LAUNCHES  # the CPU takes the plain path
     assert hmm["shapes"] == set() and hmm["run_seconds"] > 0
     assert checks["warm_start_max_abs_err"] <= cs.WARM_TOL
     model = hmm["model"]
@@ -272,7 +276,7 @@ def test_chip_smoke_hmm_phases_tiny_on_cpu(tmp_path, monkeypatch):
     assert (tmp_path / "cosmos+hmm_params.tpqr").exists()
     card = cs.check_hmm_card_vs_cpu(model, n_elbo=2, nbatch=4, num_particles=5)
     assert card["elbo_images"] == 2 * 12 and card["theta_block"] == [4, 12]
-    assert card["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert card["launches"] == NO_LAUNCHES
     assert card["elbo_card_vs_cpu_rel_err"] <= cs.HMM_ELBO_RTOL
 
 
@@ -301,7 +305,7 @@ def test_chip_smoke_crosstalk_phases_tiny_on_cpu(tmp_path, monkeypatch):
                        params=cs.XTALK_PARAMS)
     fit = cs.run_cli_crosstalk_fit(tmp_path, nbatch=4, fbatch=8, num_iter=4, device="cpu")
     checks = cs.check_cli_crosstalk_fit(fit, 4, device="cpu")
-    assert fit["launches"] == dict.fromkeys(og.LAUNCHERS, 0)  # the CPU takes the plain path
+    assert fit["launches"] == NO_LAUNCHES  # the CPU takes the plain path
     assert fit["shapes"] == set() and fit["run_seconds"] > 0
     assert np.array(checks["alpha"]).shape == (2, 2) and len(checks["SNR"]) == 2
     model = fit["model"]
@@ -313,7 +317,7 @@ def test_chip_smoke_crosstalk_phases_tiny_on_cpu(tmp_path, monkeypatch):
     assert model.iter == 7 and not model.use_factored and fact["shapes"] == set()
     card = cs.check_crosstalk_card_vs_cpu(model, n_aoi=2, n_frames=5)
     assert card["elbo_images"] == 2 * 5 * 2
-    assert card["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert card["launches"] == NO_LAUNCHES
     assert card["elbo_card_vs_cpu_rel_err"] <= cs.XTALK_ELBO_RTOL
     probs = cs.check_card_vs_cpu(model, nbatch=4, fbatch=8, num_particles=5, n_aoi=3)
     assert probs["block"] == [4, 8] and probs["snr_aois"] == 3
@@ -373,7 +377,7 @@ def test_chip_smoke_ingest_phases_tiny_on_cpu(tmp_path, monkeypatch):
     checks = cs.check_ingested_cli(res, num_iter=3, n_profile=2, device="cpu")
     assert checks["launch_shape"] == ["summed_stats", 4, 4 * 12]
     assert checks["subset"] == [5, 12, 1, 14, 14]
-    assert all(r["launches"] == dict.fromkeys(og.LAUNCHERS, 0) for r in res.values())
+    assert all(r["launches"] == NO_LAUNCHES for r in res.values())
     assert res["fit"]["model"].iter == 3 and res["profile"]["trace_bytes"] > 0
 
 
@@ -395,7 +399,7 @@ def test_chip_smoke_viewer_phase_tiny_on_cpu(tmp_path, monkeypatch):
     assert res["matplotlib"] and res["show_exit"] == 0 and res["png_bytes"] > 0
     assert (res["aois"], res["frames"], res["excluded"], res["subset_aois"]) == (
         8, 12, [1, 5, 7], 5)
-    assert res["launches"] == dict.fromkeys(og.LAUNCHERS, 0)
+    assert res["launches"] == NO_LAUNCHES
     (ws / "cosmos_aoi0-channel0.png").unlink()
     monkeypatch.setitem(sys.modules, "matplotlib", None)
     res = cs.run_viewer(ws, H=64, W=64, window=3, excluded=(2,), device="cpu")

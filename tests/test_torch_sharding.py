@@ -299,12 +299,14 @@ def test_make_mesh_lays_out_devices_and_chooses_the_backend():
 
 def test_kernel_launch_refuses_tensors_on_another_card(monkeypatch):
     """The library launches on the runtime's current device, so the launcher
-    raises for tensors on any other card instead of launching there."""
+    raises for tensors on any other card instead of launching there, before
+    the library is built."""
     from tapqir_tpu_torch.ops import offset_gamma as og
 
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(og.library, "get", lambda: pytest.fail("built the library"))
     like = types.SimpleNamespace(device=torch.device("cuda:1"), dtype=torch.float32)
     before = og.summed_stats.launches
     with pytest.raises(RuntimeError, match="current device is cuda:0"):
-        og.summed_stats._launch(None, like)
+        og.summed_stats.function(like)
     assert og.summed_stats.launches == before
