@@ -195,7 +195,17 @@ one. Phases, each printing its findings; any failure is an exception:
     launches bitwise equal), one cosmos and one cosmos+hmm ELBO through
     the kernels (one launch each) against the plain render on the card,
     then the kernels' and the plain version's forward and backward timed
-    with CUDA events beside their bytes over 3.35 TB/s.
+    with CUDA events beside their bytes over 3.35 TB/s;
+30. the dye tables' three kernels (``ops/spot_tables.py``:
+    :func:`run_spot_tables`): the four tables and the gradients of the 12
+    per-spot inputs and of proximity against the plain version in float64
+    at the cosmos (10 x 512), hmm (10 x 790, q(m | z)), crosstalk (Q = 2)
+    and R=4 restart windows (float32 within ST_F32_TOL, float64 within
+    ST_F64_TOL of the largest magnitude, two launches bitwise equal), one
+    cosmos, cosmos+hmm and crosstalk ELBO through the kernels (one launch
+    each) against the plain tables on the card, then the kernels' and the
+    plain version's forward and backward timed with CUDA events beside
+    their bytes over 3.35 TB/s.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
@@ -371,15 +381,19 @@ def _read_launches():
 
 
 def _step_kernels(model, steps, forward=0, restart_steps=0):
-    """The launches on the card of the window and render kernels in
-    ``steps`` sparse steps of ``model``, ``restart_steps`` restart steps
+    """The launches on the card of the window, render and dye-table kernels
+    in ``steps`` sparse steps of ``model``, ``restart_steps`` restart steps
     (whose Adam is dense) and ``forward`` forward-only ELBOs: a gather and
-    an Adam each sparse step and, where the ELBO renders its spots in the
-    render kernel (cosmos and cosmos+hmm without ``use_factored``), a render
-    each ELBO and a render_grad each gradient."""
-    want = {"gather": steps, "adam": steps}
+    an Adam each sparse step; the tables' forward each ELBO and their
+    backward and proximity sum each gradient, in every model; and, where the
+    ELBO renders its spots in the render kernel (cosmos and cosmos+hmm
+    without ``use_factored``), a render each ELBO and a render_grad each
+    gradient."""
+    elbos, grads = steps + restart_steps + forward, steps + restart_steps
+    want = {"gather": steps, "adam": steps, "spot_tables": elbos, "spot_tables_grad": grads,
+            "spot_tables_prox": grads}
     if model.name != "crosstalk" and not getattr(model, "use_factored", False):
-        want.update(render=steps + restart_steps + forward, render_grad=steps + restart_steps)
+        want.update(render=elbos, render_grad=grads)
     return want
 
 
@@ -3932,23 +3946,38 @@ def compare_spot_render(nb, R=None, dtype=torch.float32, seed=0, K=2, P=14, EVP=
     return errs
 
 
+# the ops that an ELBO can take through its kernels or through its plain
+# version: their module, the plain version's name, their launchers and the
+# model modules that look the op up
+ELBO_OPS = {
+    "spot_concentration": ("tapqir_tpu_torch.ops.spot_render", "spot_concentration_plain",
+                           ("render", "render_grad"), ("tapqir_tpu_torch.models.cosmos",)),
+    "spot_tables": ("tapqir_tpu_torch.ops.spot_tables", "spot_tables_plain",
+                    ("tables", "tables_grad", "prox_sum"),
+                    ("tapqir_tpu_torch.models.cosmos", "tapqir_tpu_torch.models.hmm")),
+}
+
+
 def compare_elbo_routes(model_name="cosmos", dtype="double", N=6, F=16, nbatch=3, fbatch=8,
-                        seed=0):
+                        seed=0, op="spot_concentration"):
     """One ELBO and its window gradients of ``model_name`` on the card
-    through the render kernels and again through the plain render, on the
-    same batch and draws (one generator seed): returns the loss's relative
-    difference and the windows' largest scaled one, and the launches of
-    each render kernel in the kernel route."""
+    through the kernels of ``op`` (ELBO_OPS) and again through its plain
+    version, on the same batch and draws (one generator seed): returns the
+    loss's relative difference and the windows' largest scaled one, and the
+    launches of each of the op's kernels in the kernel route."""
     from tapqir_tpu_torch.models import models
     from tapqir_tpu_torch.ops import sparse_adam
-    from tapqir_tpu_torch.ops import spot_render as sr
     from tapqir_tpu_torch.utils.dataset import save
     from tapqir_tpu_torch.utils.simulate import simulate
 
-    cosmos_module = importlib.import_module("tapqir_tpu_torch.models.cosmos")
+    op_module, plain_name, launcher_names, model_modules = ELBO_OPS[op]
+    ops = importlib.import_module(op_module)
+    launchers = [getattr(ops, n) for n in launcher_names]
+    users = [importlib.import_module(m) for m in model_modules]
+    sim, C, params = (("crosstalk", 2, XTALK_PARAMS) if model_name == "crosstalk"
+                      else ("cosmos", 1, SIM_PARAMS))
     with tempfile.TemporaryDirectory() as tmp:
-        save(simulate("cosmos", N=N, F=F, C=1, P=14, seed=seed, params=SIM_PARAMS,
-                      device="cuda"), tmp)
+        save(simulate(sim, N=N, F=F, C=C, P=14, seed=seed, params=params, device="cuda"), tmp)
         model = models[model_name](device="cuda", dtype=dtype)
         model.load(tmp)
     model.init(lr=0.005, nbatch_size=nbatch, fbatch_size=fbatch)
@@ -3956,9 +3985,10 @@ def compare_elbo_routes(model_name="cosmos", dtype="double", N=6, F=16, nbatch=3
     gen.manual_seed(seed)
     batch = model._draw_batch(gen)
 
-    def run(render):
-        prev = cosmos_module.spot_concentration
-        cosmos_module.spot_concentration = render
+    def run(fn):
+        prev = [getattr(m, op) for m in users]
+        for m in users:
+            setattr(m, op, fn)
         try:
             gen.manual_seed(seed + 1)
             layout = model._window_layout(batch[0], batch[1])
@@ -3966,13 +3996,14 @@ def compare_elbo_routes(model_name="cosmos", dtype="double", N=6, F=16, nbatch=3
             loss = -model.elbo_from_windows(win, gen, *batch, model._data_dev)
             grads = torch.autograd.grad(loss, list(win.values()))
         finally:
-            cosmos_module.spot_concentration = prev
+            for m, p in zip(users, prev):
+                setattr(m, op, p)
         return loss.detach(), dict(zip(win, grads))
 
-    n = (sr.render.launches, sr.render_grad.launches)
-    loss, grads = run(sr.spot_concentration)
-    launches = (sr.render.launches - n[0], sr.render_grad.launches - n[1])
-    p_loss, p_grads = run(sr.spot_concentration_plain)
+    n = [k.launches for k in launchers]
+    loss, grads = run(getattr(ops, op))
+    launches = tuple(k.launches - c for k, c in zip(launchers, n))
+    p_loss, p_grads = run(getattr(ops, plain_name))
     torch.cuda.synchronize()
     return {"loss_rel": float(((loss - p_loss).abs() / p_loss.abs()).double()),
             "grads_scaled": max(scaled_err(grads[k], p_grads[k]) for k in grads),
@@ -4040,6 +4071,182 @@ def run_spot_render(iters=200):
             bound_bwd_ms=1e3 * bytes_bwd / PEAK_BYTES_PER_S)
     return {"checks": checks, "elbo": elbo, "timing": timing,
             "launches": {"render": sr.render.launches, "render_grad": sr.render_grad.launches}}
+
+
+# the dye tables' windows at eLife DatasetA, (R, n, f, Q, Z): cosmos's 10
+# AOIs x 512 frames, hmm's 10 AOIs x every frame with q(m | z) (Z = 1 + S),
+# crosstalk's two dyes, the restart step's R=4 chains of cosmos's window
+ST_CASES = {"cosmos": (None, 10, 512, 1, None), "hmm": (None, 10, 790, 1, 2),
+            "crosstalk": (None, 10, 512, 2, None), "restarts R=4": (4, 10, 512, 1, None)}
+# the kernels against the plain version in float64 on the same inputs, the
+# largest difference over the largest magnitude of each output: float64
+# kernels, and float32 kernels (the float32 plain version's own error is
+# reported beside it: 2.4e-6-2.9e-6 at the eLife windows on an H100)
+ST_F64_TOL = 1e-12
+ST_F32_TOL = 3e-5
+# one float64 ELBO through the kernels against the plain tables, the window
+# gradients' largest difference over their largest magnitude: a guide
+# site's log-density and the pathwise gradient through its draw cancel to
+# ~1e-4 of either (3.2e-14-4.2e-12 on an H100)
+ST_ELBO_TOL = 1e-10
+ST_PRIORS = {"width_min": 0.75, "width_max": 2.25, "height_std": 10000.0}
+
+
+def spot_tables_case(R, n, f, Q=1, Z=None, K=2, P=14, dtype=torch.float64, seed=0,
+                     device="cpu"):
+    """Inputs of ``spot_tables`` at eLife-like values (spots anywhere within
+    the AOI, heights up to 6000, widths 0.8-2.2, guide concentrations
+    ~0.1-2000, q(m) in 0.02-0.98, proximity 0.3-1.5) for R chains (None: no
+    chain axis) of (n, f, Q) groups of K spots, q(m) with a z axis of Z
+    (None: none), and the gradients of the four tables. The samples are
+    laid out spot-last and the guide's parameters spot-first, as the models
+    hand them over. Made in numpy from ``seed``: (inputs by name, prox and
+    the tables' gradients)."""
+    from tapqir_tpu_torch.ops.spot_tables import INPUTS
+
+    rng = np.random.default_rng(seed)
+    lead = () if R is None else (R,)
+    shape = lead + (n, f, Q, K)
+    qshape = lead + (() if Z is None else (Z,)) + (n, f, Q, K)
+    lim = (P + 1) / 2
+    ranges = {"xs": (-lim * 0.95, lim * 0.95), "ys": (-lim * 0.95, lim * 0.95),
+              "h": (50, 6000), "w": (0.8, 2.2), "qm": (0.02, 0.98), "h_loc": (100, 5000),
+              "h_beta": (0.001, 1.0), "w_mean": (0.9, 2.0), "w_size": (2, 500),
+              "x_mean": (-lim * 0.9, lim * 0.9), "y_mean": (-lim * 0.9, lim * 0.9),
+              "size": (2.5, 2000)}
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    inputs = {}
+    for name in INPUTS:
+        a = t(rng.uniform(*ranges[name], qshape if name == "qm" else shape))
+        if name not in ("xs", "ys", "h", "w"):  # the windows' layout: the spot axis first
+            a = torch.movedim(torch.movedim(a, -1, 0).contiguous(), 0, -1)
+        inputs[name] = a
+    prox = t(rng.uniform(0.3, 1.5, lead))
+    M, T, group = 1 << K, 1 + K, (n, f, Q)
+    zq = () if Z is None else (Z,)
+    gos = [t(rng.standard_normal(s)) for s in ((M,) + lead + (T,) + group, (M,) + lead + group,
+                                               (M,) + lead + group, (M,) + lead + zq + group)]
+    return inputs, prox, gos
+
+
+def spot_tables_grads(fn, inputs, prox, gos, P=14, priors=ST_PRIORS):
+    """``fn`` (``spot_tables`` or its plain version) on ``inputs`` and
+    ``prox``: the four tables and the gradients of every input and of prox
+    (by name) for ``gos``."""
+    from tapqir_tpu_torch.infer.discrete import m_configs
+
+    leaves = {k: v.detach().requires_grad_() for k, v in inputs.items()}
+    leaves["prox"] = prox.detach().clone().requires_grad_()
+    K = inputs["xs"].shape[-1]
+    spec = np.arange(1 + K)[:, None] == 1 + np.arange(K)
+    outs = fn(*leaves.values(), m_configs(K), spec, P, priors)
+    grads = torch.autograd.grad(outs, list(leaves.values()), gos)
+    return [o.detach() for o in outs], dict(zip(leaves, grads))
+
+
+def compare_spot_tables(R, n, f, Q=1, Z=None, dtype=torch.float32, seed=0, K=2):
+    """The tables' kernels against the plain version on the card: the four
+    tables and every gradient (prox's too) of one case of
+    :func:`spot_tables_case` in ``dtype`` against the plain version in
+    float64 on the same inputs (ST_F64_TOL or ST_F32_TOL), and two launches
+    bitwise equal. Returns the errors by output (and the float32 plain
+    version's beside them)."""
+    from tapqir_tpu_torch.ops import spot_tables as st
+
+    inputs, prox, gos = spot_tables_case(R, n, f, Q, Z, K, dtype=dtype, seed=seed,
+                                         device="cuda")
+    outs, grads = spot_tables_grads(st.spot_tables, inputs, prox, gos)
+    outs2, grads2 = spot_tables_grads(st.spot_tables, inputs, prox, gos)
+    if (any(not torch.equal(a, b) for a, b in zip(outs, outs2))
+            or any(not torch.equal(grads[k], grads2[k]) for k in grads)):
+        raise RuntimeError(f"spot tables R={R} {n}x{f}x{Q} {dtype}: two launches differ")
+
+    def errs_of(o, g):
+        e = {name: scaled_err(a, b) for name, a, b in
+             zip(("term_xy", "term_hw", "term_q", "log_qm"), o, ref_outs)}
+        e.update({f"d{k}": scaled_err(g[k], ref_grads[k]) for k in ref_grads})
+        return e
+
+    ref_outs, ref_grads = spot_tables_grads(
+        st.spot_tables_plain, {k: v.double() for k, v in inputs.items()}, prox.double(),
+        [g.double() for g in gos])
+    errs = errs_of(outs, grads)
+    tol = ST_F64_TOL if dtype == torch.float64 else ST_F32_TOL
+    if dtype == torch.float32:
+        errs["plain_float32"] = errs_of(*spot_tables_grads(st.spot_tables_plain, inputs, prox,
+                                                           gos))
+    worst = max(v for k, v in errs.items() if k != "plain_float32")
+    if not worst <= tol:
+        raise RuntimeError(f"spot tables R={R} {n}x{f}x{Q} {dtype}: {errs} (at most {tol})")
+    return errs
+
+
+def spot_tables_bytes(R, G, Z, K, M, item):
+    """Bytes each pass must move: the forward reads the 12 per-spot inputs
+    (q(m) Z times) and prox and writes the four tables; the backward reads
+    the inputs and the tables' gradients and writes the inputs' gradients
+    (and one partial a block, left out)."""
+    rows = R * G
+    inputs = (11 + Z) * K * rows * item + R * item
+    tables = M * rows * ((1 + K) + 2 + Z) * item
+    return inputs + tables, 2 * inputs + tables
+
+
+def run_spot_tables(iters=200):
+    """Phase 30: the dye tables' three kernels against the plain version at
+    the cosmos, hmm, crosstalk and R=4 restart windows of eLife DatasetA
+    (float32, and float64 at cosmos's and hmm's), one ELBO of cosmos,
+    cosmos+hmm and crosstalk through the kernels against the plain tables on
+    the card, then the kernels' and the plain version's forward and backward
+    timed with CUDA events beside their bytes over 3.35 TB/s."""
+    from tapqir_tpu_torch.infer.discrete import m_configs
+    from tapqir_tpu_torch.ops import spot_tables as st
+
+    checks = {}
+    for i, (name, case) in enumerate(ST_CASES.items()):
+        checks[name] = compare_spot_tables(*case, dtype=torch.float32, seed=i)
+    for i, name in enumerate(("cosmos", "hmm")):
+        checks[f"{name} float64"] = compare_spot_tables(*ST_CASES[name], dtype=torch.float64,
+                                                        seed=10 + i)
+    elbo = {m: compare_elbo_routes(m, op="spot_tables")
+            for m in ("cosmos", "cosmos+hmm", "crosstalk")}
+    for m, e in elbo.items():
+        if e["launches"] != (1, 1, 1) or not (e["loss_rel"] <= ST_F64_TOL
+                                              and e["grads_scaled"] <= ST_ELBO_TOL):
+            raise RuntimeError(f"{m}: the ELBO through the tables' kernels {e}")
+    timing = {}
+    for name, (R, n, f, Q, Z) in ST_CASES.items():
+        inputs, prox, gos = spot_tables_case(R, n, f, Q, Z, dtype=torch.float32, seed=20,
+                                             device="cuda")
+        bytes_fwd, bytes_bwd = spot_tables_bytes(1 if R is None else R, n * f * Q,
+                                                 1 if Z is None else Z, 2, 4, 4)
+        for route, fn in (("kernel", st.spot_tables), ("plain", st.spot_tables_plain)):
+            leaves = {k: v.detach().requires_grad_() for k, v in inputs.items()}
+            leaves["prox"] = prox.detach().clone().requires_grad_()
+            mtab, spec = m_configs(2), np.arange(3)[:, None] == 1 + np.arange(2)
+            if route == "plain":  # the tables on the card, as the models' constants
+                # were: host tables would be copied, and waited for, per call
+                mtab = torch.as_tensor(mtab, dtype=torch.float32, device="cuda")
+                spec = torch.as_tensor(spec, device="cuda")
+            args = (*leaves.values(), mtab, spec, 14, ST_PRIORS)
+            fwd = lambda: fn(*args)  # noqa: E731
+            outs = fwd()
+            bwd = lambda: torch.autograd.grad(outs, list(leaves.values()), gos,  # noqa: E731
+                                              retain_graph=True)
+            n_it = 10 if route == "plain" else iters
+            f_call, b_call = time_ms(fwd, n_it), time_ms(bwd, n_it)
+            timing[f"{name} {route}"] = {
+                "fwd_ms": device_ms(fwd, n_it, f_call), "bwd_ms": device_ms(bwd, n_it, b_call),
+                "fwd_call_ms": f_call, "bwd_call_ms": b_call}
+        timing[f"{name} kernel"].update(
+            bytes_fwd=bytes_fwd, bytes_bwd=bytes_bwd,
+            bound_fwd_ms=1e3 * bytes_fwd / PEAK_BYTES_PER_S,
+            bound_bwd_ms=1e3 * bytes_bwd / PEAK_BYTES_PER_S)
+    return {"checks": checks, "elbo": elbo, "timing": timing,
+            "launches": {k.name: k.launches for k in (st.tables, st.tables_grad, st.prox_sum)}}
 
 
 def time_ms(fn, iters):
@@ -4568,6 +4775,10 @@ def main():
         # phase 29: the spot render's forward and backward kernels
         render = run_spot_render()
         lap("29 spot render")
+
+        # phase 30: the dye tables' forward and backward kernels
+        dye_tables = run_spot_tables()
+        lap("30 spot tables")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -4705,6 +4916,11 @@ def main():
           f"{json.dumps(render['elbo'])}", flush=True)
     for k, v in render["timing"].items():
         print(f"[timing] spot_render {k} on {name} ({smi}): {json.dumps(v)}", flush=True)
+    print(f"[spot-tables] kernels vs plain float64, largest scaled differences: "
+          f"{json.dumps(dye_tables['checks'])}; ELBO through the kernels vs the plain tables: "
+          f"{json.dumps(dye_tables['elbo'])}", flush=True)
+    for k, v in dye_tables["timing"].items():
+        print(f"[timing] spot_tables {k} on {name} ({smi}): {json.dumps(v)}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")

@@ -171,10 +171,12 @@ class Kernel:
         self.launches += 1
 
 
-def check_tensors(tensors, like, shapes=None):
+def check_tensors(tensors, like, shapes=None, contiguous=True):
     """Every tensor of ``tensors`` (None skipped) on the device and in the
-    dtype of ``like`` (else TypeError), contiguous and, where ``shapes``
-    is given, of the shape at its place there (else ValueError)."""
+    dtype of ``like`` (else TypeError), contiguous unless ``contiguous`` is
+    False (a kernel that reads through the strides it is given) and, where
+    ``shapes`` is given, of the shape at its place there (else
+    ValueError)."""
     device, dtype = like.device, like.dtype
     for i, t in enumerate(tensors):
         if t is None:
@@ -182,7 +184,7 @@ def check_tensors(tensors, like, shapes=None):
         if t.device != device or t.dtype != dtype:
             raise TypeError(f"every tensor must be {dtype} on {device}, got {t.dtype} on "
                             f"{t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("the kernel takes contiguous tensors")
         if shapes is not None and t.shape != shapes[i]:
             raise ValueError(f"a tensor of shape {tuple(t.shape)} where the kernel takes "

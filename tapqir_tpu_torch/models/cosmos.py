@@ -65,6 +65,7 @@ from tapqir_tpu_torch.infer.discrete import (
 )
 from tapqir_tpu_torch.models.model import Model
 from tapqir_tpu_torch.ops.spot_render import spot_concentration
+from tapqir_tpu_torch.ops.spot_tables import spot_tables
 from tapqir_tpu_torch.parallel import sharding
 
 DEFAULT_PRIORS = {
@@ -189,9 +190,8 @@ class cosmos(Model):
         self._const = {
             "mtab": torch.as_tensor(m_configs(K), dtype=dt, device=dev),
             "lpt": log_probs_theta(K, S, dt, dev),
-            "spec_tk": torch.as_tensor(
-                np.arange(1 + K)[:, None] == 1 + np.arange(K), device=dev
-            ),
+            "mtab_np": m_configs(K),  # host tables of spot_tables
+            "spec_tk": np.arange(1 + K)[:, None] == 1 + np.arange(K),
             "pi_prior": torch.full((self.Q, S + 1), 1.0 / (S + 1), dtype=dt, device=dev),
             "M": M,
         }
@@ -430,12 +430,9 @@ class cosmos(Model):
         """Per-dye discrete tables, each (M=2^K, *lead, n, f, Q): ``inner``
         (the logsumexp over (z, theta) of the model's discrete joint),
         ``term_hw``, ``log_qm`` and ``term_q``; ``lead`` is a leading chain
-        axis of the inputs, or none."""
+        axis of the inputs, or none. The per-spot tables come from
+        :func:`spot_tables` (on a card one kernel forward, two backward)."""
         K = self.K
-        P = self.data.P
-        priors = self.priors
-        lim = (P + 1) / 2
-        wmin, wmax = priors["width_min"], priors["width_max"]
         mtab = self._const["mtab"]  # (M, K)
 
         lpz = log_probs_z(pi, ont)  # (*lead, n, Q, 1+S)
@@ -444,20 +441,10 @@ class cosmos(Model):
         log_pm_sum = torch.einsum("mk,...qtk->m...tq", mtab, lpm1) + torch.einsum(
             "mk,...qtk->m...tq", 1.0 - mtab, lpm0
         )  # (M, *lead, 1+K, Q)
-
-        size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
-        size_sp = size_sp.reshape(size_sp.shape + (1,) * 4)  # against (n, f, Q, K)
-        lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
-            ys, 0.0, 2.0, -lim, lim
-        )  # (*lead, n, f, Q, K)
-        lpxy_sp = affine_beta_log_prob(
-            xs, 0.0, size_sp, -lim, lim
-        ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
-        spec_tk = self._const["spec_tk"]  # (1+K, K)
-        lpxy_t = torch.where(
-            spec_tk[:, None, None, None, :], lpxy_sp.unsqueeze(-5), lpxy_ns.unsqueeze(-5)
-        )  # (*lead, 1+K, n, f, Q, K)
-        term_xy = torch.einsum("mk,...tnfqk->m...tnfq", mtab, lpxy_t)  # (M, *lead, T, n, f, Q)
+        term_xy, term_hw, term_q, log_qm = spot_tables(
+            xs, ys, h, w, qm, h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size, prox,
+            self._const["mtab_np"], self._const["spec_tk"], self.data.P, self.priors,
+        )  # term_xy (M, *lead, 1+K, n, f, Q)
 
         T_full = (
             torch.movedim(lpz, -1, -3).unsqueeze(-2).unsqueeze(-4)[None]  # (1, *lead, Z, 1, n, 1, Q)
@@ -466,19 +453,6 @@ class cosmos(Model):
             + term_xy.unsqueeze(-5)  # (M, *lead, 1, T, n, f, Q)
         )
         inner = torch.logsumexp(T_full, dim=(-5, -4))  # (M, *lead, n, f, Q)
-
-        lph = halfnormal_log_prob(h, priors["height_std"])
-        lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
-        term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
-
-        log_qm = torch.einsum("mk,...nfqk->m...nfq", mtab, torch.log(qm)) + torch.einsum(
-            "mk,...nfqk->m...nfq", 1.0 - mtab, torch.log1p(-qm)
-        )
-        lqh = gamma_log_prob(h, h_loc * h_beta, h_beta)
-        lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
-        lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
-        lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
-        term_q = torch.einsum("mk,...nfqk->m...nfq", mtab, lqh + lqw + lqx + lqy)
         return inner, term_hw, log_qm, term_q
 
     def _local_marginalized(self, obs, target_locs, ont, gain, pi, lamda, prox,

@@ -36,7 +36,6 @@ import torch
 from tapqir_tpu_torch import constraints, tracing
 from tapqir_tpu_torch.distributions.core import (
     affine_beta_concentrations,
-    affine_beta_log_prob,
     affine_beta_sample,
     beta_from_gamma_pair,
     categorical_sample,
@@ -58,6 +57,7 @@ from tapqir_tpu_torch.infer.discrete import (
 )
 from tapqir_tpu_torch.models.cosmos import _chain_perms, cosmos
 from tapqir_tpu_torch.ops.scan import cumulative_logmatmulexp, sharded_cumulative_logmatmulexp
+from tapqir_tpu_torch.ops.spot_tables import spot_tables
 from tapqir_tpu_torch.parallel.sharding import shift_from_previous
 
 logger = logging.getLogger(__name__)
@@ -298,19 +298,10 @@ class hmm(cosmos):
             log_pm_sum = torch.einsum("mk,...qtk->m...tq", mtab, lpm1) + torch.einsum(
                 "mk,...qtk->m...tq", 1.0 - mtab, lpm0
             )  # (M, *lead, 1+K, Q)
-            size_sp = ((P + 1) / (2 * prox)) ** 2 - 1.0
-            size_sp = size_sp.reshape(size_sp.shape + (1,) * 4)  # against (n, F, Q, K)
-            lpxy_ns = affine_beta_log_prob(xs, 0.0, 2.0, -lim, lim) + affine_beta_log_prob(
-                ys, 0.0, 2.0, -lim, lim
-            )
-            lpxy_sp = affine_beta_log_prob(
-                xs, 0.0, size_sp, -lim, lim
-            ) + affine_beta_log_prob(ys, 0.0, size_sp, -lim, lim)
-            lpxy_t = torch.where(
-                const["spec_tk"][:, None, None, None, :], lpxy_sp.unsqueeze(-5),
-                lpxy_ns.unsqueeze(-5),
-            )  # (*lead, 1+K, n, F, Q, K)
-            term_xy = torch.einsum("mk,...tnfqk->m...tnfq", mtab, lpxy_t)  # (M, *lead, 1+K, n, F, Q)
+            term_xy, term_hw, term_q, log_qm = spot_tables(
+                xs, ys, h, w, qm, h_loc, h_beta, w_mean, w_size, x_mean, y_mean, size, prox,
+                const["mtab_np"], const["spec_tk"], P, priors,
+            )  # term_xy (M, *lead, 1+K, n, F, Q), log_qm (M, *lead, 1+S, n, F, Q)
             # over (m, z, theta): theta summed out, z kept for the chain
             T_full = (
                 const["lpt"][:, :, None, None, None]  # (1+S, 1+K, 1, 1, 1)
@@ -319,18 +310,10 @@ class hmm(cosmos):
             )
             inner = torch.logsumexp(T_full, dim=-4)  # (M, *lead, 1+S, n, F, Q)
 
-            lph = halfnormal_log_prob(h, priors["height_std"])
-            lpw = affine_beta_log_prob(w, 1.5, 2.0, wmin, wmax)
-            term_hw = torch.einsum("mk,...nfqk->m...nfq", mtab, lph + lpw)
-            # the likelihood keeps its place between the tables, so that the
-            # backward pass sums each shared input's gradients in the same order
             with tracing.span("elbo.likelihood"):
                 loglik = self._likelihood(obs, b, h, w, xs, ys, target_locs, gain,
                                           data)  # (M, *lead, n, F, C)
 
-            log_qm = torch.einsum("mk,...snfqk->m...snfq", mtab, torch.log(qm)) + torch.einsum(
-                "mk,...snfqk->m...snfq", 1.0 - mtab, torch.log1p(-qm)
-            )  # (M, *lead, 1+S, n, F, Q)
             # q(m | z) restricted to the configs feasible given z and
             # renormalised: given z > 0 the all-zero m has zero model
             # probability, and the unrestricted guide would make the ELBO -inf
@@ -341,11 +324,6 @@ class hmm(cosmos):
             wq = torch.exp(log_qm)
             # zero-weight configs can carry -1e30 costs: neutralise them exactly
             log_qm = torch.where(wq > 0.0, log_qm, torch.zeros_like(log_qm))
-            lqh = gamma_log_prob(h, h_loc * h_beta, h_beta)
-            lqw = affine_beta_log_prob(w, w_mean, w_size, wmin, wmax)
-            lqx = affine_beta_log_prob(xs, x_mean, size, -lim, lim)
-            lqy = affine_beta_log_prob(ys, y_mean, size, -lim, lim)
-            term_q = torch.einsum("mk,...nfqk->m...nfq", mtab, lqh + lqw + lqx + lqy)
 
             ell = (
                 wq * (inner + (term_hw + loglik - term_q).unsqueeze(-4) - log_qm)

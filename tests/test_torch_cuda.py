@@ -26,6 +26,14 @@ the plain render in float64 at the cosmos, hmm and R=4 restart windows (the
 plain version is tested on the CPU in test_torch_spot_render.py), and one
 cosmos or cosmos+hmm ELBO launches each once and matches the plain route.
 
+The dye tables' three kernels (``ops/spot_tables.py``) are held against
+the plain tables in float64 at the cosmos, hmm, crosstalk and R=4 restart
+windows, every gradient with prox's (the plain version is tested on the
+CPU in test_torch_spot_tables.py); one cosmos, cosmos+hmm or crosstalk
+ELBO launches each once and matches the plain route, and
+``native.launch_counts()`` shows one forward and two backward launches a
+step.
+
 A mesh launched on the card finds every CUDA library built in the process
 that launched it (``csrc/native.py``'s registry), before its ranks start.
 """
@@ -412,6 +420,103 @@ def test_elbo_through_the_render_kernels(cs, model):
     assert res["grads_scaled"] <= cs.SR_F64_TOL
 
 
+SPOT_TABLES_CASES = {
+    "cosmos": dict(R=None, n=10, f=512),
+    "hmm": dict(R=None, n=10, f=790, Z=2),
+    "crosstalk": dict(R=None, n=10, f=512, Q=2),
+    "restarts-R4": dict(R=4, n=10, f=512),
+    "cosmos-float64": dict(R=None, n=10, f=512, dtype=torch.float64),
+    "hmm-float64": dict(R=None, n=10, f=790, Z=2, dtype=torch.float64),
+    "crosstalk-float64": dict(R=None, n=10, f=512, Q=2, dtype=torch.float64),
+    "restarts-R4-float64": dict(R=4, n=10, f=512, dtype=torch.float64),
+    "K1-ragged": dict(R=None, n=3, f=101, K=1),
+    "K3-hmm-R2-float64": dict(R=2, n=3, f=77, Z=2, K=3, dtype=torch.float64),
+    "K6-Q2": dict(R=None, n=2, f=33, Q=2, K=6),
+}
+
+
+@pytest.mark.parametrize("case", list(SPOT_TABLES_CASES))
+def test_spot_tables_kernels_match_plain(cs, case):
+    """The dye tables' kernels against the plain version in float64 on the
+    same inputs at the cosmos (10 x 512), hmm (10 x 790, q(m | z)),
+    crosstalk (Q = 2) and R=4 restart windows: the four tables and the
+    gradients of the 12 per-spot inputs and of prox within
+    chip_smoke.ST_F64_TOL (float64) or ST_F32_TOL (float32) of the largest
+    magnitude, and two launches bitwise equal
+    (chip_smoke.compare_spot_tables)."""
+    c = dict(SPOT_TABLES_CASES[case])
+    errs = cs.compare_spot_tables(c.pop("R"), c.pop("n"), c.pop("f"), seed=7, **c)
+    tol = cs.ST_F64_TOL if c.get("dtype") == torch.float64 else cs.ST_F32_TOL
+    assert max(v for k, v in errs.items() if k != "plain_float32") <= tol
+
+
+def test_spot_tables_launchers_check_their_inputs(cs):
+    from tapqir_tpu_torch.ops import spot_tables as st
+
+    inputs, prox, gos = cs.spot_tables_case(2, 4, 5, dtype=torch.float32, device="cuda")
+    views = [inputs[k].reshape(2, 1, 20, 2) for k in st.INPUTS]
+    consts = st._constants(14, 0.75, 2.25, 10000.0)
+    outs = [torch.empty(s, device="cuda") for s in ((4, 2, 3, 20), (4, 2, 20), (4, 2, 20),
+                                                    (4, 2, 1, 20))]
+
+    def launch(views=views, prox=prox, masks=(0, 1, 2, 3), spec=(0, 1, 2), outs=outs):
+        st.tables(views, prox, masks, spec, consts, outs=outs)
+
+    n = st.tables.launches
+    with pytest.raises(TypeError):  # a float64 height
+        launch(views=views[:2] + [views[2].double()] + views[3:])
+    with pytest.raises(ValueError):  # a proximity for 3 chains
+        launch(prox=torch.ones(3, device="cuda"))
+    with pytest.raises(ValueError):  # theta states that are not 1 + K
+        launch(spec=(0, 1))
+    with pytest.raises(ValueError):  # a table of another shape
+        launch(outs=outs[:3] + [torch.empty(4, 2, 2, 20, device="cuda")])
+    with pytest.raises(ValueError):  # a width of another group count
+        launch(views=views[:3] + [views[3][:, :, :10]] + views[4:])
+    assert st.tables.launches == n
+    launch()
+    assert st.tables.launches == n + 1
+
+
+@pytest.mark.parametrize("model", ["cosmos", "cosmos+hmm", "crosstalk"])
+def test_elbo_through_the_tables_kernels(cs, model):
+    """One ELBO of cosmos, cosmos+hmm and crosstalk through
+    ``elbo_from_windows`` on the card launches each of the tables' kernels
+    once, and its loss and window gradients match the plain tables' on the
+    same batch and draws (float64: the loss within chip_smoke.ST_F64_TOL, the
+    gradients within ST_ELBO_TOL)."""
+    res = cs.compare_elbo_routes(model, op="spot_tables")
+    assert res["launches"] == (1, 1, 1)
+    assert res["loss_rel"] <= cs.ST_F64_TOL
+    assert res["grads_scaled"] <= cs.ST_ELBO_TOL
+
+
+@pytest.mark.parametrize("model", ["cosmos", "cosmos+hmm", "crosstalk"])
+def test_launch_counts_show_the_tables_once_forward_and_twice_backward(cs, tmp_path, model):
+    """``native.launch_counts()`` over three sparse steps of a float32
+    model on the card: the tables' forward, backward and proximity sum
+    once a step each."""
+    from tapqir_tpu_torch.csrc import native
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.utils.dataset import save
+    from tapqir_tpu_torch.utils.simulate import simulate
+
+    sim, C, params = (("crosstalk", 2, cs.XTALK_PARAMS) if model == "crosstalk"
+                      else ("cosmos", 1, cs.SIM_PARAMS))
+    save(simulate(sim, N=6, F=16, C=C, P=14, seed=0, params=params, device="cuda"), tmp_path)
+    m = models[model](device="cuda", dtype="float")
+    m.load(tmp_path)
+    m.init(lr=0.005, nbatch_size=3, fbatch_size=8)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    before = native.launch_counts()
+    for _ in range(3):
+        assert np.isfinite(float(m._sparse_step(gen)))
+    after = native.launch_counts()
+    names = ("spot_tables", "spot_tables_grad", "spot_tables_prox")
+    assert [after[k] - before[k] for k in names] == [3, 3, 3]
+
+
 def _rank_device(mesh):
     return str(mesh.device)
 
@@ -427,7 +532,8 @@ def test_mesh_launch_builds_every_cuda_library_in_the_parent(monkeypatch):
     from tapqir_tpu_torch.parallel import sharding
 
     cuda = [lib for lib in native.LIBRARIES if lib.cuda]
-    assert sorted(lib.stem for lib in cuda) == ["offset_gamma", "sparse_adam", "spot_render"]
+    assert sorted(lib.stem for lib in cuda) == ["offset_gamma", "sparse_adam", "spot_render",
+                                                "spot_tables"]
     for lib in cuda:
         monkeypatch.setattr(lib, "_lib", None)  # as if this process had loaded none
     mesh = sharding.make_mesh(2, 1, ["cuda:0"] * 2)

@@ -26,7 +26,8 @@ from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
 # every kernel of the port (native.launch_counts()) at no launch: the CPU
 # takes the plain paths
 NO_LAUNCHES = dict.fromkeys(("summed_fwd", "summed_stats", "pixel_fwd", "pixel_stats",
-                             "factored_stats", "gather", "adam", "render", "render_grad"), 0)
+                             "factored_stats", "gather", "adam", "render", "render_grad",
+                             "spot_tables", "spot_tables_grad", "spot_tables_prox"), 0)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
