@@ -178,6 +178,18 @@ def device_info(device):
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}
 
 
+def span_specs(cell, metrics):
+    """The spans a run installs for ``metrics``: each reader's ``SPANS``,
+    then the entry's over them, so that the span ``step`` is always the
+    step the cell's entry drives, whatever a reader lists under that
+    name."""
+    specs = {}
+    for m in metrics:
+        specs.update(getattr(cell.metric_reader(m["name"]), "SPANS", {}))
+    specs.update(cell.entry.SPANS)
+    return specs
+
+
 def run_cell(root, workload, seed, seconds, trace, t_start, device="cuda", log=None):
     """One run of ``workload``: returns the result line as a dict, with the
     numbers compared as its last key ``checks``."""
@@ -199,10 +211,7 @@ def run_cell(root, workload, seed, seconds, trace, t_start, device="cuda", log=N
                 [m for m in cell.metrics("end_to_end") if m["source"] == "device_trace"])
         tracer = None
         if read:
-            specs = dict(cell.entry.SPANS)
-            for m in read:
-                specs.update(getattr(cell.metric_reader(m["name"]), "SPANS", {}))
-            tracer = tracing.Tracer(specs, Path(tmp), cell.traffic["profile"])
+            tracer = tracing.Tracer(span_specs(cell, read), Path(tmp), cell.traffic["profile"])
             tracer.install(run.model, run.profile_start())
         setup_s = time.perf_counter() - t_start
         window = run.window()

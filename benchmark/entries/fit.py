@@ -51,6 +51,11 @@ class Run:
         self.model = None
         self.num_iter = None
 
+    def program_model(self):
+        """The name of the program's model: the configuration's ``model``,
+        which also names its reference."""
+        return self.cell.cfg["model"]
+
     def build(self):
         from tapqir_tpu_torch.models import models
         from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
@@ -63,13 +68,14 @@ class Run:
         dataset = CosmosDataset(images=d["images"], xy=d["xy"], is_ontarget=d["is_ontarget"],
                                 offset=OffsetData(d["offset_samples"], d["offset_weights"]),
                                 name=self.cell.config_entry["name"])
-        model = models[cfg["model"]](S=geo["S"], K=geo["K"], device=self.device,
-                                     dtype=fit["dtype"])
+        model = models[self.program_model()](S=geo["S"], K=geo["K"], device=self.device,
+                                             dtype=fit["dtype"])
         model.data = dataset
         model.path = self.workdir
         model.run_path = self.workdir / ".tapqir"
         model.frame_sampling = fit["frame_sampling"]
-        model.checkpoint_interval = traffic["checkpoint_interval"]
+        if "checkpoint_interval" in traffic:
+            model.checkpoint_interval = traffic["checkpoint_interval"]
         with warnings.catch_warnings():  # the benchmark's arrays are read-only
             warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
             model.init(lr=fit["lr"], nbatch_size=fit["nbatch"], fbatch_size=fit["fbatch"])
@@ -133,32 +139,42 @@ class Run:
 
     def setup(self, seconds):
         """Build, the checked steps, warm-up; sizes the window: the whole
-        checkpoint chunks nearest to ``seconds`` at the cell's window rate,
-        the same work in every run of the cell."""
+        chunks nearest to ``seconds`` at the cell's window rate, the same
+        work in every run of the cell."""
         t = time.perf_counter()
         self.build()
         t1 = time.perf_counter()
         state = self.checked_steps()
         t2 = time.perf_counter()
-        traffic = self.cell.traffic
-        n = traffic["warmup_steps"]
+        n = self.cell.traffic["warmup_steps"]
         _sync(self.device)
         t0 = time.perf_counter()
-        self.model._run_chunk(n)
+        self.warm_up(n)
         _sync(self.device)
         rate = n / (time.perf_counter() - t0)
-        chunk = traffic["checkpoint_interval"]
+        chunk = self.chunk()
         per_s = self.cell.window["steps_per_s"]
         self.num_iter = chunk * max(1, round(seconds * per_s / chunk))
-        self.log(f"[{self.cell.name}] Model.init {t1 - t:.3f} s; checked steps (Model.run, "
-                 f"one full checkpoint) {t2 - t1:.3f} s; warm-up {n} steps at {rate:.3f} "
+        self.log(f"[{self.cell.name}] Model.init {t1 - t:.3f} s; checked steps "
+                 f"{t2 - t1:.3f} s; warm-up {n} steps at {rate:.3f} "
                  f"steps/s; window of {self.num_iter} steps")
         return state
 
+    def chunk(self):
+        """Steps between the window's host reads: a checkpoint chunk."""
+        return self.cell.traffic["checkpoint_interval"]
+
+    def warm_up(self, num_steps):
+        self.model._run_chunk(num_steps)
+
+    def drive(self, num_iter):
+        """The window's one call of the program."""
+        self.model.run(num_iter)
+
     def profile_start(self):
         """The window step at which the profiled stretch starts: the middle
-        of the middle checkpoint chunk."""
-        chunk = self.cell.traffic["checkpoint_interval"]
+        of the middle chunk."""
+        chunk = self.chunk()
         p = self.cell.traffic["profile"]
         start = chunk * (self.num_iter // chunk // 2) + chunk // 2
         if start + p["warmup"] + p["steps"] > self.num_iter:
@@ -172,7 +188,7 @@ class Run:
             torch.cuda.reset_peak_memory_stats()
         it0 = model.iter
         t0 = time.perf_counter()
-        model.run(self.num_iter)
+        self.drive(self.num_iter)
         _sync(dev)
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() if torch.device(dev).type == "cuda" else 0

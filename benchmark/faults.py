@@ -34,22 +34,36 @@ def _cosmos():
     return importlib.import_module(COSMOS)
 
 
-def frozen():
-    from tapqir_tpu_torch.models.model import Model
-
+def _restoring(trees_of):
+    """A step that restores, after each call, the trees ``trees_of(self,
+    *args)`` names to what they held before it."""
     def make(orig):
-        def step(self, generator, batch=None, draws=None):
-            trees = [self.params, self.opt_state["mu"], self.opt_state["nu"]]
+        def step(self, *args, **kwargs):
+            trees = trees_of(self, *args)
             saved = [{k: v.clone() for k, v in t.items()} for t in trees]
-            loss = orig(self, generator, batch, draws)
+            out = orig(self, *args, **kwargs)
             with torch.no_grad():
                 for t, old in zip(trees, saved):
                     for k, v in t.items():
                         v.copy_(old[k])
-            return loss
+            return out
         return step
+    return make
 
-    return _patched(Model, "_sparse_step", make)
+
+@contextlib.contextmanager
+def frozen():
+    """Both steps of the program frozen: the fit's ``_sparse_step`` (the
+    model's parameters and Adam moments) and the restarts'
+    ``_restart_step`` (the (R, ...) ``params``, ``mu`` and ``nu`` it is
+    handed)."""
+    from tapqir_tpu_torch.models.model import Model
+
+    sparse = _restoring(lambda self, *a: [self.params, self.opt_state["mu"],
+                                          self.opt_state["nu"]])
+    restart = _restoring(lambda self, params, mu, nu, *a: [params, mu, nu])
+    with _patched(Model, "_sparse_step", sparse), _patched(Model, "_restart_step", restart):
+        yield
 
 
 def half_batch():

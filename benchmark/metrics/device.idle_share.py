@@ -3,7 +3,7 @@ which no operation ran on the device, in percent (1 - the union of device
 activity over the stretch, from the first profiled step's start to the end
 of the last event it launched)."""
 
-SPANS = {"step": {"method": "_sparse_step"}}
+SPANS = {}
 
 
 def read(view):

@@ -2,8 +2,7 @@
 step's ``torch.autograd.grad`` (the ELBO's backward, run by the autograd
 engine's threads while the call waits)."""
 
-SPANS = {"step": {"method": "_sparse_step"},
-         "elbo_bwd": {"function": "grad", "modules": ["torch.autograd"]}}
+SPANS = {"elbo_bwd": {"function": "grad", "modules": ["torch.autograd"]}}
 
 
 def read(view):

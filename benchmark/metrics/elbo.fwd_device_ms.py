@@ -2,7 +2,7 @@
 model's ``elbo_from_windows`` (the guide's draws, the discrete tables and
 the likelihood forward)."""
 
-SPANS = {"step": {"method": "_sparse_step"}, "elbo_fwd": {"method": "elbo_from_windows"}}
+SPANS = {"elbo_fwd": {"method": "elbo_from_windows"}}
 
 
 def read(view):

@@ -5,7 +5,6 @@ those calls leave (the scan's backward). Reads nothing in a model that
 makes no such call."""
 
 SPANS = {
-    "step": {"method": "_sparse_step"},
     "scan_fwd": {"function": "cumulative_logmatmulexp",
                  "modules": ["tapqir_tpu_torch.models.hmm"]},
     "scan_bwd": {"backward_of": "scan_fwd"},

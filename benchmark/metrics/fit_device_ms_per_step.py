@@ -4,7 +4,7 @@ stretch, from the first profiled step's start to the end of the last event
 it launched, over the stretch's steps. An end-to-end metric, read in the
 untraced run, whose window holds the profiled stretch for it."""
 
-SPANS = {"step": {"method": "_sparse_step"}}
+SPANS = {}
 
 
 def read(view):

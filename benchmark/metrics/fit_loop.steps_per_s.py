@@ -3,7 +3,7 @@ window over its wall time (host clock), outside the profiled stretch: the
 end-to-end ``fit_steps_per_s`` as a per-layer reading, in the cells where
 the host's speed spreads it too widely to hold a bound."""
 
-SPANS = {"step": {"method": "_sparse_step"}}
+SPANS = {}
 
 
 def read(view):

@@ -13,7 +13,6 @@ part of the work (or none). A program that replaces the function keeps
 its name and its place in these modules, or brings a metric of its own."""
 
 SPANS = {
-    "step": {"method": "_sparse_step"},
     "likelihood_fwd": {"function": "offset_gamma_log_prob_summed",
                        "modules": ["tapqir_tpu_torch.models.cosmos",
                                    "tapqir_tpu_torch.models.crosstalk"]},

@@ -1,7 +1,8 @@
 """step.launches: device events (kernels, copies, fills) launched inside
-``Model._sparse_step`` per step, in the profiled stretch."""
+the entry's step (``Model._sparse_step`` in the fit, ``Model._restart_step``
+in the restarts) per step, in the profiled stretch."""
 
-SPANS = {"step": {"method": "_sparse_step"}}
+SPANS = {}
 
 
 def read(view):

@@ -1,10 +1,11 @@
 """step.update_device_ms: device milliseconds per step launched inside
-``Model._sparse_step`` but outside the ELBO's forward and its backward
-(``torch.autograd.grad``): the window gather, the sparse Adam and the
-scatter."""
+the entry's step but outside the ELBO's forward and its backward
+(``torch.autograd.grad``): in the fit's ``Model._sparse_step`` the batch's
+draw, the window gather and the window Adam; in the restarts'
+``Model._restart_step`` the batch's draw, the chain windows' gathers
+(their backward is the ELBO's) and the dense Adam."""
 
 SPANS = {
-    "step": {"method": "_sparse_step"},
     "elbo_fwd": {"method": "elbo_from_windows"},
     "elbo_bwd": {"function": "grad", "modules": ["torch.autograd"]},
 }

@@ -4,7 +4,7 @@ the step is not counted) over the device's busy time per step (as
 ``fit_device_ms_per_step`` reads it, in the traced run), over the card's
 float32 peak, in percent."""
 
-SPANS = {"step": {"method": "_sparse_step"}}
+SPANS = {}
 
 
 def read(view):

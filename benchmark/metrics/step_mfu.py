@@ -3,7 +3,7 @@ forward and backward, ``counts/offset_gamma.py``; the rest of the step is
 not counted) times the window's steps per second outside the profiled
 stretch, over the card's float32 peak, in percent."""
 
-SPANS = {"step": {"method": "_sparse_step"}}
+SPANS = {}
 
 
 def read(view):

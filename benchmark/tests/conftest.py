@@ -59,9 +59,11 @@ def make_tiny_root(dest):
         if "workloads" in m:
             m["workloads"] = [w.replace("elife", "tiny") for w in m["workloads"]]
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
-    traffic = json.loads((dest / "benchmark" / "traffic" / "fit.json").read_text())
-    traffic.update(checkpoint_interval=8, warmup_steps=4, profile={"warmup": 1, "steps": 3})
-    (dest / "benchmark" / "traffic" / "fit.json").write_text(json.dumps(traffic))
+    for name, chunk in (("fit", "checkpoint_interval"), ("restarts", "chunk")):
+        path = dest / "benchmark" / "traffic" / f"{name}.json"
+        traffic = json.loads(path.read_text())
+        traffic.update({chunk: 8, "warmup_steps": 4, "profile": {"warmup": 1, "steps": 3}})
+        path.write_text(json.dumps(traffic))
     return dest
 
 

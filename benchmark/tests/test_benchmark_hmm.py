@@ -53,6 +53,15 @@ def test_sound_run_is_correct(hmm_root):
     assert r["checks"]["batch_repeat"]["value"] == 1.0  # every step takes every frame
 
 
+def test_traced_run_reads_host_spans(hmm_root):
+    from test_benchmark_run import CPU_METRICS
+
+    r = core.run_cell(hmm_root, CELL, 2**31 + 101, 4.0, 1, time.perf_counter(), device="cpu",
+                      log=lambda msg: None)
+    assert r["correct"] is True
+    assert set(r["metrics"]) == CPU_METRICS[CELL][1]
+
+
 def test_reference_agrees_with_the_port_in_float64(hmm_root):
     """The first loss and gradients agree to rounding; the later losses
     and the change to the port's float32 bias correction of the per-row

@@ -6,6 +6,8 @@ to run without a card. Nothing the benchmark runs imports JAX or the JAX
 package, and the reference imports nothing of the program."""
 
 import ast
+import json
+import shutil
 import subprocess
 import sys
 import time
@@ -24,13 +26,24 @@ def _run(tiny_root, workload, trace=0):
 
 # the end-to-end metrics a run on the CPU reports (the device's time per
 # step has no trace to read here), and the per-layer ones a traced run does
-# (only the host-clock readers have something to read)
-CPU_METRICS = {"cosmos-tiny-fit": ({"setup_s"}, {"fit_loop.steps_per_s"}),
-               "crosstalk-tiny-fit": ({"fit_steps_per_s", "setup_s"},
-                                      {"fit_loop.checkpoint_ms"})}
+# (only the host-clock readers and those of the program's own spans have
+# something to read; the restart step opens none of the latter)
+_HOST_SPANS = {"step.host_ms", "elbo.fwd_host_ms", "elbo.bwd_host_ms", "step.syncs",
+               "fit_loop.device_wait_ms"}
+CPU_METRICS = {
+    "cosmos-tiny-fit": ({"setup_s"},
+                        {"fit_loop.steps_per_s"} | {f"{m}.busy" for m in _HOST_SPANS}),
+    "crosstalk-tiny-fit": ({"fit_steps_per_s", "setup_s"},
+                           {"fit_loop.checkpoint_ms", "fit_loop.checkpoint_write_ms"}
+                           | _HOST_SPANS),
+    "hmm-tiny-fit": ({"setup_s"}, {"fit_loop.steps_per_s", "elbo.chain_host_ms.busy"}
+                     | {f"{m}.busy" for m in _HOST_SPANS}),
+    "cosmos-tiny-restarts-r4": ({"setup_s"}, {"fit_loop.steps_per_s"}),
+}
+CELLS = ["cosmos-tiny-fit", "crosstalk-tiny-fit", "cosmos-tiny-restarts-r4"]
 
 
-@pytest.mark.parametrize("workload", ["cosmos-tiny-fit", "crosstalk-tiny-fit"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_sound_run_is_correct(tiny_root, workload):
     r = _run(tiny_root, workload)
     assert r["correct"] is True and r["failed"] == 0
@@ -38,11 +51,34 @@ def test_sound_run_is_correct(tiny_root, workload):
     assert list(r)[-1] == "checks"
 
 
-@pytest.mark.parametrize("workload", ["cosmos-tiny-fit", "crosstalk-tiny-fit"])
+@pytest.mark.parametrize("workload", CELLS)
 def test_traced_run_reads_host_spans(tiny_root, workload):
     r = _run(tiny_root, workload, trace=1)
     assert r["correct"] is True
     assert set(r["metrics"]) == CPU_METRICS[workload][1]
+
+
+@pytest.mark.parametrize("workload,method", [("cosmos-tiny-fit", "_sparse_step"),
+                                             ("cosmos-tiny-restarts-r4", "_restart_step")])
+def test_a_reader_listing_step_reads_the_entrys_step(tiny_root, tmp_path, workload, method):
+    """A per-layer reader that lists its own ``step`` (``_sparse_step``)
+    reads the step that the cell's entry drives: the traced window's every
+    step, and the span the run installs is the entry's."""
+    root = tmp_path / "root"
+    shutil.copytree(tiny_root, root)
+    (root / "benchmark/metrics/step.calls.py").write_text(
+        'SPANS = {"step": {"method": "_sparse_step"}}\n\n\n'
+        'def read(view):\n    return float(len(view.host["step"]))\n')
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    bench["per_layer"].append({"name": "step.calls", "unit": "calls", "better": "lower",
+                               "source": "host_clock", "layer": "step",
+                               "moves": "fit_device_ms_per_step", "workloads": [workload]})
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    cell = core.Cell(root, workload)
+    assert core.span_specs(cell, cell.metrics("per_layer"))["step"] == {"method": method}
+    r = _run(root, workload, trace=1)
+    assert r["correct"] is True
+    assert r["metrics"]["step.calls"]["value"] == r["attempted"] > 0
 
 
 class _Trace:
@@ -63,10 +99,10 @@ def test_device_time_per_step_reads_the_busy_union():
     cell = core.Cell(ROOT, "cosmos-elife-fit")
     traced = [m["name"] for m in cell.metrics("end_to_end") if m["source"] == "device_trace"]
     assert traced == ["fit_device_ms_per_step"]
-    assert "step" in cell.metric_reader(traced[0]).SPANS
+    assert core.span_specs(cell, [{"name": traced[0]}])["step"] == {"method": "_sparse_step"}
 
 
-@pytest.mark.parametrize("workload", ["cosmos-tiny-fit", "crosstalk-tiny-fit"])
+@pytest.mark.parametrize("workload", CELLS)
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))
 def test_fault_in_the_timed_path_is_not_correct(tiny_root, workload, fault):
     with faults.FAULTS[fault]():

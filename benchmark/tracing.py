@@ -10,6 +10,10 @@ the spans it reads (``SPANS``); each is one of
 * ``{"backward_of": span}`` - the autograd nodes that the calls of another
   span leave, timed as they run in the backward pass.
 
+The span ``step`` is always the step the cell's entry drives (its
+``SPANS``, set over the readers'; ``core.span_specs``): readers list only
+the spans they add, and read ``step`` as whatever step that is.
+
 Every span keeps the host seconds of each call. While the profiler runs, a
 span is also a ``record_function`` range named ``span::<name>``, and a
 device event (kernel, copy, fill) belongs to a span when the host call that
