@@ -7,8 +7,8 @@ one. Phases, each printing its findings; any failure is an exception:
 
 1. device: the card's name and power limit;
 2. build: every CUDA library of ``csrc/native.py``'s registry (the
-   offset-Gamma, sparse-Adam and spot-render kernels) with nvcc for sm_90a
-   (build seconds, registers and spills);
+   offset-Gamma, sparse-Adam, spot-render, dye-table and chain-scan
+   kernels) with nvcc for sm_90a (build seconds, registers and spills);
 3. the summed kernel against its plain PyTorch version at the slice's
    shapes (M=4 configs, nb=5120 images, EVP=256 lanes, ev=196 pixels, J=61
    bins, float32: forward, concentration and rate gradients), then edge
@@ -205,7 +205,17 @@ one. Phases, each printing its findings; any failure is an exception:
     cosmos, cosmos+hmm and crosstalk ELBO through the kernels (one launch
     each) against the plain tables on the card, then the kernels' and the
     plain version's forward and backward timed with CUDA events beside
-    their bytes over 3.35 TB/s.
+    their bytes over 3.35 TB/s;
+31. the z-chain's prefix scan's two kernels (``ops/chain_scan.py``:
+    :func:`run_chain_scan`): the prefix products and their gradient against
+    the plain recursions in float64 at hmm's ELBO (10 x 790 on axis -4),
+    the R=4 restart step's and the posterior's (856 x 790 on axis 1) inputs,
+    at F = 1025 and at 1 + S = 3 (float32 within CS_F32_TOL, float64 within
+    CS_F64_TOL of the largest magnitude, two launches bitwise equal), one
+    cosmos+hmm ELBO through the kernels (one launch each) against the
+    doubling scan on the card, then the kernels' and the doubling scan's
+    forward and backward timed with CUDA events beside their bytes over
+    3.35 TB/s.
 Phase 3 also checks the summed kernel at nb = 7900 and at M=16, nb=10240,
 phase 5 the factored kernel at Kf=4, nb=10240, and phase 6 times them
 there, with the special-function floor of the exact evaluation beside that
@@ -381,19 +391,22 @@ def _read_launches():
 
 
 def _step_kernels(model, steps, forward=0, restart_steps=0):
-    """The launches on the card of the window, render and dye-table kernels
-    in ``steps`` sparse steps of ``model``, ``restart_steps`` restart steps
-    (whose Adam is dense) and ``forward`` forward-only ELBOs: a gather and
-    an Adam each sparse step; the tables' forward each ELBO and their
-    backward and proximity sum each gradient, in every model; and, where the
-    ELBO renders its spots in the render kernel (cosmos and cosmos+hmm
+    """The launches on the card of the window, render, dye-table and chain
+    scan kernels in ``steps`` sparse steps of ``model``, ``restart_steps``
+    restart steps (whose Adam is dense) and ``forward`` forward-only ELBOs:
+    a gather and an Adam each sparse step; the tables' forward each ELBO and
+    their backward and proximity sum each gradient, in every model; where
+    the ELBO renders its spots in the render kernel (cosmos and cosmos+hmm
     without ``use_factored``), a render each ELBO and a render_grad each
-    gradient."""
+    gradient; and in cosmos+hmm the chain's scan each ELBO and its gradient
+    each gradient."""
     elbos, grads = steps + restart_steps + forward, steps + restart_steps
     want = {"gather": steps, "adam": steps, "spot_tables": elbos, "spot_tables_grad": grads,
             "spot_tables_prox": grads}
     if model.name != "crosstalk" and not getattr(model, "use_factored", False):
         want.update(render=elbos, render_grad=grads)
+    if model.name == "cosmos+hmm":
+        want.update(chain_scan=elbos, chain_scan_grad=grads)
     return want
 
 
@@ -839,8 +852,9 @@ def run_cli_hmm_fit(workdir, nbatch=10, num_iter=200, device="cuda"):
 def check_cli_hmm_fit(res, num_iter, device="cuda"):
     """Raise unless phase 12 exited 0 on ``device`` with a warm start,
     stepped 0 -> ``num_iter`` with one summed-statistics launch per step at
-    nb = n·F (and the two held-out losses' forward launches and the window
-    and render kernels of :func:`_step_kernels`, nothing else),
+    nb = n·F (and the two held-out losses' forward launches, the kernels of
+    :func:`_step_kernels` and the chain scan of the two z_probs, after the
+    warm start and in the stats, nothing else),
     its chain marginals right after the warm start equal the cosmos z_probs
     on the on-target AOIs within WARM_TOL, and its stats hold: z_probs
     normalised, init / trans on the simplex, every LL <= Mean <= UL and
@@ -861,6 +875,7 @@ def check_cli_hmm_fit(res, num_iter, device="cuda"):
     want = dict.fromkeys(res["launches"], 0)
     if m.device.type == "cuda":
         want.update(summed_stats=num_iter, summed_fwd=2, **_step_kernels(m, num_iter, 2))
+        want["chain_scan"] += 2  # z_probs after the warm start and in the stats
         if res["shapes"] != {("summed_stats", M, n * F), ("summed_fwd", M, n * F)}:
             raise RuntimeError(f"CLI hmm fit: launches at {res['shapes']}")
     if res["launches"] != want:
@@ -3947,14 +3962,17 @@ def compare_spot_render(nb, R=None, dtype=torch.float32, seed=0, K=2, P=14, EVP=
 
 
 # the ops that an ELBO can take through its kernels or through its plain
-# version: their module, the plain version's name, their launchers and the
-# model modules that look the op up
+# version: their module, the plain version's name, their kernels' names in
+# native.launch_counts() and the model modules that look the op up
 ELBO_OPS = {
     "spot_concentration": ("tapqir_tpu_torch.ops.spot_render", "spot_concentration_plain",
                            ("render", "render_grad"), ("tapqir_tpu_torch.models.cosmos",)),
     "spot_tables": ("tapqir_tpu_torch.ops.spot_tables", "spot_tables_plain",
-                    ("tables", "tables_grad", "prox_sum"),
+                    ("spot_tables", "spot_tables_grad", "spot_tables_prox"),
                     ("tapqir_tpu_torch.models.cosmos", "tapqir_tpu_torch.models.hmm")),
+    "cumulative_logmatmulexp": ("tapqir_tpu_torch.ops.scan", "doubling_cumulative_logmatmulexp",
+                                ("chain_scan", "chain_scan_grad"),
+                                ("tapqir_tpu_torch.models.hmm",)),
 }
 
 
@@ -3970,9 +3988,8 @@ def compare_elbo_routes(model_name="cosmos", dtype="double", N=6, F=16, nbatch=3
     from tapqir_tpu_torch.utils.dataset import save
     from tapqir_tpu_torch.utils.simulate import simulate
 
-    op_module, plain_name, launcher_names, model_modules = ELBO_OPS[op]
+    op_module, plain_name, kernel_names, model_modules = ELBO_OPS[op]
     ops = importlib.import_module(op_module)
-    launchers = [getattr(ops, n) for n in launcher_names]
     users = [importlib.import_module(m) for m in model_modules]
     sim, C, params = (("crosstalk", 2, XTALK_PARAMS) if model_name == "crosstalk"
                       else ("cosmos", 1, SIM_PARAMS))
@@ -4000,9 +4017,10 @@ def compare_elbo_routes(model_name="cosmos", dtype="double", N=6, F=16, nbatch=3
                 setattr(m, op, p)
         return loss.detach(), dict(zip(win, grads))
 
-    n = [k.launches for k in launchers]
+    before = _read_launches()
     loss, grads = run(getattr(ops, op))
-    launches = tuple(k.launches - c for k, c in zip(launchers, n))
+    after = _read_launches()
+    launches = tuple(after[k] - before[k] for k in kernel_names)
     p_loss, p_grads = run(getattr(ops, plain_name))
     torch.cuda.synchronize()
     return {"loss_rel": float(((loss - p_loss).abs() / p_loss.abs()).double()),
@@ -4247,6 +4265,122 @@ def run_spot_tables(iters=200):
             bound_bwd_ms=1e3 * bytes_bwd / PEAK_BYTES_PER_S)
     return {"checks": checks, "elbo": elbo, "timing": timing,
             "launches": {k.name: k.launches for k in (st.tables, st.tables_grad, st.prox_sum)}}
+
+
+# the chain scan's inputs at eLife DatasetA, (shape, frame axis): hmm's ELBO
+# (10 AOIs x 790 frames, C = 1, 1 + S = 2) on axis -4, the restart step's
+# R=4 chains of it, and the posterior z_probs over all 856 AOIs on axis 1
+CS_CASES = {"hmm": ((10, 790, 1, 2, 2), -4), "restarts R=4": ((4, 10, 790, 1, 2, 2), -4),
+            "posterior": ((856, 790, 1, 2, 2), 1)}
+# beyond them: runs of 5 frames (F = 1025 > 4 x 256) and three states
+CS_EDGES = {"F=1025": ((3, 1025, 1, 2, 2), 1), "S+1=3": ((10, 790, 1, 3, 3), -4)}
+# the kernels against the plain recursions in float64 on the same inputs, the
+# largest difference over the largest magnitude of the products and of the
+# gradient: float64 kernels (another association than the plain fold), and
+# float32 kernels over 790-1025 dependent products (the float32 doubling
+# scan's own error is reported beside it)
+CS_F64_TOL = 1e-12
+CS_F32_TOL = 3e-5
+# one float64 hmm ELBO through the kernels against the doubling scan: the
+# loss's relative difference (CS_F64_TOL) and the window gradients' largest
+# scaled one
+CS_ELBO_TOL = 1e-10
+
+
+def chain_scan_case(shape, dtype=torch.float64, seed=0, device="cpu"):
+    """Row-stochastic log-transition matrices of ``shape`` (the last two
+    axes square) and a cotangent of their prefix products, made in numpy
+    from ``seed``."""
+    rng = np.random.default_rng(seed)
+    logits = 2.0 * rng.standard_normal(shape)
+    log_mats = logits - np.log(np.exp(logits).sum(-1, keepdims=True))
+    return (torch.tensor(log_mats, dtype=dtype, device=device),
+            torch.tensor(rng.standard_normal(shape), dtype=dtype, device=device))
+
+
+def chain_scan_grads(fn, log_mats, grad, axis):
+    """``fn`` (a scan) on ``log_mats`` along ``axis``: the prefix products
+    and the gradient of ``log_mats`` for their cotangent ``grad``."""
+    x = log_mats.detach().clone().requires_grad_()
+    prods = fn(x, axis)
+    (g,) = torch.autograd.grad(prods, x, grad)
+    return prods.detach(), g
+
+
+def compare_chain_scan(shape, axis, dtype=torch.float32, seed=0):
+    """The scan's kernels against the plain recursions on the card: the
+    prefix products and the gradient of one :func:`chain_scan_case` in
+    ``dtype`` against ``chain_scan_plain`` / ``chain_scan_grad_plain`` in
+    float64 on the same inputs (CS_F64_TOL or CS_F32_TOL), two launches
+    bitwise equal, one launch of each kernel a call. Returns the errors
+    (and the float32 doubling scan's beside them)."""
+    from tapqir_tpu_torch.ops import chain_scan as cs
+    from tapqir_tpu_torch.ops.scan import doubling_cumulative_logmatmulexp
+
+    log_mats, grad = chain_scan_case(shape, dtype, seed, "cuda")
+    n = (cs.scan.launches, cs.scan_grad.launches)
+    prods, g = chain_scan_grads(cs.chain_scan, log_mats, grad, axis)
+    if (cs.scan.launches - n[0], cs.scan_grad.launches - n[1]) != (1, 1):
+        raise RuntimeError(f"chain scan {shape}: launches {cs.scan.launches - n[0]}, "
+                           f"{cs.scan_grad.launches - n[1]}")
+    prods2, g2 = chain_scan_grads(cs.chain_scan, log_mats, grad, axis)
+    if not (torch.equal(prods, prods2) and torch.equal(g, g2)):
+        raise RuntimeError(f"chain scan {shape} {dtype}: two launches differ")
+    a64, g64 = log_mats.double(), grad.double()
+    ref = cs.chain_scan_plain(a64, axis)
+    ref_g = cs.chain_scan_grad_plain(a64, ref, g64, axis)
+    errs = {"prods": scaled_err(prods, ref), "grad": scaled_err(g, ref_g)}
+    if dtype == torch.float32:
+        p32, g32 = chain_scan_grads(doubling_cumulative_logmatmulexp, log_mats, grad, axis)
+        errs["doubling_float32"] = {"prods": scaled_err(p32, ref), "grad": scaled_err(g32, ref_g)}
+    tol = CS_F64_TOL if dtype == torch.float64 else CS_F32_TOL
+    if not max(errs["prods"], errs["grad"]) <= tol:
+        raise RuntimeError(f"chain scan {shape} {dtype}: {errs} (at most {tol})")
+    return errs
+
+
+def run_chain_scan(iters=200):
+    """Phase 31: the chain scan's two kernels against the plain recursions
+    at hmm's ELBO, the R=4 restart step's and the posterior's inputs at
+    eLife DatasetA (float32 and float64), at F = 1025 and at three states,
+    one hmm ELBO through the kernels (one launch each) against the doubling
+    scan on the card, then the kernels' and the doubling scan's forward and
+    backward timed with CUDA events beside their bytes over 3.35 TB/s."""
+    from tapqir_tpu_torch.ops import chain_scan as cs
+    from tapqir_tpu_torch.ops.scan import doubling_cumulative_logmatmulexp
+
+    checks = {}
+    for i, (name, (shape, axis)) in enumerate({**CS_CASES, **CS_EDGES}.items()):
+        for j, dtype in enumerate((torch.float32, torch.float64)):
+            checks[f"{name} {str(dtype)[6:]}"] = compare_chain_scan(shape, axis, dtype,
+                                                                   seed=2 * i + j)
+    elbo = compare_elbo_routes("cosmos+hmm", op="cumulative_logmatmulexp")
+    if elbo["launches"] != (1, 1) or not (elbo["loss_rel"] <= CS_F64_TOL
+                                          and elbo["grads_scaled"] <= CS_ELBO_TOL):
+        raise RuntimeError(f"cosmos+hmm: the ELBO through the chain scan's kernels {elbo}")
+    timing = {}
+    for name, (shape, axis) in CS_CASES.items():
+        log_mats, grad = chain_scan_case(shape, torch.float32, seed=20, device="cuda")
+        item, numel = log_mats.element_size(), log_mats.numel()
+        # the forward reads A and writes P; the backward reads A, P and gP
+        # and writes dA (its G scratch in dA's buffer left out)
+        bytes_fwd, bytes_bwd = 2 * numel * item, 4 * numel * item
+        for route, fn in (("kernel", cs.chain_scan), ("plain", doubling_cumulative_logmatmulexp)):
+            x = log_mats.detach().clone().requires_grad_()
+            fwd = lambda: fn(x, axis)  # noqa: E731
+            out = fwd()
+            bwd = lambda: torch.autograd.grad(out, x, grad, retain_graph=True)  # noqa: E731
+            n_it = 5 if route == "plain" else iters  # the doubling scan: ~115 launches a call
+            f_call, b_call = time_ms(fwd, n_it), time_ms(bwd, n_it)
+            timing[f"{name} {route}"] = {
+                "fwd_ms": device_ms(fwd, n_it, f_call), "bwd_ms": device_ms(bwd, n_it, b_call),
+                "fwd_call_ms": f_call, "bwd_call_ms": b_call}
+        timing[f"{name} kernel"].update(
+            bytes_fwd=bytes_fwd, bytes_bwd=bytes_bwd,
+            bound_fwd_ms=1e3 * bytes_fwd / PEAK_BYTES_PER_S,
+            bound_bwd_ms=1e3 * bytes_bwd / PEAK_BYTES_PER_S)
+    return {"checks": checks, "elbo": elbo, "timing": timing,
+            "launches": {k.name: k.launches for k in (cs.scan, cs.scan_grad)}}
 
 
 def time_ms(fn, iters):
@@ -4779,6 +4913,10 @@ def main():
         # phase 30: the dye tables' forward and backward kernels
         dye_tables = run_spot_tables()
         lap("30 spot tables")
+
+        # phase 31: the chain scan's forward and backward kernels
+        chain = run_chain_scan()
+        lap("31 chain scan")
     for label, res in (("dense", dense), ("factored", fact)):
         print(f"[{label}] cosmos Nt=856 F=790 P=14 J=61 batch 10x512: {num_iter} steps "
               f"in {res['seconds']:.3f} s = {res['steps_per_s']:.3f} steps/s on {name} "
@@ -4921,6 +5059,11 @@ def main():
           f"{json.dumps(dye_tables['elbo'])}", flush=True)
     for k, v in dye_tables["timing"].items():
         print(f"[timing] spot_tables {k} on {name} ({smi}): {json.dumps(v)}", flush=True)
+    print(f"[chain-scan] kernels vs plain float64, largest scaled differences: "
+          f"{json.dumps(chain['checks'])}; hmm ELBO through the kernels vs the doubling scan: "
+          f"{json.dumps(chain['elbo'])}", flush=True)
+    for k, v in chain["timing"].items():
+        print(f"[timing] chain_scan {k} on {name} ({smi}): {json.dumps(v)}", flush=True)
     dl, fl, pl = dense["launches"], fact["launches"], pixel["launches"]
     if dl["summed_stats"] < num_iter or dl["summed_fwd"] < 1:
         raise RuntimeError(f"dense path: kernel launches {dl}")

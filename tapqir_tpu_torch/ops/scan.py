@@ -1,11 +1,14 @@
 """Prefix products of log-transition matrices for the hmm chain (counterpart
 of tapqir_tpu/ops/scan.py).
 
-The JAX package's ``jax.lax.associative_scan`` becomes a Hillis-Steele
-doubling scan: ceil(log2 F) levels, each ONE batched ``logmatmulexp`` over
-every frame at once, so F=790 frames cost 10 levels of whole-tensor ops and
-no loop over frames. Every level is out of place, so autograd differentiates
-it like any other op.
+:func:`cumulative_logmatmulexp` takes a CUDA tensor through the two kernels
+of ``ops/chain_scan.py`` (one launch forward, one backward) and a CPU
+tensor through :func:`doubling_cumulative_logmatmulexp`, the plain version:
+the JAX package's ``jax.lax.associative_scan`` as a Hillis-Steele doubling
+scan, ceil(log2 F) levels, each ONE batched ``logmatmulexp`` over every
+frame at once, so F=790 frames cost 10 levels of whole-tensor ops and no
+loop over frames. Every level is out of place, so autograd differentiates
+it like any other op. There is no fallback from one to the other.
 
 With the frame axis sharded over a mesh row,
 :func:`sharded_cumulative_logmatmulexp` promotes each shard's local prefix
@@ -15,19 +18,24 @@ totals, and the product of the totals before the shard.
 
 import torch
 
+from tapqir_tpu_torch.ops.chain_scan import chain_scan, logmatmulexp
 from tapqir_tpu_torch.parallel.sharding import all_gather
 
-__all__ = ["logmatmulexp", "cumulative_logmatmulexp", "sharded_cumulative_logmatmulexp"]
-
-
-def logmatmulexp(a, b):
-    """(..., i, j) @ (..., j, k) in log space, numerically stable."""
-    return torch.logsumexp(a[..., :, :, None] + b[..., None, :, :], dim=-2)
+__all__ = ["logmatmulexp", "cumulative_logmatmulexp", "doubling_cumulative_logmatmulexp",
+           "sharded_cumulative_logmatmulexp"]
 
 
 def cumulative_logmatmulexp(log_mats, axis):
     """All prefix products A_0, A_0@A_1, ..., A_0@...@A_{F-1} in log space
-    along ``axis`` (the matrices are the last two axes)."""
+    along ``axis`` (the matrices are the last two axes): the kernels on a
+    CUDA tensor, the doubling scan on a CPU tensor."""
+    if log_mats.device.type == "cpu":
+        return doubling_cumulative_logmatmulexp(log_mats, axis)
+    return chain_scan(log_mats, axis)
+
+
+def doubling_cumulative_logmatmulexp(log_mats, axis):
+    """:func:`cumulative_logmatmulexp` as the doubling scan, level by level."""
     x = torch.movedim(log_mats, axis, 0)
     F = x.shape[0]
     d = 1

@@ -371,7 +371,8 @@ def test_chip_smoke_convergence_phase_tiny_on_cpu(tmp_path, monkeypatch):
     assert res["elife"]["Nt"] == 16 and res["elife"]["F"] == 12
     no_launches = dict.fromkeys(("summed_fwd", "summed_stats", "pixel_fwd", "pixel_stats",
                                  "factored_stats", "gather", "adam", "render", "render_grad",
-                                 "spot_tables", "spot_tables_grad", "spot_tables_prox"), 0)
+                                 "spot_tables", "spot_tables_grad", "spot_tables_prox",
+                                 "chain_scan", "chain_scan_grad"), 0)
     assert res["elife_launches"] == res["recovery_launches"] == no_launches
     assert res["recovery"]["crosscheck"]["golden"] == "crosscheck_jax_cosmos.npz"
     assert len(res["elife_losses"]) == 1 and res["recovery"]["iters"] == 3

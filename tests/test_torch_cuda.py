@@ -34,6 +34,14 @@ ELBO launches each once and matches the plain route, and
 ``native.launch_counts()`` shows one forward and two backward launches a
 step.
 
+The z-chain scan's two kernels (``ops/chain_scan.py``) are held against
+the plain recursions in float32 and float64 at hmm's ELBO, the R=4 restart
+step's and the posterior's inputs at eLife DatasetA, at F = 1025 and at
+three states (the plain recursions are tested on the CPU in
+test_torch_chain_scan.py); one cosmos+hmm ELBO launches each once and
+matches the doubling scan, and ``native.launch_counts()`` shows one forward
+and one backward launch a step.
+
 A mesh launched on the card finds every CUDA library built in the process
 that launched it (``csrc/native.py``'s registry), before its ranks start.
 """
@@ -517,6 +525,100 @@ def test_launch_counts_show_the_tables_once_forward_and_twice_backward(cs, tmp_p
     assert [after[k] - before[k] for k in names] == [3, 3, 3]
 
 
+CHAIN_SCAN_CASES = {
+    "hmm": ((10, 790, 1, 2, 2), -4, torch.float32),
+    "hmm-float64": ((10, 790, 1, 2, 2), -4, torch.float64),
+    "restarts-R4": ((4, 10, 790, 1, 2, 2), -4, torch.float32),
+    "restarts-R4-float64": ((4, 10, 790, 1, 2, 2), -4, torch.float64),
+    "posterior": ((856, 790, 1, 2, 2), 1, torch.float32),
+    "posterior-float64": ((856, 790, 1, 2, 2), 1, torch.float64),
+    "F1025": ((3, 1025, 1, 2, 2), 1, torch.float32),
+    "F1025-float64": ((3, 1025, 1, 2, 2), 1, torch.float64),
+    "S3": ((10, 790, 1, 3, 3), -4, torch.float32),
+    "S3-float64": ((10, 790, 1, 3, 3), -4, torch.float64),
+}
+
+
+@pytest.mark.parametrize("case", list(CHAIN_SCAN_CASES))
+def test_chain_scan_kernels_match_plain(cs, case):
+    """The chain scan's kernels against the plain recursions in float64 on
+    the same inputs at hmm's ELBO (10 x 790 on axis -4), the R=4 restart
+    step's and the posterior's (856 x 790 on axis 1) inputs, at F = 1025
+    and at 1 + S = 3: the prefix products and the gradient within
+    chip_smoke.CS_F64_TOL (float64) or CS_F32_TOL (float32) of the largest
+    magnitude, one launch each a call, two launches bitwise equal
+    (chip_smoke.compare_chain_scan)."""
+    shape, axis, dtype = CHAIN_SCAN_CASES[case]
+    errs = cs.compare_chain_scan(shape, axis, dtype, seed=5)
+    tol = cs.CS_F64_TOL if dtype == torch.float64 else cs.CS_F32_TOL
+    assert max(errs["prods"], errs["grad"]) <= tol
+
+
+def test_chain_scan_launchers_check_their_inputs(cs):
+    from tapqir_tpu_torch.ops import chain_scan as chs
+
+    a = torch.zeros((2, 5, 1, 2, 2), device="cuda")
+    p = torch.empty_like(a)
+    n = (chs.scan.launches, chs.scan_grad.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):  # a CPU tensor
+        chs.scan(a.cpu(), 1, p.cpu())
+    with pytest.raises(TypeError):  # a half-precision tensor
+        chs.scan(a.half(), 1, p.half())
+    with pytest.raises(TypeError):  # products of another dtype
+        chs.scan(a, 1, p.double())
+    with pytest.raises(ValueError):  # products of another shape
+        chs.scan(a, 1, p[:, :4])
+    with pytest.raises(ValueError):  # matrices that are not square
+        chs.scan(a[..., :1], 1, p[..., :1])
+    with pytest.raises(ValueError):  # more states than the kernels take
+        big = torch.zeros((2, 5, 1, 8, 8), device="cuda")
+        chs.scan(big, 1, torch.empty_like(big))
+    with pytest.raises(ValueError):  # the frame axis among the matrices' axes
+        chs.scan(a, -1, p)
+    with pytest.raises(TypeError):  # a gradient of another dtype
+        chs.scan_grad(a, 1, p, gp=p, ga=p.double())
+    assert (chs.scan.launches, chs.scan_grad.launches) == n
+    chs.scan(a, 1, p)
+    chs.scan_grad(a, 1, p, gp=torch.zeros_like(a), ga=torch.empty_like(a))
+    torch.cuda.synchronize()
+    assert (chs.scan.launches, chs.scan_grad.launches) == (n[0] + 1, n[1] + 1)
+
+
+def test_elbo_through_the_chain_scan_kernels(cs):
+    """One float64 cosmos+hmm ELBO through ``elbo_from_windows`` on the card
+    launches each of the scan's kernels once, and its loss and window
+    gradients match the doubling scan's on the same batch and draws (the
+    loss within chip_smoke.CS_F64_TOL, the gradients within
+    CS_ELBO_TOL)."""
+    res = cs.compare_elbo_routes("cosmos+hmm", op="cumulative_logmatmulexp")
+    assert res["launches"] == (1, 1)
+    assert res["loss_rel"] <= cs.CS_F64_TOL
+    assert res["grads_scaled"] <= cs.CS_ELBO_TOL
+
+
+def test_launch_counts_show_the_chain_scan_once_forward_and_once_backward(cs, tmp_path):
+    """``native.launch_counts()`` over three sparse steps of a float32
+    cosmos+hmm model on the card: the scan's forward and backward once a
+    step each."""
+    from tapqir_tpu_torch.csrc import native
+    from tapqir_tpu_torch.models import models
+    from tapqir_tpu_torch.utils.dataset import save
+    from tapqir_tpu_torch.utils.simulate import simulate
+
+    save(simulate("cosmos", N=6, F=16, C=1, P=14, seed=0, params=cs.SIM_PARAMS,
+                  device="cuda"), tmp_path)
+    m = models["cosmos+hmm"](device="cuda", dtype="float")
+    m.load(tmp_path)
+    m.init(lr=0.005, nbatch_size=3, fbatch_size=8)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    before = native.launch_counts()
+    for _ in range(3):
+        assert np.isfinite(float(m._sparse_step(gen)))
+    after = native.launch_counts()
+    assert [after[k] - before[k] for k in ("chain_scan", "chain_scan_grad")] == [3, 3]
+
+
 def _rank_device(mesh):
     return str(mesh.device)
 
@@ -532,8 +634,8 @@ def test_mesh_launch_builds_every_cuda_library_in_the_parent(monkeypatch):
     from tapqir_tpu_torch.parallel import sharding
 
     cuda = [lib for lib in native.LIBRARIES if lib.cuda]
-    assert sorted(lib.stem for lib in cuda) == ["offset_gamma", "sparse_adam", "spot_render",
-                                                "spot_tables"]
+    assert sorted(lib.stem for lib in cuda) == ["chain_scan", "offset_gamma", "sparse_adam",
+                                                "spot_render", "spot_tables"]
     for lib in cuda:
         monkeypatch.setattr(lib, "_lib", None)  # as if this process had loaded none
     mesh = sharding.make_mesh(2, 1, ["cuda:0"] * 2)

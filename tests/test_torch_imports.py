@@ -70,7 +70,7 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_importing_the_port_declares_every_kernel_and_builds_nothing():
     """Importing every module of the port (in a fresh process: the test
-    workers share built libraries) declares the twelve kernels of its four
+    workers share built libraries) declares the fourteen kernels of its five
     CUDA libraries and the Glimpse decoder, each once, in ``native``'s
     registry, with every launch count at 0, and builds or loads no
     library."""
@@ -85,9 +85,9 @@ def test_importing_the_port_declares_every_kernel_and_builds_nothing():
         assert counts == dict.fromkeys(
             ("summed_fwd", "summed_stats", "pixel_fwd", "pixel_stats", "factored_stats",
              "gather", "adam", "render", "render_grad", "spot_tables", "spot_tables_grad",
-             "spot_tables_prox"), 0), counts
+             "spot_tables_prox", "chain_scan", "chain_scan_grad"), 0), counts
         stems = sorted((lib.stem, lib.cuda) for lib in native.LIBRARIES)
-        assert stems == [("glimpse_io", False), ("offset_gamma", True),
+        assert stems == [("chain_scan", True), ("glimpse_io", False), ("offset_gamma", True),
                          ("sparse_adam", True), ("spot_render", True),
                          ("spot_tables", True)], stems
         built = [lib.stem for lib in native.LIBRARIES

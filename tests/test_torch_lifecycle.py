@@ -27,7 +27,8 @@ from tapqir_tpu_torch.utils.dataset import CosmosDataset, OffsetData
 # takes the plain paths
 NO_LAUNCHES = dict.fromkeys(("summed_fwd", "summed_stats", "pixel_fwd", "pixel_stats",
                              "factored_stats", "gather", "adam", "render", "render_grad",
-                             "spot_tables", "spot_tables_grad", "spot_tables_prox"), 0)
+                             "spot_tables", "spot_tables_grad", "spot_tables_prox",
+                             "chain_scan", "chain_scan_grad"), 0)
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
